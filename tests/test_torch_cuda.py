@@ -1,4 +1,5 @@
-"""The CUDA kernels K1/K2 == their plain PyTorch version, on a GPU.
+"""The CUDA kernels K1/K2 and the face sweep == their plain PyTorch
+versions, on a GPU.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -16,13 +17,16 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from tps_torch.dg import cuda_fused  # noqa: E402
+from tps_torch.dg import cuda_faces, cuda_fused  # noqa: E402
+from tps_torch.dg.bc import WallBC  # noqa: E402
+from tps_torch.dg.cuda_faces import build_face_sweep, build_prototype_sweep  # noqa: E402
 from tps_torch.dg.cuda_fused import build_cuda_fused  # noqa: E402
 from tps_torch.dg.discretization import build_tables  # noqa: E402
 from tps_torch.dg.fluxes import Fluxes  # noqa: E402
-from tps_torch.dg.rhs import RHSContext  # noqa: E402
+from tps_torch.dg.operators import dg_gradient  # noqa: E402
+from tps_torch.dg.rhs import RHSContext, bc_slices  # noqa: E402
 from tps_torch.dg.riemann import Rusanov  # noqa: E402
-from tps_torch.mesh.generators import box_3d  # noqa: E402
+from tps_torch.mesh.generators import box_2d, box_3d  # noqa: E402
 from tps_torch.physics.gas import DryAir  # noqa: E402
 from tps_torch.physics.transport import DryAirTransport  # noqa: E402
 
@@ -91,3 +95,124 @@ def test_wrapper_rejects_bad_input(device):
         rhs.gradient(U.double())
     with pytest.raises(ValueError):
         rhs.gradient(U.transpose(1, 2).contiguous().transpose(1, 2))
+
+
+# ---------------------------------------------------------------- face sweep
+
+
+def _face_case(n, order, eq_system, basis, dtype, device):
+    """Slot-mode sweep on a walled box and X = [U | G] from a seeded state."""
+    dim = len(n)
+    kw = {} if basis == "gl" else dict(basis="gauss-lobatto",
+                                       quad_rule="gauss-lobatto")
+    mesh = (box_3d(*n, periodic=(False,) * 3) if dim == 3
+            else box_2d(*n, periodic_x=False, periodic_y=False))
+    tab_np = build_tables(mesh, order, **kw)
+    mix = DryAir(dim=dim, nvel=dim)
+    tr = None if eq_system == "euler" else DryAirTransport(
+        mix.gas_constant, mix.specific_heat_ratio, bulk_visc_mult=0.3)
+    fl = Fluxes(mixture=mix, transport=tr, eq_system=eq_system)
+    bcs = bc_slices(tab_np.f_bdr_attr, lambda p: WallBC("inviscid"))
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl), bcs=bcs)
+    rng = np.random.default_rng(5)
+    Up = np.empty(tab_np.xyz_dof.shape[:-1] + (dim + 2,))
+    Up[..., 0] = rng.uniform(1.0, 1.4, Up.shape[:-1])
+    Up[..., 1:1 + dim] = rng.uniform(-15.0, 15.0, Up.shape[:-1] + (dim,))
+    Up[..., dim + 1] = rng.uniform(280.0, 320.0, Up.shape[:-1])
+    tab = tab_np.to_torch(dtype, device)
+    U = mix.conservatives(torch.as_tensor(Up)).to(dtype=dtype, device=device)
+    X = U if eq_system == "euler" else torch.cat(
+        [U, dg_gradient(tab, mix.primitives(U)).reshape(U.shape[0], U.shape[1], -1)],
+        -1)
+    return build_face_sweep(tab, ctx), X.contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,order,eq_system,basis", [
+    ((3, 4, 5), 2, "navier-stokes", "gll"),
+    ((3, 4, 5), 2, "navier-stokes", "gl"),
+    ((3, 4, 5), 2, "euler", "gll"),
+    ((2, 3, 3), 3, "navier-stokes", "gll"),
+    ((6, 5), 3, "navier-stokes", "gll"),
+    ((6, 5), 2, "euler", "gl"),
+])
+def test_face_sweep_matches_plain(device, n, order, eq_system, basis, dtype):
+    sweep, X = _face_case(n, order, eq_system, basis, dtype, device)
+    cuda_faces.reset_launches()
+    z = sweep(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    assert _rel(z, sweep.plain(X)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_face_sweep_prototype_mode(device, dtype):
+    from tps_torch.tools.face_prototype import prototype_state
+
+    tab = build_tables(box_3d(4, 5, 6, periodic=(True, True, True)), 2)
+    sweep = build_prototype_sweep(tab, dtype, device)
+    U = torch.as_tensor(prototype_state(tab.ne, tab.ndof), dtype=dtype,
+                        device=device)
+    z = sweep(U)
+    torch.cuda.synchronize()
+    assert _rel(z, sweep.plain(U)) <= 1e-5
+
+
+WALLED_DECK = """
+[solver]
+type = flow
+[flow]
+order = 2
+maxIters = 2
+timingFreq = 2
+equation_system = navier-stokes
+[mesh]
+generator = box3d
+nx = 3
+ny = 3
+nz = 4
+[time]
+integrator = rk4
+dt_fixed = 2e-6
+[initialConditions]
+rho = 1.2
+rhoU = 12.0
+pressure = 101300
+[io]
+outdirBase = {outdir}
+""" + "".join(f"[boundaryConditions/wall{i}]\npatch = {i}\ntype = inviscid\n"
+              for i in range(1, 7))
+
+
+def test_slot_solver_launches_the_face_sweep(device, tmp_path):
+    """The GLL walled deck through the CLI on the card: the slot path
+    launches the face sweep once per RHS (K1/K2 never) and lands where
+    the CPU run (the plain sweep) does, in f64."""
+    from tps_torch import harness
+
+    path = tmp_path / "walled.ini"
+    path.write_text(WALLED_DECK.format(outdir=tmp_path / "out"))
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        states = {}
+        for dev in ("cuda", "cpu"):
+            tps = harness.Tps()
+            tps.parse_command_line_args(["tps", "--runFile", str(path),
+                                         "--device", dev])
+            tps.parse_input()
+            tps.choose_devices()
+            tps.choose_solver()
+            tps.initialize()
+            cuda_fused.reset_launches()
+            cuda_faces.reset_launches()
+            tps.solve()
+            states[dev] = tps.solver.state_global()
+            if dev == "cuda":
+                assert cuda_faces.launches["face_sweep"] == 8
+                assert cuda_fused.launches == {"k1_gradient": 0,
+                                               "k2_faces_volume": 0}
+    finally:
+        torch.set_default_dtype(old)
+    np.testing.assert_allclose(states["cuda"], states["cpu"], rtol=1e-10,
+                               atol=1e-10 * np.max(np.abs(states["cpu"])))

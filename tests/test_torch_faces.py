@@ -1,0 +1,260 @@
+"""The face sweep of tps_torch (dg/cuda_faces.py) on the CPU.
+
+1. The prototype: tools/pallas_face_prototype.py runs in a subprocess
+   (Pallas interpret mode, its own jax config) and saves its state, its
+   XLA chain's result and its Pallas kernel's result.  The port's
+   `prototype_chain_plain` and the wrapper's CPU path in prototype mode
+   land within the prototype's own bar (1e-5, f32) of both; the package's
+   Rusanov in its place does not.
+2. The kernel's algebra: `_emulate` replays in numpy exactly what
+   csrc/face_sweep.cu computes from the words the wrapper passes (the
+   nbr_row decode, the Btr_or combo rows, the strided normals, the mask
+   and the sign) and must agree with the plain version, 1e-11 in f64.
+The CUDA kernel itself runs only on a GPU (tests/test_torch_cuda.py,
+chip_smoke.py).
+"""
+
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from tps_torch.dg import cuda_faces  # noqa: E402
+from tps_torch.dg.bc import WallBC  # noqa: E402
+from tps_torch.dg.cuda_faces import (  # noqa: E402
+    build_face_sweep,
+    build_prototype_sweep,
+    face_sweep_plain,
+    face_sweep_supported,
+    prototype_chain_plain,
+)
+from tps_torch.dg.discretization import build_tables  # noqa: E402
+from tps_torch.dg.fluxes import Fluxes  # noqa: E402
+from tps_torch.dg.operators import dg_gradient  # noqa: E402
+from tps_torch.dg.rhs import RHSContext, bc_slices  # noqa: E402
+from tps_torch.dg.riemann import Rusanov  # noqa: E402
+from tps_torch.mesh.generators import box_2d, box_3d  # noqa: E402
+from tps_torch.physics.gas import DryAir  # noqa: E402
+from tps_torch.physics.transport import ConstantTransport, DryAirTransport  # noqa: E402
+from tps_torch.tools.face_prototype import prototype_state  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PROTO_BAR = 1e-5  # tools/pallas_face_prototype.py:186
+TOL = 1e-11
+
+GLL = dict(basis="gauss-lobatto", quad_rule="gauss-lobatto")
+
+
+def _ctx(dim, eq_system):
+    mix = DryAir(dim=dim, nvel=dim)
+    tr = None if eq_system == "euler" else DryAirTransport(
+        mix.gas_constant, mix.specific_heat_ratio, bulk_visc_mult=0.3)
+    fl = Fluxes(mixture=mix, transport=tr, eq_system=eq_system)
+    return RHSContext(fluxes=fl, riemann=Rusanov(fl))
+
+
+def _rel(a, ref):
+    a, ref = np.asarray(a, np.float64), np.asarray(ref, np.float64)
+    return np.max(np.abs(a - ref)) / np.max(np.abs(ref))
+
+
+# ---------------------------------------------------------------- prototype
+
+
+@pytest.fixture(scope="module")
+def prototype_run(tmp_path_factory):
+    """tools/pallas_face_prototype.py's arrays (interpret mode)."""
+    out = tmp_path_factory.mktemp("proto") / "proto.npz"
+    code = (
+        "import runpy, sys\n"
+        "import numpy as np\n"
+        "sys.argv = ['pallas_face_prototype.py']\n"
+        "g = runpy.run_path('tools/pallas_face_prototype.py')\n"
+        f"np.savez({str(out)!r}, Ustd=np.asarray(g['Ustd']), "
+        "z_ref=np.asarray(g['z_ref']), z_pal_std=np.asarray(g['z_pal_std']))\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "CORRECT" in res.stdout
+    d = np.load(out)
+    tab = build_tables(box_3d(16, 16, 16, periodic=(True, True, True)), 2)
+    return {k: d[k] for k in d.files}, tab
+
+
+def test_prototype_chain_and_wrapper_match_the_prototype(prototype_run):
+    arr, tab = prototype_run
+    U_np = prototype_state(tab.ne, tab.ndof)
+    np.testing.assert_array_equal(U_np, arr["Ustd"])  # the same state
+    U = torch.as_tensor(U_np)
+    sweep = build_prototype_sweep(tab, torch.float32, "cpu")
+    cuda_faces.reset_launches()
+    z_wrap = sweep(U)
+    assert cuda_faces.launches["face_sweep"] == 0
+    z_chain = prototype_chain_plain(
+        U, torch.as_tensor(tab.Btr, dtype=torch.float32),
+        torch.as_tensor(tab.nor_slot[0], dtype=torch.float32),
+        torch.as_tensor(tab.wts_slot[0], dtype=torch.float32), tab.roll_info)
+    for z in (z_wrap, z_chain):
+        assert z.dtype == torch.float32
+        for ref in ("z_ref", "z_pal_std"):
+            assert _rel(z, arr[ref]) < PROTO_BAR, ref
+
+
+def test_package_rusanov_fails_the_prototype_bar(prototype_run):
+    """The prototype's per-side |u.n| + c|n| and the package's
+    max(|u| + c) |n| differ far above 1e-5 on the prototype's state: a
+    kernel with the two swapped fails the prototype's check."""
+    arr, tab = prototype_run
+    U = torch.as_tensor(arr["Ustd"])
+    ctx = _ctx(3, "euler")
+    z_pkg = -face_sweep_plain(ctx, tab.to_torch(torch.float32, "cpu"), U)
+    assert _rel(z_pkg, arr["z_ref"]) > 100 * PROTO_BAR
+    # and the numpy replay of the kernel, in each form
+    sweep = build_prototype_sweep(tab, torch.float32, "cpu")
+    X = U.double()
+    assert _rel(_emulate(sweep, X), arr["z_ref"]) < PROTO_BAR
+    assert _rel(_emulate(sweep, X, prototype=False), arr["z_ref"]) > 100 * PROTO_BAR
+
+
+# ---------------------------------------------------------------- algebra
+
+
+def _emulate(sw, X, prototype=None):
+    """csrc/face_sweep.cu's algorithm in numpy, from the wrapper's words."""
+    proto = sw.prototype if prototype is None else prototype
+    X = np.asarray(X, np.float64)
+    B = sw.Btr_or.double().numpy()
+    nbr = sw.nbr_row.numpy().astype(np.int64)
+    nor = sw.nor.double().numpy().reshape(-1)
+    mask = None if sw.mask is None else sw.mask.double().numpy()
+    gamma, R, C1, S0, cp_pr, bulk_mult = list(sw.phys)
+    ne, ndof, _k = X.shape
+    nqf, nlf, nc, dim, neq = sw.nqf, sw.nlf, sw.n_combo, sw.dim, sw.neq
+    Bc = B.reshape(nc, nqf, ndof)
+
+    def conv(u, n):
+        rho = u[..., 0]
+        vel = u[..., 1:1 + dim] / rho[..., None]
+        v2 = np.sum(vel**2, -1)
+        p = (gamma - 1) * (u[..., dim + 1] - 0.5 * rho * v2)
+        un = np.sum(n * vel, -1)
+        f0 = rho * un
+        f = np.concatenate([f0[..., None], f0[..., None] * vel + n * p[..., None],
+                            (un * (u[..., dim + 1] + p))[..., None]], -1)
+        return f, np.sqrt(gamma * p / rho), np.sqrt(v2), un
+
+    def visc(u, g, n):
+        rho = u[..., 0]
+        vel = u[..., 1:1 + dim] / rho[..., None]
+        T = (gamma - 1) / R * (u[..., dim + 1] / rho - 0.5 * np.sum(vel**2, -1))
+        mu = C1 * T * np.sqrt(T) / (T + S0)
+        gv = g[..., 1:1 + dim, :]
+        div = np.trace(gv, axis1=-2, axis2=-1)
+        tau = (mu[..., None, None] * (gv + np.swapaxes(gv, -1, -2))
+               + ((bulk_mult - 2.0 / 3.0) * mu * div)[..., None, None] * np.eye(dim))
+        sn = np.einsum("...id,...d->...i", tau, n)
+        qn = cp_pr * mu * np.einsum("...d,...d->...", g[..., dim + 1, :], n)
+        return sn, np.sum(sn * vel, -1) + qn
+
+    e, s, d = np.arange(ne), np.arange(nqf), np.arange(dim)
+    Y = np.zeros((ne, ndof, neq))
+    for lf in range(nlf):
+        m = np.ones(ne) if mask is None else mask[:, lf]
+        en, c = np.divmod(nbr[:, lf], nc)
+        bo = Bc[lf]
+        to = np.einsum("sk,ekq->esq", bo, X)
+        tn = np.einsum("esk,ekq->esq", Bc[c], X[en])
+        n = nor[lf * sw.nor_lf + e[:, None, None] * sw.nor_e
+                + s[None, :, None] * dim + d[None, None, :]]
+        nmag = np.linalg.norm(n, axis=-1)
+        f1, s1, v1, un1 = conv(to[..., :neq], n)
+        f2, s2, v2, un2 = conv(tn[..., :neq], n)
+        if proto:
+            lam = 0.5 * np.maximum(np.abs(un1) + s1 * nmag, np.abs(un2) + s2 * nmag)
+        else:
+            lam = 0.5 * nmag * np.maximum(s1 + v1, s2 + v2)
+        flux = 0.5 * (f1 + f2) - lam[..., None] * (tn[..., :neq] - to[..., :neq])
+        if sw.viscous:
+            for tr in (to, tn):
+                sn, en_flux = visc(tr[..., :neq],
+                                   tr[..., neq:].reshape(ne, nqf, neq, dim), n)
+                flux[..., 1:1 + dim] -= 0.5 * sn
+                flux[..., dim + 1] -= 0.5 * en_flux
+        flux = np.where((m == 0)[:, None, None], 0.0, flux * m[:, None, None])
+        Y += np.einsum("sj,esq->ejq", bo, flux)
+    return sw.sign * Y
+
+
+def _slot_case(n, order, eq_system, gll, walls, seed):
+    if len(n) == 3:
+        mesh = box_3d(*n, periodic=(not walls,) * 3)
+    else:
+        mesh = box_2d(*n, periodic_x=not walls, periodic_y=not walls)
+    tab_np = build_tables(mesh, order, **(GLL if gll else {}))
+    ctx = _ctx(len(n), eq_system)
+    if walls:
+        bcs = bc_slices(tab_np.f_bdr_attr, lambda p: WallBC("inviscid"))
+        ctx = RHSContext(fluxes=ctx.fluxes, riemann=ctx.riemann, bcs=bcs)
+    tab = tab_np.to_torch(torch.float64, "cpu")
+    dim = len(n)
+    rng = np.random.default_rng(seed)
+    Up = np.empty(tab_np.xyz_dof.shape[:-1] + (dim + 2,))
+    Up[..., 0] = rng.uniform(1.0, 1.4, Up.shape[:-1])
+    Up[..., 1:1 + dim] = rng.uniform(-15.0, 15.0, Up.shape[:-1] + (dim,))
+    Up[..., dim + 1] = rng.uniform(280.0, 320.0, Up.shape[:-1])
+    U = ctx.mixture.conservatives(torch.as_tensor(Up))
+    if eq_system == "euler":
+        X = U
+    else:
+        G = dg_gradient(tab, ctx.mixture.primitives(U))
+        X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    return tab_np, tab, ctx, X.contiguous()
+
+
+@pytest.mark.parametrize("n,order,eq_system,gll,walls", [
+    ((3, 4, 5), 2, "navier-stokes", True, True),   # non-cubic: axes show
+    ((3, 4, 5), 2, "euler", False, True),
+    ((2, 3, 3), 3, "navier-stokes", True, False),
+    ((5, 4), 3, "navier-stokes", True, True),
+    ((5, 4), 2, "euler", False, True),
+])
+def test_kernel_algebra_matches_plain(n, order, eq_system, gll, walls):
+    tab_np, tab, ctx, X = _slot_case(n, order, eq_system, gll, walls, seed=11)
+    assert face_sweep_supported(tab_np, ctx)
+    sweep = build_face_sweep(tab, ctx)
+    assert sweep.k == X.shape[-1] and not sweep.prototype
+    z_plain = sweep(X)  # CPU: the plain version
+    z_kern = _emulate(sweep, X)
+    assert _rel(z_kern, z_plain) <= TOL
+    # swapping the Rusanov forms is visible here too
+    assert _rel(_emulate(sweep, X, prototype=True), z_plain) > 1e-6
+
+
+def test_prototype_algebra_on_a_small_box():
+    tab = build_tables(box_3d(3, 4, 5, periodic=(True, True, True)), 2)
+    sweep = build_prototype_sweep(tab, torch.float64, "cpu")
+    U = torch.as_tensor(prototype_state(tab.ne, tab.ndof), dtype=torch.float64)
+    assert _rel(_emulate(sweep, U), sweep(U)) <= TOL
+    assert sweep.nor_e == 0 and sweep.sign == 1.0 and sweep.mask is None
+
+
+def test_gate_and_shared_memory_bound():
+    tab = build_tables(box_3d(2, 2, 2, periodic=(False,) * 3), 2, **GLL)
+    assert face_sweep_supported(tab, _ctx(3, "navier-stokes"))
+    mix = DryAir(dim=3, nvel=3)
+    fl = Fluxes(mixture=mix, transport=ConstantTransport(1e-5, 0.0, 0.02),
+                eq_system="navier-stokes")
+    assert not face_sweep_supported(tab, RHSContext(fluxes=fl, riemann=Rusanov(fl)))
+    # p=5 NS in f64 needs more than a block's 48 KB: refused for CUDA
+    big = build_tables(box_3d(1, 1, 2, periodic=(False,) * 3), 5, **GLL)
+    assert cuda_faces.shared_bytes(big.ndof, big.nqf, 20, 5, torch.float64) \
+        > cuda_faces.SHARED_LIMIT
+    with pytest.raises(ValueError, match="shared memory"):
+        cuda_faces._check_cuda(big, True, torch.float64, "cuda")
+    cuda_faces._check_cuda(big, True, torch.float64, "cpu")  # CPU: any size

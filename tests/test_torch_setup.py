@@ -89,7 +89,8 @@ def test_import_without_jax():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "import tps_torch, tps_torch.harness, tps_torch.dg.cuda_fused\n"
-        "import tps_torch.solvers.compressible\n"
+        "import tps_torch.solvers.compressible, tps_torch.dg.cuda_faces\n"
+        "import tps_torch.dg.rhs, tps_torch.tools.face_prototype\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"

@@ -4,9 +4,11 @@ Part 1: the JAX package's solver and the port's (device cpu, the plain
 PyTorch RHS) on one small 3-D Navier-Stokes deck, from the same perturbed
 state: after 5 CFL-controlled RK4 steps U, t and dt agree to 1e-10.
 Part 2: the isentropic vortex advected to t=2 through the port (relative
-L2 < 5e-3, as the JAX package's canonical drive asks).  Then the CLI
-surface: the timing line, the NaN guard, and the inputs the slice
-refuses.
+L2 < 5e-3, as the JAX package's canonical drive asks).  Part 3: the
+general (slot) path through the solver: the reference-default
+Gauss-Lobatto deck and a 2-D deck with walls, an inlet and an outlet, each
+against the JAX solver after 5 steps (1e-10).  Then the CLI surface: the
+timing line, the NaN guard, and the inputs the slice refuses.
 """
 
 import pathlib
@@ -21,7 +23,7 @@ from tps_torch import harness  # noqa: E402
 from tps_torch.dg.discretization import build_tables  # noqa: E402
 from tps_torch.dg.fluxes import Fluxes  # noqa: E402
 from tps_torch.dg.fused import maybe_build_fused  # noqa: E402
-from tps_torch.dg.rhs import RHSContext  # noqa: E402
+from tps_torch.dg.rhs import RHSContext, SlotRHS  # noqa: E402
 from tps_torch.dg.riemann import Rusanov  # noqa: E402
 from tps_torch.mesh.generators import box_2d  # noqa: E402
 from tps_torch.physics.gas import DryAir  # noqa: E402
@@ -212,7 +214,7 @@ def test_nan_guard_reports_the_step(tmp_path, f64):
 
 
 @pytest.mark.parametrize("extra,match", [
-    ("[boundaryConditions/wall1]\npatch = 1\ntype = slip", "ROADMAP A5"),
+    ("[boundaryConditions/far1]\npatch = 1\ntype = farfield", "ROADMAP A5"),
     ("[io]\nenableRestart = 1", "ROADMAP A4.1"),
     ("[mesh]\npartitions = 2", "ROADMAP A8"),
     ("[io]\nenableParaview = 1", "ROADMAP A12"),
@@ -223,16 +225,104 @@ def test_unported_inputs_raise(tmp_path, extra, match):
         tps.initialize()
 
 
-def test_gauss_lobatto_deck_names_the_fix(tmp_path):
-    """The reference-default GLL basis runs the slot path, outside this
-    slice: the error says which keys select the fused path."""
+def _match_jax_solver(path, steps=5):
+    """The port's solver (device cpu) and the JAX package's on one deck,
+    from the deck's own initial state: after `steps` steps U, t and dt
+    agree to 1e-10."""
+    from tps_tpu import harness as jharness
+
+    tps = _port_tps(path)
+    tps.initialize()
+    s = tps.solver
+    jtps = jharness.Tps()
+    jtps.parse_input(str(path))
+    jtps.choose_solver()
+    jtps.initialize()
+    js = jtps.solver
+    U0 = s.state_global().copy()
+    np.testing.assert_allclose(U0, np.asarray(js.state_global()), rtol=1e-14)
+    for _ in range(steps):
+        s.solve_step()
+        js.solve_step()
+    U, Uj = s.state_global(), np.asarray(js.state_global())
+    np.testing.assert_allclose(U, Uj, rtol=1e-10,
+                               atol=1e-10 * np.max(np.abs(Uj)))
+    np.testing.assert_allclose(float(s.time), float(js.time), rtol=1e-10)
+    np.testing.assert_allclose(float(s.dt), float(js.dt), rtol=1e-10)
+    assert s.iter == js.iter == steps
+    return s, U0, U
+
+
+def test_gauss_lobatto_deck_names_the_fix(tmp_path, f64):
+    """The reference-default GLL basis (no basisType / integrationRule
+    keys) runs the general slot path, on the CPU as in the JAX package,
+    and matches the JAX solver after 5 steps."""
     path = tmp_path / "gll.ini"
     text = pathlib.Path(_deck_2d(tmp_path)).read_text()
     path.write_text(text.replace("basisType = 0\n", "")
                     .replace("integrationRule = 0\n", ""))
-    tps = _port_tps(path)
-    with pytest.raises(NotImplementedError, match="basisType = 0"):
-        tps.initialize()
+    s, _U0, _U = _match_jax_solver(path)
+    assert isinstance(s._rhs, SlotRHS)
+    assert s.tables_np.minv_diag is None  # GLL: non-diagonal mass
+
+
+WALLED_2D = """
+[solver]
+type = flow
+[flow]
+order = 2
+maxIters = 5
+timingFreq = 5
+fluid = dry_air
+equation_system = navier-stokes
+[mesh]
+generator = box2d
+nx = 5
+ny = 3
+x1 = 0.05
+y1 = 0.03
+[time]
+cfl = 0.2
+integrator = rk4
+[initialConditions]
+rho = 1.2
+rhoU = 12.0
+rhoV = 0.
+pressure = 101300
+[boundaryConditions/inlet]
+patch = 4
+type = subsonic
+density = 1.2
+uvw = '10.0 0.0 0.0'
+[boundaryConditions/outlet]
+patch = 2
+type = subsonicPressure
+pressure = 101000
+[boundaryConditions/bottom]
+patch = 1
+type = viscous_isothermal
+temperature = 300
+[boundaryConditions/top]
+patch = 3
+type = viscous_adiabatic
+[io]
+outdirBase = {outdir}
+"""
+
+
+def test_walled_inlet_outlet_deck_matches_jax(tmp_path, f64, capsys):
+    """A 2-D channel (GLL, NS): isothermal and adiabatic walls, a subsonic
+    inlet, a subsonicPressure outlet; 5 CFL steps against the JAX solver."""
+    path = tmp_path / "channel.ini"
+    path.write_text(WALLED_2D.format(outdir=tmp_path / "out"))
+    s, U0, U = _match_jax_solver(path)
+    assert isinstance(s._rhs, SlotRHS) and s.tables_np.nfb == 16
+    assert [type(b.bc).__name__ for b in s.ctx.bcs] == [
+        "WallBC", "OutletBC", "WallBC", "InletBC"]
+    assert np.max(np.abs(U - U0)) > 1e-6 * np.max(np.abs(U0))  # it moved
+    out = capsys.readouterr().out
+    assert "[INLET]: # of boundary faces               = 3" in out
+    assert "[OUTLET]: Total Surface Area                = 0.03000" in out
 
 
 def test_cuda_device_requires_cuda(tmp_path):

@@ -1,0 +1,146 @@
+// Pointwise DG physics shared by the Hopper kernels (fused_rhs.cu,
+// face_sweep.cu): DryAir primitives, Sutherland transport, the convective
+// and one-sided viscous normal fluxes, and the Rusanov flux in its two
+// wave-speed forms.  Each is the device counterpart of the plain PyTorch
+// code its kernel is checked against (physics/gas.py, physics/transport.py,
+// dg/fluxes.py, dg/riemann.py; the prototype form: dg/cuda_faces.py).
+//
+// State: U = (rho, rho u_1..u_DIM, rho E), NEQ = DIM + 2.  Gradients of
+// the primitives (rho, u_1..u_DIM, T) are laid out g[eq * DIM + d].
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace tps_dg {
+
+struct Phys {
+  double gamma, rgas;     // gas
+  double c1, s0, cp_pr;   // Sutherland C1 * visc_mult, S0, cp / Pr
+  double bulk_mult;       // bulk viscosity multiplier
+};
+
+// `phys` holds gamma, R, C1*visc_mult, S0, cp/Pr, bulk_mult.
+inline Phys make_phys(const double* p) {
+  Phys ph;
+  ph.gamma = p[0];
+  ph.rgas = p[1];
+  ph.c1 = p[2];
+  ph.s0 = p[3];
+  ph.cp_pr = p[4];
+  ph.bulk_mult = p[5];
+  return ph;
+}
+
+// NaN-propagating max (fmax would drop a NaN and hide it from the guard).
+template <typename T>
+__device__ __forceinline__ T nan_max(T a, T b) {
+  return (b > a || b != b) ? b : a;
+}
+
+// Sutherland viscosity and conductivity.
+template <typename T>
+__device__ __forceinline__ void mu_kappa(T temp, const Phys& ph, T& mu,
+                                         T& kap) {
+  mu = T(ph.c1) * temp * sqrt(temp) / (temp + T(ph.s0));
+  kap = T(ph.cp_pr) * mu;
+}
+
+// Convective flux of a conserved state along the (scaled) normal n, with
+// the sound speed, |u| and u.n.
+template <typename T, int DIM>
+__device__ __forceinline__ void conv_dot_n(const T* u, const T* n, T gam,
+                                           T* f, T& snd, T& vmag, T& un) {
+  constexpr int IE = DIM + 1;
+  const T rho = u[0];
+  const T inv = T(1) / rho;
+  T vel[DIM];
+  T v2 = T(0);
+  un = T(0);
+  for (int d = 0; d < DIM; ++d) {
+    vel[d] = u[1 + d] * inv;
+    v2 += vel[d] * vel[d];
+    un += n[d] * vel[d];
+  }
+  const T p = (gam - T(1)) * (u[IE] - T(0.5) * rho * v2);
+  f[0] = rho * un;
+  for (int d = 0; d < DIM; ++d) f[1 + d] = f[0] * vel[d] + n[d] * p;
+  f[IE] = un * (u[IE] + p);
+  snd = sqrt(gam * p / rho);
+  vmag = sqrt(v2);
+}
+
+// Rusanov flux, the package form (dg/riemann.py): the dissipation speed is
+// max over the two sides of |u| + c, times |n|.
+template <typename T, int DIM>
+__device__ __forceinline__ void rusanov(const T* u1, const T* u2, const T* n,
+                                        T gam, T* f) {
+  constexpr int NEQ = DIM + 2;
+  T f1[NEQ], f2[NEQ], s1, s2, v1, v2, un1, un2;
+  conv_dot_n<T, DIM>(u1, n, gam, f1, s1, v1, un1);
+  conv_dot_n<T, DIM>(u2, n, gam, f2, s2, v2, un2);
+  T nmag2 = T(0);
+  for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
+  const T c1 = s1 + v1, c2 = s2 + v2;
+  const T lam = T(0.5) * sqrt(nmag2) * (c1 > c2 ? c1 : c2);
+  for (int q = 0; q < NEQ; ++q)
+    f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
+}
+
+// Rusanov flux, the face-sweep prototype's form
+// (tools/pallas_face_prototype.py:57-77): per side |u.n| + c |n|, then
+// the max over the sides.
+template <typename T, int DIM>
+__device__ __forceinline__ void rusanov_prototype(const T* u1, const T* u2,
+                                                  const T* n, T gam, T* f) {
+  constexpr int NEQ = DIM + 2;
+  T f1[NEQ], f2[NEQ], s1, s2, v1, v2, un1, un2;
+  conv_dot_n<T, DIM>(u1, n, gam, f1, s1, v1, un1);
+  conv_dot_n<T, DIM>(u2, n, gam, f2, s2, v2, un2);
+  T nmag2 = T(0);
+  for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
+  const T nmag = sqrt(nmag2);
+  const T c1 = fabs(un1) + s1 * nmag, c2 = fabs(un2) + s2 * nmag;
+  const T lam = T(0.5) * (c1 > c2 ? c1 : c2);
+  for (int q = 0; q < NEQ; ++q)
+    f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
+}
+
+// One-sided viscous normal flux of a traced state (T from the traced
+// conserved variables, not a traced T) and its traced gradient gt[eq][d].
+// fv[0] is not written (the continuity equation has no viscous flux).
+template <typename T, int DIM>
+__device__ __forceinline__ void visc_dot_n(const T* u, const T* gt,
+                                           const T* n, const Phys& ph,
+                                           T* fv) {
+  constexpr int IE = DIM + 1;
+  const T rho = u[0];
+  T vel[DIM];
+  T v2 = T(0);
+  for (int d = 0; d < DIM; ++d) {
+    vel[d] = u[1 + d] / rho;
+    v2 += vel[d] * vel[d];
+  }
+  const T temp = (T(ph.gamma) - T(1)) / T(ph.rgas) * (u[IE] / rho - T(0.5) * v2);
+  T mu, kap;
+  mu_kappa(temp, ph, mu, kap);
+  const T bulk = (T(ph.bulk_mult) - T(2) / T(3)) * mu;
+  T div = T(0);
+  for (int d = 0; d < DIM; ++d) div += gt[(1 + d) * DIM + d];
+  T e = T(0);
+  for (int i = 0; i < DIM; ++i) {
+    T s = T(0);
+    for (int d = 0; d < DIM; ++d) {
+      T tij = mu * (gt[(1 + i) * DIM + d] + gt[(1 + d) * DIM + i]);
+      if (i == d) tij += bulk * div;
+      s += tij * n[d];
+    }
+    fv[1 + i] = s;
+    e += s * vel[i];
+  }
+  T qn = T(0);
+  for (int d = 0; d < DIM; ++d) qn += gt[IE * DIM + d] * n[d];
+  fv[IE] = e + kap * qn;
+}
+
+}  // namespace tps_dg

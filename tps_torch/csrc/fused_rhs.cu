@@ -29,11 +29,18 @@
 // and K2 about 77k, against ~4 KB of state and gradient read per element;
 // the dense folds trade extra flops for a simple, general-in-ndof kernel.
 // No tensor cores, TMA or CUTLASS: correct first, fast in later work.
+//
+// The pointwise physics (primitives, Sutherland, fluxes, Rusanov) is in
+// dg_pointwise.cuh, shared with face_sweep.cu.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dg_pointwise.cuh"
+
 namespace {
+
+using namespace tps_dg;
 
 constexpr int NEQ = 5;   // rho, rho u, rho v, rho w, rho E
 constexpr int DIM = 3;
@@ -47,12 +54,6 @@ struct Geo {
   int opp[NLF];
 };
 
-struct Phys {
-  double gamma, rgas;     // gas
-  double c1, s0, cp_pr;   // Sutherland C1 * visc_mult, S0, cp / Pr
-  double bulk_mult;       // bulk viscosity multiplier
-};
-
 __device__ __forceinline__ int neighbor(int e, int lf, const Geo& g) {
   int c[3];
   c[2] = e % g.nx;
@@ -62,20 +63,6 @@ __device__ __forceinline__ int neighbor(int e, int lf, const Geo& g) {
   const int a = g.axis[lf];
   c[a] = ((c[a] + g.step[lf]) % n[a] + n[a]) % n[a];
   return (c[0] * g.ny + c[1]) * g.nx + c[2];
-}
-
-// NaN-propagating max (fmax would drop a NaN and hide it from the guard).
-template <typename T>
-__device__ __forceinline__ T nan_max(T a, T b) {
-  return (b > a || b != b) ? b : a;
-}
-
-// Sutherland viscosity and conductivity.
-template <typename T>
-__device__ __forceinline__ void mu_kappa(T temp, const Phys& ph, T& mu,
-                                         T& kap) {
-  mu = T(ph.c1) * temp * sqrt(temp) / (temp + T(ph.s0));
-  kap = T(ph.cp_pr) * mu;
 }
 
 // ---------------------------------------------------------------- K1
@@ -124,55 +111,6 @@ k1_gradient(const T* __restrict__ U, const T* __restrict__ W,
 }
 
 // ---------------------------------------------------------------- K2
-// Convective flux of a conserved state along the (scaled) normal n.
-template <typename T>
-__device__ __forceinline__ void conv_dot_n(const T* u, const T* n, T gam,
-                                           T* f, T& c) {
-  const T rho = u[0];
-  const T inv = T(1) / rho;
-  const T vx = u[1] * inv, vy = u[2] * inv, vz = u[3] * inv;
-  const T v2 = vx * vx + vy * vy + vz * vz;
-  const T p = (gam - T(1)) * (u[4] - T(0.5) * rho * v2);
-  const T un = n[0] * vx + n[1] * vy + n[2] * vz;
-  f[0] = rho * un;
-  f[1] = f[0] * vx + n[0] * p;
-  f[2] = f[0] * vy + n[1] * p;
-  f[3] = f[0] * vz + n[2] * p;
-  f[4] = un * (u[4] + p);
-  c = sqrt(gam * p / rho) + sqrt(v2);
-}
-
-// One-sided viscous normal flux of a traced state (T from the traced
-// conserved variables, not a traced T) and its traced gradient gt[eq][d].
-template <typename T>
-__device__ __forceinline__ void visc_dot_n(const T* u, const T* gt,
-                                           const T* n, const Phys& ph,
-                                           T* fv) {
-  const T rho = u[0];
-  const T vel[3] = {u[1] / rho, u[2] / rho, u[3] / rho};
-  const T temp = (T(ph.gamma) - T(1)) / T(ph.rgas) *
-                 (u[4] / rho - T(0.5) * (vel[0] * vel[0] + vel[1] * vel[1] +
-                                         vel[2] * vel[2]));
-  T mu, kap;
-  mu_kappa(temp, ph, mu, kap);
-  const T bulk = (T(ph.bulk_mult) - T(2) / T(3)) * mu;
-  const T div = gt[1 * DIM + 0] + gt[2 * DIM + 1] + gt[3 * DIM + 2];
-  T e = T(0);
-  for (int i = 0; i < 3; ++i) {
-    T s = T(0);
-    for (int d = 0; d < 3; ++d) {
-      T tij = mu * (gt[(1 + i) * DIM + d] + gt[(1 + d) * DIM + i]);
-      if (i == d) tij += bulk * div;
-      s += tij * n[d];
-    }
-    fv[1 + i] = s;
-    e += s * vel[i];
-  }
-  const T qn = kap * (gt[4 * DIM + 0] * n[0] + gt[4 * DIM + 1] * n[1] +
-                      gt[4 * DIM + 2] * n[2]);
-  fv[4] = e + qn;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(BLOCK)
 k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
@@ -288,20 +226,14 @@ k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
 
     for (int s = tid; s < nqf; s += blockDim.x) {
       const T* n = Nor + ((size_t)lf * nqf + s) * DIM;
-      const T nmag = sqrt(n[0] * n[0] + n[1] * n[1] + n[2] * n[2]);
       const T* u1 = to + s * NEQ;
       const T* u2 = tn + s * NEQ;
-      T f1[NEQ], f2[NEQ], c1, c2;
-      conv_dot_n(u1, n, gam, f1, c1);
-      conv_dot_n(u2, n, gam, f2, c2);
-      const T lam = T(0.5) * nmag * (c1 > c2 ? c1 : c2);
       T* f = fl + s * NEQ;
-      for (int q = 0; q < NEQ; ++q)
-        f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
+      rusanov<T, DIM>(u1, u2, n, gam, f);
       if (viscous) {
         T v1[NEQ], v2[NEQ];
-        visc_dot_n(u1, go + s * NEQ * DIM, n, ph, v1);
-        visc_dot_n(u2, gn + s * NEQ * DIM, n, ph, v2);
+        visc_dot_n<T, DIM>(u1, go + s * NEQ * DIM, n, ph, v1);
+        visc_dot_n<T, DIM>(u2, gn + s * NEQ * DIM, n, ph, v2);
         for (int q = 1; q < NEQ; ++q) f[q] -= T(0.5) * (v1[q] + v2[q]);
       }
     }
@@ -337,17 +269,6 @@ Geo make_geo(const int* g) {
     geo.opp[lf] = g[3 + 2 * NLF + lf];
   }
   return geo;
-}
-
-Phys make_phys(const double* p) {
-  Phys ph;
-  ph.gamma = p[0];
-  ph.rgas = p[1];
-  ph.c1 = p[2];
-  ph.s0 = p[3];
-  ph.cp_pr = p[4];
-  ph.bulk_mult = p[5];
-  return ph;
 }
 
 size_t k1_smem(int ndof, size_t tsize) {

@@ -1,0 +1,250 @@
+"""The DG face sweep as a hand-written CUDA kernel (Hopper), and its plain
+PyTorch versions.
+
+csrc/face_sweep.cu replaces the JAX package's Pallas TPU kernel `kernel`
+of tools/pallas_face_prototype.py (a fused Euler face sweep on a periodic
+box: traces, roll neighbours, Rusanov, weighted transpose) and, with the
+same code, computes the interior face sweep of the general (slot) path,
+dg/rhs.py:143-178 of the JAX package.  For each element e
+
+    z_e = sign * sum_lf Btr_or[lf]^T mask[e,lf] F(tr_own, tr_nbr, n[e,lf])
+
+on X = [U | G] [ne, ndof, k], with the neighbour (e', combo) decoded from
+nbr_row (see the .cu file).  Two modes:
+
+- slot (`build_face_sweep`): the package Rusanov minus the mean one-sided
+  viscous normal flux, normals nor_wpf, mask interior_mask, sign -1; its
+  plain version is dg/operators.py's `face_sweep_plain`.  The solver's slot
+  path runs it on every right-hand side.
+- prototype (`build_prototype_sweep`): Euler, the prototype's own
+  Rusanov (per side |u.n| + c|n|), the uniform normals wts*nor shared by
+  every element, mask 1, sign +1; its plain version is
+  `prototype_chain_plain`, the prototype's XLA chain.  Run by
+  `python -m tps_torch.tools.face_prototype`.
+
+The wrapper `CudaFaceSweep` launches the kernel for CUDA tensors and counts
+the launch in `launches`; for CPU tensors it runs its plain version and
+nothing else.  There is no fallback from a CUDA tensor to the plain
+version: a missing compiler, a failed build, a configuration outside
+`face_sweep_supported` or a refused launch raises.  The kernel is built
+with K1/K2 by dg/cuda_fused.py::build_kernels, on first use.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from .cuda_fused import SHARED_LIMIT, _Library, build_kernels, kernel_phys
+from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version)
+
+# kernel launches since the last reset_launches()
+launches = {"face_sweep": 0}
+
+
+def reset_launches():
+    for k in launches:
+        launches[k] = 0
+
+
+def face_sweep_supported(tab_np, ctx) -> bool:
+    """Preconditions of the kernel in slot mode: neighbor-slot tables,
+    2-D or 3-D, DryAir with one velocity per dimension, Rusanov, Euler or
+    Navier-Stokes with Sutherland transport, planar, single device."""
+    t = tab_np
+    if t.nbr_row is None or t.dim not in (2, 3):
+        return False
+    if ctx.axis_name is not None or ctx.use_bc_in_grad:
+        return False
+    fl = ctx.fluxes
+    if fl.axisymmetric or fl.sgs_model is not None or fl.visc_sponge is not None:
+        return False
+    mix = ctx.mixture
+    if type(mix).__name__ != "DryAir" or mix.nvel != t.dim or mix.n_passive:
+        return False
+    if type(ctx.riemann).__name__ != "Rusanov":
+        return False
+    if fl.eq_system not in ("euler", "navier-stokes"):
+        return False
+    return fl.eq_system == "euler" or type(fl.transport).__name__ == "DryAirTransport"
+
+
+def shared_bytes(ndof, nqf, k, neq, dtype):
+    """Shared memory of one block (csrc/face_sweep.cu::face_smem)."""
+    size = torch.empty((), dtype=dtype).element_size()
+    return (ndof * (k + neq) + nqf * (2 * k + neq)) * size
+
+
+# ---------------------------------------------------------------- plain
+
+
+def prototype_rusanov(U1, U2, n, gamma):
+    """The prototype's Rusanov (tools/pallas_face_prototype.py:57-77):
+    per side |u.n| + c |n|, the max over the sides.  n [..., 3] scaled."""
+    def flux(Uv):
+        rho, mom, E = Uv[..., 0], Uv[..., 1:4], Uv[..., 4]
+        vel = mom / rho[..., None]
+        p = (gamma - 1) * (E - 0.5 * torch.sum(mom * vel, -1))
+        un = torch.sum(vel * n, -1)
+        F = torch.cat([torch.sum(mom * n, -1)[..., None],
+                       mom * un[..., None] + p[..., None] * n,
+                       ((E + p) * un)[..., None]], -1)
+        c = torch.sqrt(gamma * p / rho) * torch.linalg.norm(n, dim=-1)
+        return F, torch.abs(un) + c
+
+    F1, s1 = flux(U1)
+    F2, s2 = flux(U2)
+    s = torch.maximum(s1, s2)
+    return 0.5 * (F1 + F2) - 0.5 * s[..., None] * (U2 - U1)
+
+
+def prototype_chain_plain(U, Btr, nor, wts, roll_info, gamma=1.4):
+    """The prototype's XLA chain (tools/pallas_face_prototype.py:81-93):
+    traces through Btr, neighbours by grid rolls of the opposite face,
+    its Rusanov, times the face weights, scattered through Btr^T.
+    U [ne, ndof, 5]; Btr [nlf*nqf, ndof]; nor [nlf, nqf, 3] and wts
+    [nlf, nqf] shared by every element -> z [ne, ndof, 5] (+sum, no Minv)."""
+    grid, per_lf = roll_info
+    ne, _ndof, neq = U.shape
+    nlf, nqf = wts.shape
+    tr = torch.einsum("fd,ndk->nfk", Btr, U).reshape(ne, nlf, nqf, neq)
+    og = tr.reshape(tuple(grid) + (nlf, nqf, neq))
+    nbr = torch.stack([torch.roll(og[..., opp, :, :], shifts=shift, dims=axis)
+                       for (axis, shift, opp) in per_lf], dim=-3)
+    f = prototype_rusanov(tr, nbr.reshape(ne, nlf, nqf, neq), nor[None], gamma)
+    return torch.einsum("fd,nfk->ndk", Btr,
+                        (f * wts[None, ..., None]).reshape(ne, nlf * nqf, neq))
+
+
+# ---------------------------------------------------------------- wrapper
+
+
+@dataclass(frozen=True, eq=False)
+class CudaFaceSweep:
+    """X [ne, ndof, k] -> [ne, ndof, neq]: the kernel for CUDA tensors,
+    `plain` for CPU tensors."""
+
+    plain: object  # X -> [ne, ndof, neq]
+    Btr_or: torch.Tensor  # [n_combo*nqf, ndof]
+    nbr_row: torch.Tensor  # [ne, nlf] int32
+    nor: torch.Tensor  # normals, element stride nor_e, face stride nor_lf
+    mask: torch.Tensor | None  # [ne, nlf] (None: every slot interior)
+    ne: int
+    ndof: int
+    nqf: int
+    nlf: int
+    n_combo: int
+    dim: int
+    viscous: bool
+    prototype: bool
+    nor_lf: int
+    nor_e: int
+    sign: float
+    phys: object  # ctypes double[6]
+
+    @property
+    def neq(self):
+        return self.dim + 2
+
+    @property
+    def k(self):
+        return self.neq * (1 + self.dim) if self.viscous else self.neq
+
+    def __call__(self, X):
+        if not X.is_cuda:
+            return self.plain(X)
+        shape = (self.ne, self.ndof, self.k)
+        ref = self.Btr_or
+        if X.device != ref.device or X.dtype != ref.dtype:
+            raise ValueError(f"X: expected {ref.dtype} on {ref.device}, got "
+                             f"{X.dtype} on {X.device}")
+        if tuple(X.shape) != shape or not X.is_contiguous():
+            raise ValueError(f"X: expected a contiguous {shape} tensor, got "
+                             f"{tuple(X.shape)}")
+        build_kernels()
+        suffix = "f64" if X.dtype == torch.float64 else "f32"
+        fn = getattr(_Library.lib, f"tps_face_sweep_{suffix}")
+        Y = torch.empty((self.ne, self.ndof, self.neq), dtype=X.dtype,
+                        device=X.device)
+        with torch.cuda.device(X.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(X.data_ptr(), self.Btr_or.data_ptr(),
+                     self.nbr_row.data_ptr(), self.nor.data_ptr(),
+                     None if self.mask is None else self.mask.data_ptr(),
+                     Y.data_ptr(), self.ne, self.ndof, self.nqf, self.nlf,
+                     self.n_combo, self.nor_lf, self.nor_e, self.sign,
+                     self.dim, int(self.viscous), int(self.prototype),
+                     self.phys, stream)
+        if err:
+            raise RuntimeError(f"face_sweep launch failed: CUDA error {err}")
+        launches["face_sweep"] += 1
+        return Y
+
+
+def _check_cuda(tab, viscous, dtype, device):
+    if torch.device(device).type != "cuda":
+        return
+    neq = tab.dim + 2
+    k = neq * (1 + tab.dim) if viscous else neq
+    smem = shared_bytes(tab.ndof, tab.nqf, k, neq, dtype)
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"ndof={tab.ndof}, nqf={tab.nqf}, k={k} needs {smem} "
+                         f"B of shared memory per block in {dtype}; the face "
+                         f"sweep kernel takes {SHARED_LIMIT}")
+
+
+def build_face_sweep(tab, ctx) -> CudaFaceSweep:
+    """The slot-mode sweep on the torch tables `tab` (their dtype and
+    device).  Raises for CUDA tables outside `face_sweep_supported`."""
+    device, dtype = tab.Btr_or.device, tab.Btr_or.dtype
+    viscous = ctx.fluxes.eq_system != "euler"
+    if device.type == "cuda":
+        if not face_sweep_supported(tab, ctx):
+            raise NotImplementedError(
+                "the face-sweep kernel's preconditions do not hold (see "
+                "dg/cuda_faces.py::face_sweep_supported); this configuration "
+                "runs with --device cpu")
+        _check_cuda(tab, viscous, dtype, device)
+    phys = kernel_phys(ctx)
+    nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
+    return CudaFaceSweep(
+        plain=functools.partial(face_sweep_plain, ctx, tab),
+        Btr_or=tab.Btr_or.contiguous(),
+        nbr_row=tab.nbr_row.to(torch.int32).contiguous(),
+        nor=tab.nor_wpf.contiguous(),
+        mask=tab.interior_mask.contiguous(),
+        ne=ne, ndof=tab.ndof, nqf=nqf, nlf=nlf, n_combo=tab.n_combo, dim=dim,
+        viscous=viscous, prototype=False,
+        nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0,
+        phys=(ctypes.c_double * 6)(*phys),
+    )
+
+
+def build_prototype_sweep(tab_np, dtype=torch.float32, device="cpu",
+                          gamma=1.4) -> CudaFaceSweep:
+    """The prototype-mode sweep on a periodic 3-D box's numpy tables:
+    Euler, gamma 1.4 (the prototype's GAM), one set of face normals and
+    weights for every element (nor_slot[0], wts_slot[0])."""
+    t = tab_np
+    if t.dim != 3 or t.roll_info is None or t.nfb:
+        raise ValueError("prototype mode needs a periodic 3-D box")
+
+    def dev(a, dt=dtype):
+        return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
+
+    nor, wts = dev(t.nor_slot[0]), dev(t.wts_slot[0])  # [nlf, nqf, 3], [nlf, nqf]
+    _check_cuda(t, False, dtype, device)
+    return CudaFaceSweep(
+        plain=functools.partial(prototype_chain_plain, Btr=dev(t.Btr),
+                                nor=nor, wts=wts, roll_info=t.roll_info,
+                                gamma=gamma),
+        Btr_or=dev(t.Btr_or), nbr_row=dev(t.nbr_row, torch.int32),
+        nor=(wts[..., None] * nor).contiguous(), mask=None,
+        ne=t.ne, ndof=t.ndof, nqf=t.nqf, nlf=t.nlf, n_combo=t.n_combo, dim=3,
+        viscous=False, prototype=True, nor_lf=t.nqf * 3, nor_e=0, sign=1.0,
+        phys=(ctypes.c_double * 6)(gamma, 1.0, 0.0, 1.0, 0.0, 0.0),
+    )

@@ -15,10 +15,11 @@ Each wrapper launches its kernel for CUDA tensors and counts the launch in
 to the plain version: a missing compiler, a failed build or a refused
 launch raises.
 
-The kernels are built on first use from the repo's own source with nvcc
-(sm_90a) into a shared library with a plain C interface under <repo>/build,
-named by the source's hash, and called through ctypes on PyTorch's current
-stream.  Nothing is built or loaded at import time.
+The kernels are built on first use from the repo's own sources with nvcc
+(sm_90a) into one shared library with a plain C interface under
+<repo>/build (`build_kernels`, which also builds dg/cuda_faces.py's face
+sweep), named by the sources' hash, and called through ctypes on
+PyTorch's current stream.  Nothing is built or loaded at import time.
 
 Preconditions (`cuda_fusable`): the fused-path preconditions (periodic
 roll topology, collocated GL basis, uniform affine elements, no BCs) plus
@@ -35,6 +36,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from dataclasses import dataclass
 
 import numpy as np
@@ -43,10 +45,12 @@ import torch
 from .fused import FusedRHS, build_fused, fusable
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "fused_rhs.cu")
+CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-NVCC_FLAGS = ("-O3", "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ("-O3", *ARCH, "-std=c++17", "-Xcompiler", "-fPIC",
+                 "-Xptxas", "-v", "-c")
+LINK_FLAGS = (*ARCH, "-shared")
 
 SHARED_LIMIT = 48 * 1024  # bytes of shared memory a block may take
 
@@ -79,37 +83,62 @@ def _nvcc():
     return path
 
 
+def _csrc_files(ext):
+    return sorted(os.path.join(CSRC, f) for f in os.listdir(CSRC)
+                  if f.endswith(ext))
+
+
 def build_kernels():
     """Build (if needed) and load the kernel library; returns its path.
 
-    The library name carries the source's hash, so an edited source is
-    rebuilt and a stale library is never loaded.  The compiler's output
-    (with -Xptxas -v register and shared-memory counts) is kept in
-    `_Library.build_log`."""
+    Every csrc/*.cu (this module's K1/K2 and dg/cuda_faces.py's face
+    sweep) is compiled by its own nvcc, all started together, and linked
+    into one shared library.  Its name carries the hash of every source
+    and header in csrc/, so an edited file is rebuilt and a stale library
+    is never loaded.  The compilers' output (with -Xptxas -v register and
+    shared-memory counts) is kept in `_Library.build_log`."""
     if _Library.lib is not None:
         return _Library.path
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    path = os.path.join(BUILD_DIR, f"libtps_fused_{digest.hexdigest()[:16]}.so")
+    digest = hashlib.sha256(" ".join(COMPILE_FLAGS + LINK_FLAGS).encode())
+    for f in _csrc_files(".cu") + _csrc_files(".cuh"):
+        with open(f, "rb") as fh:
+            digest.update(os.path.basename(f).encode() + fh.read())
+    tag = digest.hexdigest()[:16]
+    path = os.path.join(BUILD_DIR, f"libtps_kernels_{tag}.so")
     if not os.path.exists(path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        _Library.build_log = res.stdout + res.stderr
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                               f"{_Library.build_log}")
-        os.replace(tmp, path)
+        nvcc = _nvcc()
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            srcs = _csrc_files(".cu")
+            objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
+            procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", o, s],
+                                      stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True)
+                     for s, o in zip(srcs, objs)]
+            _Library.build_log = "".join(p.communicate()[0] for p in procs)
+            if any(p.returncode for p in procs):
+                raise RuntimeError(f"nvcc failed:\n{_Library.build_log}")
+            lib_tmp = os.path.join(tmp, "lib.so")
+            res = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib_tmp, *objs],
+                                 capture_output=True, text=True)
+            _Library.build_log += res.stdout + res.stderr
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                                   f"{_Library.build_log}")
+            os.replace(lib_tmp, path)
     lib = ctypes.CDLL(path)
     ptr, i32, dbl = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_double)
-    ip = ctypes.POINTER(ctypes.c_int)
+    ip, i64 = ctypes.POINTER(ctypes.c_int), ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"tps_k1_gradient_{suffix}")
         fn.argtypes = [ptr, ptr, ptr, i32, i32, ip, dbl, ptr]
         fn.restype = i32
         fn = getattr(lib, f"tps_k2_faces_volume_{suffix}")
         fn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, ip, dbl, ptr]
+        fn.restype = i32
+        fn = getattr(lib, f"tps_face_sweep_{suffix}")
+        fn.argtypes = ([ptr] * 6 + [i32] * 5 + [i64, i64, ctypes.c_double]
+                       + [i32] * 3 + [dbl, ptr])
         fn.restype = i32
     _Library.lib, _Library.path = lib, path
     return path
@@ -135,6 +164,19 @@ def cuda_fusable(tab_np, ctx) -> bool:
         return False
     tr = ctx.fluxes.transport
     return eq == "euler" or type(tr).__name__ == "DryAirTransport"
+
+
+def kernel_phys(ctx):
+    """The kernels' physical constants (dg_pointwise.cuh::make_phys):
+    gamma, R, C1*visc_mult, S0, cp/Pr, bulk_mult (Euler: no transport)."""
+    mix = ctx.mixture
+    gamma, rgas = float(mix.specific_heat_ratio), float(mix.gas_constant)
+    if ctx.fluxes.eq_system == "euler":
+        return [gamma, rgas, 0.0, 1.0, 0.0, 0.0]
+    tr = ctx.fluxes.transport
+    return [gamma, rgas, float(tr.C1 * tr.visc_mult), float(tr.S0),
+            gamma * rgas / (gamma - 1.0) / float(tr.Pr),
+            float(tr.bulk_visc_mult)]
 
 
 def kernel_folds(t):
@@ -304,16 +346,8 @@ def build_cuda_fused(tab_np, ctx, dtype=None, device=None) -> CudaFusedRHS:
     geo = ([int(g) for g in grid] + [int(a) for (a, _s, _o) in per_lf]
            + [-int(s) for (_a, s, _o) in per_lf]
            + [int(o) for (_a, _s, o) in per_lf])
-    mix = ctx.mixture
-    gamma, rgas = float(mix.specific_heat_ratio), float(mix.gas_constant)
     viscous = ctx.fluxes.eq_system != "euler"
-    if viscous:
-        tr = ctx.fluxes.transport
-        phys = [gamma, rgas, float(tr.C1 * tr.visc_mult), float(tr.S0),
-                gamma * rgas / (gamma - 1.0) / float(tr.Pr),
-                float(tr.bulk_visc_mult)]
-    else:
-        phys = [gamma, rgas, 0.0, 1.0, 0.0, 0.0]
+    phys = kernel_phys(ctx)
 
     def dev(a):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,

@@ -60,6 +60,14 @@ class DryAir:
     def temperature(self, U):
         return self.pressure(U) / (self.gas_constant * U[..., 0])
 
+    def modify_energy_for_pressure(self, U, p):
+        """U with rhoE set so that its pressure is p (reference:
+        DryAir::modifyEnergyForPressure, src/equation_of_state.cpp)."""
+        ke = 0.5 * torch.sum(U[..., 1 : 1 + self.nvel] ** 2, dim=-1) / U[..., 0]
+        rhoE = p / (self.specific_heat_ratio - 1.0) + ke
+        return torch.cat([U[..., : self.i_th], rhoE[..., None],
+                          U[..., self.i_th + 1 :]], dim=-1)
+
     def max_char_speed(self, U):
         """|u| + c (reference: src/equation_of_state.cpp:278-292)."""
         rho = U[..., 0]

@@ -1,10 +1,18 @@
 """Compressible Navier-Stokes DG solver (the M2ulPhyS analog), PyTorch.
 
-This slice carries the single-device fused path: structured periodic
-boxes (mesh generators), DryAir with Sutherland or constant transport,
-Rusanov, explicit RK.  On a CUDA device the right-hand side always runs
-the two hand-written kernels of dg/cuda_fused.py; on the CPU it runs their
-plain PyTorch version (dg/fused.py), which also carries the 2-D case.
+This slice carries single-device runs on generated boxes (mesh
+generators), DryAir with Sutherland or constant transport, Rusanov,
+explicit RK, and two right-hand sides:
+
+- the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
+  CUDA device the two hand-written kernels of dg/cuda_fused.py, on the
+  CPU their plain PyTorch version (dg/fused.py, also the 2-D case);
+- the general (slot) path, dg/rhs.py::SlotRHS, for everything else:
+  walls, inlets and outlets (dg/bc.py), and the reference-default
+  Gauss-Lobatto basis.  Its interior face sweep is the hand-written
+  CUDA kernel of dg/cuda_faces.py on a CUDA device, the plain version on
+  the CPU.
+
 Every input key outside the slice raises NotImplementedError naming the
 ROADMAP item that ports it.
 
@@ -24,11 +32,14 @@ import numpy as np
 import torch
 
 from ..config.run_config import RunConfiguration
+from ..dg.bc import InletBC, OutletBC, WallBC
+from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
 from ..dg.fluxes import Fluxes
 from ..dg.fused import maybe_build_fused
-from ..dg.rhs import RHSContext
+from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
+                      init_bc_states)
 from ..dg.riemann import Rusanov
 from ..mesh import generators
 from ..physics.gas import DryAir
@@ -107,6 +118,13 @@ _UNPORTED_KEYS = (
 )
 
 
+# boundary-condition types of this slice (dg/bc.py); the rest is A5
+_WALL_KINDS = ("inviscid", "slip", "viscous_adiabatic", "viscous_isothermal")
+_INLET_KINDS = ("subsonic",)
+_OUTLET_KINDS = ("subsonicPressure",)
+_BC_KINDS = _WALL_KINDS + _INLET_KINDS + _OUTLET_KINDS
+
+
 def check_slice(rc: RunConfiguration):
     """Raise NotImplementedError for any input this slice does not run."""
     if rc.fluid != "dry_air":
@@ -119,8 +137,9 @@ def check_slice(rc: RunConfiguration):
         raise _not_ported("axisymmetric flow", "A5")
     if rc.sgs_model != "none":
         raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5")
-    if rc.bcs:
-        raise _not_ported("boundary conditions", "A5")
+    for spec in rc.bcs:
+        if spec.kind not in _BC_KINDS:
+            raise _not_ported(f"boundary condition type '{spec.kind}'", "A5")
     if rc.avg_enabled:
         raise _not_ported("running statistics ([averaging])", "A12")
     raw = rc.raw
@@ -169,13 +188,15 @@ class CompressibleSolver(PlasmaSolver):
                 quad_kw["vol_quad_order"] = vqo
         self.tables_np = build_tables(self.mesh, order=rc.order, basis=basis,
                                       **quad_kw)
-        if self.tables_np.nfb:
-            raise _not_ported("meshes with boundary faces", "A5")
         self.tables = self.tables_np.to_torch(self.dtype, self.device)
 
         dim = self.mesh.dim
         self._build_physics(dim, dim)
-        self.ctx = RHSContext(fluxes=self.fluxes, riemann=self.riemann)
+        # boundary conditions: per-attr static slices over sorted bdr faces
+        self.bc_slices = self._build_bcs()
+        self._report_bc_patches()
+        self.ctx = RHSContext(fluxes=self.fluxes, riemann=self.riemann,
+                              bcs=tuple(self.bc_slices))
         print("flow: tps_torch writes no checkpoints yet (ROADMAP A4.1); "
               "[flow] outputFreq is ignored", flush=True)
         self._initialize_state_and_loop()
@@ -206,28 +227,73 @@ class CompressibleSolver(PlasmaSolver):
         self.riemann = Rusanov(self.fluxes)
 
     def _build_rhs(self):
-        """K1+K2 where their preconditions hold (always, on a CUDA device);
-        the plain fused RHS on the CPU otherwise."""
+        """K1+K2 where their preconditions hold; the plain fused RHS for
+        the CPU's other fused-path boxes (2-D), as the JAX package picks
+        its fused path; the slot path (with the face-sweep kernel on a
+        CUDA device) for everything else."""
         if cuda_fusable(self.tables_np, self.ctx):
             return build_cuda_fused(self.tables_np, self.ctx, self.dtype,
                                     self.device)
-        rc = self.config
-        hint = ""
-        if rc.basis_type != 0 or rc.integration_rule != 0:
-            hint = ("; the deck selects the reference-default Gauss-Lobatto "
-                    "basis/quadrature, which runs the general slot path; "
-                    "basisType = 0 and integrationRule = 0 under [flow] "
-                    "select the collocated Gauss-Legendre fused path")
-        if self.device.type == "cuda":
-            raise _not_ported(
-                "this configuration on CUDA (outside the CUDA kernels' "
-                "preconditions, see dg/cuda_fused.py; 2-D boxes run with "
-                f"--device cpu){hint}", "A5")
-        fused = maybe_build_fused(self.tables_np, self.ctx, self.dtype,
-                                  self.device)
-        if fused is None:
-            raise _not_ported(f"the general (slot) DG path{hint}", "A5")
-        return fused
+        if self.device.type == "cpu":
+            fused = maybe_build_fused(self.tables_np, self.ctx, self.dtype,
+                                      self.device)
+            if fused is not None:
+                return fused
+        return SlotRHS(ctx=self.ctx, tab=self.tables,
+                       sweep=build_face_sweep(self.tables, self.ctx))
+
+    # ------------------------------------------------------------------
+    def _build_bcs(self):
+        """One BCSlice per configured patch that has boundary faces."""
+        specs = {spec.patch: spec for spec in self.config.bcs}
+        return list(bc_slices(
+            self.tables_np.f_bdr_attr,
+            lambda p: self._make_bc(specs[p]) if p in specs else None))
+
+    def _make_bc(self, spec):
+        kind = spec.kind
+        p = spec.params
+
+        def fget(key, default=None):
+            if key in p:
+                return float(str(p[key]).strip("'\""))
+            return default
+
+        if kind in _WALL_KINDS:
+            return WallBC(kind=kind, wall_temp=fget("temperature", 300.0))
+        if kind == "subsonic":
+            rho = fget("density")
+            uvw = [float(x) for x in
+                   str(p.get("uvw", "0 0 0")).strip().strip("'\"").split()]
+            return InletBC(input_state=(rho, *uvw[: self.mixture.nvel]))
+        if kind == "subsonicPressure":
+            return OutletBC(pressure=fget("pressure"))
+        raise _not_ported(f"boundary condition type '{kind}'", "A5")
+
+    def _report_bc_patches(self):
+        """Per-patch surface area / face-count report at BC init, matching
+        the reference's inlet/outlet constructor logs (src/inletBC.cpp:311-312,
+        src/outletBC.cpp:339-340)."""
+        attrs = np.asarray(self.tables_np.f_bdr_attr)
+        for spec in self.config.bcs:
+            nfaces = int(np.count_nonzero(attrs == spec.patch))
+            if spec.kind in _INLET_KINDS:
+                print(f"[INLET]: Total Surface Area                = "
+                      f"{self._patch_area(spec):.5e}", flush=True)
+                print(f"[INLET]: # of boundary faces               = "
+                      f"{nfaces}", flush=True)
+            elif spec.kind in _OUTLET_KINDS:
+                print(f"[OUTLET]: Total Surface Area                = "
+                      f"{self._patch_area(spec):.5f}", flush=True)
+                print(f"[OUTLET]: # of boundary faces               = "
+                      f"{nfaces}", flush=True)
+
+    def _patch_area(self, spec):
+        """Quadrature area of a boundary patch."""
+        tab = self.tables_np
+        sel = np.asarray(tab.f_bdr_attr) == spec.patch
+        nrm = np.linalg.norm(np.asarray(tab.f_nor[tab.nfi :])[sel], axis=-1)
+        return float(np.sum(np.asarray(tab.f_wts[tab.nfi :])[sel] * nrm))
 
     def _initialize_state_and_loop(self):
         """IC, RHS, CFL/dt, NaN-guard buffer."""
@@ -239,6 +305,8 @@ class CompressibleSolver(PlasmaSolver):
         self.hmin = float(np.min(self.tables_np.delta) * max(rc.order, 1))
         self._integrator = get_integrator(rc.integrator)
         self._rhs = self._build_rhs()
+        if self.ctx.bcs:
+            self._rhs.bc_states = init_bc_states(self.ctx, self.tables, self.U)
 
         # initial dt (reference: M2ulPhyS::initialTimeStep)
         if rc.dt_fixed > 0:
@@ -273,7 +341,13 @@ class CompressibleSolver(PlasmaSolver):
         """One integrator step on the RHS's own layout."""
         r = self._rhs
         U2, aux = self._integrator(r, r.to_fused(U), t, dt)
-        return r.from_fused(U2), aux["max_char_speed"]
+        U = r.from_fused(U2)
+        if self.ctx.bcs:
+            # the BC ghost states advance once per step, after the stages
+            # (tps_tpu solvers/compressible.py:674-676)
+            r.bc_states = advance_bc_states(self.ctx, self.tables, U,
+                                            r.bc_states, dt)
+        return U, aux["max_char_speed"]
 
     def solve_step(self):
         """One time step + dt update + guards (reference: solveStep :2004)."""
