@@ -409,9 +409,18 @@ def phase_timing(setup, dev):
         }
         for name, (p1, k1, k2, p2) in k.items():
             res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
+        # K2 in f64 (the kernel alone; its plain version is host-bound)
+        rhs64 = build_cuda_fused(tab, ctx, torch.float64, dev)
+        U64 = U.double()
+        G64 = rhs64.gradient(U64)
+        res["k2_faces_volume"]["f64_ms"] = cuda_ms(
+            lambda: rhs64.faces_volume(U64, G64), 50)
+        res["profile"] = device_share(lambda: rk4(rhs, U, 0.0, dt))
         log(f"  {n} p=2 NS f32: ms/RHS kernels {times['kernels']} "
             f"plain {times['plain']}; per kernel (plain, kernel, kernel, "
-            f"plain) {k}")
+            f"plain) {k}; K2 f64 {res['k2_faces_volume']['f64_ms']:.4f} ms; "
+            f"profiled RK4 step {res['profile']}")
+        res["tab"] = tab
         out[n] = res
     return out
 
@@ -606,13 +615,17 @@ def phase_slot_timing(setup, dev):
         rhs_k(U)
         per_rhs = cuda_faces.launches["face_sweep"]
         busy = device_share(lambda: rhs_k(U))
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        sweep64, X64 = build_face_sweep(tab64, ctx), X.double()
+        f64_ms = cuda_ms(lambda: sweep64(X64), 50)
         log(f"  {name} {n} p={order} {basis}: ms/RHS kernel {ms_rhs:.4f}, "
             f"plain {plain_rhs:.4f} {t_rhs}; face sweep kernel {ms_sw:.4f}, "
             f"plain {plain_sw:.4f} {t_sw}; parts (ms, each timed alone; rest "
             f"= volume, inverse mass, RK, host gaps) {parts}; launches/RHS "
-            f"{per_rhs}; profiled RHS {busy}")
+            f"{per_rhs}; profiled RHS {busy}; face sweep f64 {f64_ms:.4f} ms")
         out[name] = {"ms_per_rhs": ms_rhs, "plain_ms_per_rhs": plain_rhs,
                      "face_sweep_ms": ms_sw, "face_sweep_plain_ms": plain_sw,
+                     "face_sweep_f64_ms": f64_ms,
                      "parts_ms": parts, "launches_per_rhs": per_rhs,
                      "profile": busy, "tab": tab_np}
     return out
@@ -752,6 +765,37 @@ def face_bound(t, eq, basis, size=4):
     return bound(ops, nbytes)
 
 
+# What the kernels' designs do (csrc/dg_face_stage.cuh), counted from
+# their loops: per face, both traces (RS = 4 face points per thread, the
+# last group padded) over the face's support (the nodes its trace rows
+# touch), the scatter over the support; K2 also the volume scatter.
+# Achieved rate: 2 x FMA / time, as a share of the f32 peak (67 TFLOP/s).
+
+
+def face_supports(t):
+    """Nodes each local face's trace rows touch (non-zero columns)."""
+    B = np.asarray(t.Btr).reshape(t.nlf, t.nqf, t.ndof)
+    return (B != 0).any(axis=1).sum(axis=1)
+
+
+def design_fma(t, k, volume):
+    """FMAs of K2 (volume=True; k = 20 channels for NS) or the face sweep
+    (k channels of X) on tables t."""
+    neq = t.dim + 2
+    nk = face_supports(t)
+    rows = -(-t.nqf // 4) * 4
+    per = int(nk.sum()) * (2 * rows * k + t.nqf * neq)
+    if volume:
+        per += t.dim * t.ndof * t.ndof * neq
+    return t.ne * per
+
+
+def rate_line(name, fma, ms, b):
+    share = 2 * fma / (ms * 1e-3) / PEAK_OPS[torch.float32]
+    return (f"  {name}: {fma / 1e6:.1f} M FMA by design, {ms:.4f} ms: "
+            f"{share:.1%} of 67 TFLOP/s; time/bound {ms / b[0]:.1f}")
+
+
 def run(dev):
     """Every phase on device dev; returns the kernels' record and the
     card's nvidia-smi line."""
@@ -828,11 +872,15 @@ def run(dev):
     ]
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
-                                   "plain_ms_per_rhs": v["plain_ms_per_rhs"]}
+                                   "plain_ms_per_rhs": v["plain_ms_per_rhs"],
+                                   "k2_ms": v["k2_faces_volume"]["ms"],
+                                   "k2_f64_ms": v["k2_faces_volume"]["f64_ms"],
+                                   "profile": v["profile"]}
                for n, v in timing.items()}
     summary.update({f"slot {k}": {kk: v[kk] for kk in (
         "ms_per_rhs", "plain_ms_per_rhs", "face_sweep_ms",
-        "face_sweep_plain_ms", "parts_ms", "launches_per_rhs", "profile")}
+        "face_sweep_plain_ms", "face_sweep_f64_ms", "parts_ms",
+        "launches_per_rhs", "profile")}
         for k, v in slot.items()})
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
@@ -841,6 +889,25 @@ def run(dev):
     for name, b in (("k1_gradient", k1b), ("k2_faces_volume", k2b),
                     ("face_sweep", fb), ("face_sweep prototype mode", pb)):
         log(f"  bound {name}: operations {b[2]:.6f} ms, bytes {b[3]:.6f} ms")
+    log("design FMAs and achieved f32 rate:")
+    t32 = timing[(32, 32, 32)]
+    k2b32 = k2_bound(t32["tab"])
+    walled = slot["walled_gl"]
+    fbw = face_bound(walled["tab"], "navier-stokes", "gl")
+    for name, fma, ms, b in (
+            ("K2 16^3 f32", design_fma(tab16, 20, True),
+             t16["k2_faces_volume"]["ms"], k2b),
+            ("K2 32^3 f32", design_fma(t32["tab"], 20, True),
+             t32["k2_faces_volume"]["ms"], k2b32),
+            ("face sweep GLL deck f32", design_fma(gll["tab"], 20, False),
+             gll["face_sweep_ms"], fb),
+            ("face sweep walled GL f32", design_fma(walled["tab"], 20, False),
+             walled["face_sweep_ms"], fbw)):
+        log(rate_line(name, fma, ms, b))
+    log(f"  f64 ms: K2 16^3 {t16['k2_faces_volume']['f64_ms']:.4f}, 32^3 "
+        f"{t32['k2_faces_volume']['f64_ms']:.4f}; face sweep GLL deck "
+        f"{gll['face_sweep_f64_ms']:.4f}, walled GL "
+        f"{walled['face_sweep_f64_ms']:.4f}")
     log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s")
     return kernels, smi
 

@@ -69,6 +69,10 @@ def _rel(a, b):
     ((5, 6, 7), 2, "navier-stokes"),
     ((5, 6, 7), 2, "euler"),
     ((3, 4, 5), 3, "navier-stokes"),
+    # periodic extents 1 and 2 (self- and double neighbors); 6 and 27
+    # elements, ragged tiles
+    ((1, 2, 3), 2, "navier-stokes"),
+    ((3, 3, 3), 2, "euler"),
 ])
 def test_kernels_match_plain(device, n, order, eq_system, dtype):
     rhs, U = _setup(n, order, eq_system, dtype, device)
@@ -143,6 +147,63 @@ def test_face_sweep_matches_plain(device, n, order, eq_system, basis, dtype):
     torch.cuda.synchronize()
     assert cuda_faces.launches["face_sweep"] == 1
     assert _rel(z, sweep.plain(X)) <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,basis,eq_system", [
+    ((1, 2, 3), "gll", "navier-stokes"),  # periodic extents 1 and 2
+    ((3, 3, 3), "gl", "euler"),           # 27 elements: ragged tiles
+])
+def test_face_sweep_periodic_edge_grids(device, n, basis, eq_system, dtype):
+    mix = DryAir(dim=3, nvel=3)
+    tr = None if eq_system == "euler" else DryAirTransport(
+        mix.gas_constant, mix.specific_heat_ratio, bulk_visc_mult=0.3)
+    fl = Fluxes(mixture=mix, transport=tr, eq_system=eq_system)
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    kw = {} if basis == "gl" else dict(basis="gauss-lobatto",
+                                       quad_rule="gauss-lobatto")
+    tab_np = build_tables(box_3d(*n, periodic=(True,) * 3), 2, **kw)
+    rng = np.random.default_rng(9)
+    Up = np.empty(tab_np.xyz_dof.shape[:-1] + (5,))
+    Up[..., 0] = rng.uniform(1.0, 1.4, Up.shape[:-1])
+    Up[..., 1:4] = rng.uniform(-15.0, 15.0, Up.shape[:-1] + (3,))
+    Up[..., 4] = rng.uniform(280.0, 320.0, Up.shape[:-1])
+    tab = tab_np.to_torch(dtype, device)
+    U = mix.conservatives(torch.as_tensor(Up)).to(dtype=dtype, device=device)
+    X = U if eq_system == "euler" else torch.cat(
+        [U, dg_gradient(tab, mix.primitives(U)).reshape(U.shape[0], U.shape[1], -1)],
+        -1)
+    sweep = build_face_sweep(tab, ctx)
+    X = X.contiguous()
+    z = sweep(X)
+    torch.cuda.synchronize()
+    assert _rel(z, sweep.plain(X)) <= TOL[dtype]
+
+
+def test_shared_memory_plans_match_the_kernels(device):
+    """The Python plans (tiles and shared bytes) are the kernels' own."""
+    import ctypes
+
+    from tps_torch.dg.cuda_fused import _Library, build_kernels
+
+    build_kernels()
+    lib = _Library.lib
+    tile = ctypes.c_int()
+    for dtype in (torch.float32, torch.float64):
+        size = torch.empty((), dtype=dtype).element_size()
+        for ndof, nqf in ((27, 16), (64, 25), (125, 36), (216, 49), (343, 64)):
+            for viscous in (True, False):
+                E, _res, smem = cuda_fused.k2_plan(ndof, nqf, viscous, dtype)
+                assert lib.tps_k2_smem(ndof, nqf, int(viscous), size,
+                                       ctypes.byref(tile)) == smem
+                assert tile.value == E
+        for ndof, nqf, nlf, k, neq in ((27, 25, 6, 20, 5), (27, 16, 6, 5, 5),
+                                       (64, 36, 6, 20, 5), (512, 100, 6, 20, 5),
+                                       (16, 5, 4, 12, 4), (9, 4, 4, 4, 4)):
+            E, _res, smem = cuda_faces.plan(ndof, nqf, nlf, k, neq, dtype)
+            assert lib.tps_face_sweep_smem(ndof, nqf, nlf, k, neq, size,
+                                           ctypes.byref(tile)) == smem
+            assert tile.value == E
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])

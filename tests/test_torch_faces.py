@@ -6,14 +6,20 @@
    `prototype_chain_plain` and the wrapper's CPU path in prototype mode
    land within the prototype's own bar (1e-5, f32) of both; the package's
    Rusanov in its place does not.
-2. The kernel's algebra: `_emulate` replays in numpy exactly what
-   csrc/face_sweep.cu computes from the words the wrapper passes (the
-   nbr_row decode, the Btr_or combo rows, the strided normals, the mask
-   and the sign) and must agree with the plain version, 1e-11 in f64.
+2. The kernel's algebra: `_emulate` replays in numpy what
+   csrc/face_sweep.cu computes from the words the wrapper passes, in its
+   decomposition: tiles of the kernel's plan (the last one ragged), the
+   nbr_row decode, the neighbour's trace through its combo's face block
+   (combo_face) with its points put in place (combo_perm), each face's
+   products over the nodes it touches, the strided normals, the mask and
+   the sign.  It must agree with the plain version, 1e-11 in f64, also on
+   periodic boxes one and two elements wide and with combos that permute
+   a face's points.
 The CUDA kernel itself runs only on a GPU (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -126,17 +132,34 @@ def test_package_rusanov_fails_the_prototype_bar(prototype_run):
 
 
 def _emulate(sw, X, prototype=None):
-    """csrc/face_sweep.cu's algorithm in numpy, from the wrapper's words."""
+    """csrc/face_sweep.cu's algorithm in numpy, from the wrapper's words.
+
+    Elements go in tiles of the kernel's E (plan); the last tile is padded
+    with empty slots (no neighbour, mask 0), as the kernel's block leaves
+    them.  Per tile and face: the own trace through Btr[lf], the
+    neighbour's through its combo's face block combo_face[c] in that
+    face's point order, point s stored at combo_perm[c, s]; both over the
+    nodes the face touches.  The flux per point times the mask (0 for a
+    boundary slot), scattered through Btr[lf]^T to the face's nodes and
+    summed face by face; times sign."""
     proto = sw.prototype if prototype is None else prototype
     X = np.asarray(X, np.float64)
-    B = sw.Btr_or.double().numpy()
+    ne, ndof, k = X.shape
+    nqf, nlf, nc, dim, neq = sw.nqf, sw.nlf, sw.n_combo, sw.dim, sw.neq
+    Bc = sw.Btr_or.double().numpy().reshape(nc, nqf, ndof)
+    cface, cperm = sw.combo_face.numpy(), sw.combo_perm.numpy()
     nbr = sw.nbr_row.numpy().astype(np.int64)
     nor = sw.nor.double().numpy().reshape(-1)
-    mask = None if sw.mask is None else sw.mask.double().numpy()
+    mask = np.ones((ne, nlf)) if sw.mask is None else sw.mask.double().numpy()
     gamma, R, C1, S0, cp_pr, bulk_mult = list(sw.phys)
-    ne, ndof, _k = X.shape
-    nqf, nlf, nc, dim, neq = sw.nqf, sw.nlf, sw.n_combo, sw.dim, sw.neq
-    Bc = B.reshape(nc, nqf, ndof)
+    E = cuda_faces.plan(ndof, nqf, nlf, k, neq, sw.Btr_or.dtype)[0]
+    nt = -(-ne // E)
+    pad = nt * E - ne  # the ragged last tile's empty slots
+    Xp = np.concatenate([X, np.zeros((pad, ndof, k))])
+    mask = np.concatenate([mask, np.zeros((pad, nlf))])
+    nbr = np.concatenate([nbr, np.zeros((pad, nlf), np.int64)])
+    support = [np.flatnonzero((Bc[lf] != 0).any(0)) for lf in range(nlf)]
+    e = np.minimum(np.arange(nt * E), ne - 1)  # an empty slot's normals: any
 
     def conv(u, n):
         rho = u[..., 0]
@@ -162,33 +185,60 @@ def _emulate(sw, X, prototype=None):
         qn = cp_pr * mu * np.einsum("...d,...d->...", g[..., dim + 1, :], n)
         return sn, np.sum(sn * vel, -1) + qn
 
-    e, s, d = np.arange(ne), np.arange(nqf), np.arange(dim)
-    Y = np.zeros((ne, ndof, neq))
+    s, d = np.arange(nqf), np.arange(dim)
+    Y = np.zeros((nt * E, ndof, neq))
     for lf in range(nlf):
-        m = np.ones(ne) if mask is None else mask[:, lf]
+        m = mask[:, lf]
         en, c = np.divmod(nbr[:, lf], nc)
-        bo = Bc[lf]
-        to = np.einsum("sk,ekq->esq", bo, X)
-        tn = np.einsum("esk,ekq->esq", Bc[c], X[en])
+        sup = support[lf]
+        to = np.einsum("sk,ekq->esq", Bc[lf][:, sup], Xp[:, sup])
+        tn = np.zeros_like(to)
+        for cc in np.unique(c[m != 0]):
+            sel = (c == cc) & (m != 0)
+            f = cface[cc]
+            tr = np.einsum("sk,ekq->esq", Bc[f][:, support[f]],
+                           X[en[sel]][:, support[f]])
+            tp = np.empty_like(tr)
+            tp[:, cperm[cc]] = tr
+            tn[sel] = tp
         n = nor[lf * sw.nor_lf + e[:, None, None] * sw.nor_e
                 + s[None, :, None] * dim + d[None, None, :]]
         nmag = np.linalg.norm(n, axis=-1)
-        f1, s1, v1, un1 = conv(to[..., :neq], n)
-        f2, s2, v2, un2 = conv(tn[..., :neq], n)
-        if proto:
-            lam = 0.5 * np.maximum(np.abs(un1) + s1 * nmag, np.abs(un2) + s2 * nmag)
-        else:
-            lam = 0.5 * nmag * np.maximum(s1 + v1, s2 + v2)
-        flux = 0.5 * (f1 + f2) - lam[..., None] * (tn[..., :neq] - to[..., :neq])
-        if sw.viscous:
-            for tr in (to, tn):
-                sn, en_flux = visc(tr[..., :neq],
-                                   tr[..., neq:].reshape(ne, nqf, neq, dim), n)
-                flux[..., 1:1 + dim] -= 0.5 * sn
-                flux[..., dim + 1] -= 0.5 * en_flux
+        with np.errstate(all="ignore"):  # empty slots and boundary slots
+            f1, s1, v1, un1 = conv(to[..., :neq], n)
+            f2, s2, v2, un2 = conv(tn[..., :neq], n)
+            if proto:
+                lam = 0.5 * np.maximum(np.abs(un1) + s1 * nmag,
+                                       np.abs(un2) + s2 * nmag)
+            else:
+                lam = 0.5 * nmag * np.maximum(s1 + v1, s2 + v2)
+            flux = 0.5 * (f1 + f2) - lam[..., None] * (tn[..., :neq] - to[..., :neq])
+            if sw.viscous:
+                for tr in (to, tn):
+                    sn, en_flux = visc(tr[..., :neq],
+                                       tr[..., neq:].reshape(-1, nqf, neq, dim), n)
+                    flux[..., 1:1 + dim] -= 0.5 * sn
+                    flux[..., dim + 1] -= 0.5 * en_flux
         flux = np.where((m == 0)[:, None, None], 0.0, flux * m[:, None, None])
-        Y += np.einsum("sj,esq->ejq", bo, flux)
-    return sw.sign * Y
+        Y[:, sup] += np.einsum("sj,esq->ejq", Bc[lf][:, sup], flux)
+    return sw.sign * Y[:ne]
+
+
+def _permuted(tab_np, seed=3):
+    """The tables with one more combo, face 1's block with its points
+    permuted, taken by about half the slots whose neighbour side used face
+    1: the plain sweep (its row gather, roll_info dropped) and the kernel
+    then compute the same, non-physical, function through a combo that is
+    not the identity."""
+    rng = np.random.default_rng(seed)
+    nc, nqf = tab_np.n_combo, tab_np.nqf
+    extra = np.asarray(tab_np.Btr)[nqf + rng.permutation(nqf)]
+    en, c = np.divmod(np.asarray(tab_np.nbr_row).astype(np.int64), nc)
+    c = np.where((c == 1) & (rng.random(c.shape) < 0.5), nc, c)
+    return dataclasses.replace(
+        tab_np, roll_info=None, n_combo=nc + 1,
+        Btr_or=np.concatenate([np.asarray(tab_np.Btr_or), extra]),
+        nbr_row=(en * (nc + 1) + c).astype(np.asarray(tab_np.nbr_row).dtype))
 
 
 def _slot_case(n, order, eq_system, gll, walls, seed):
@@ -223,6 +273,10 @@ def _slot_case(n, order, eq_system, gll, walls, seed):
     ((2, 3, 3), 3, "navier-stokes", True, False),
     ((5, 4), 3, "navier-stokes", True, True),
     ((5, 4), 2, "euler", False, True),
+    # periodic extents 1 and 2 (an element its own neighbour, both x
+    # neighbours one element) in one ragged tile; 10 elements in two
+    ((1, 2, 3), 2, "navier-stokes", True, False),
+    ((2, 1, 5), 2, "euler", False, False),
 ])
 def test_kernel_algebra_matches_plain(n, order, eq_system, gll, walls):
     tab_np, tab, ctx, X = _slot_case(n, order, eq_system, gll, walls, seed=11)
@@ -234,6 +288,47 @@ def test_kernel_algebra_matches_plain(n, order, eq_system, gll, walls):
     assert _rel(z_kern, z_plain) <= TOL
     # swapping the Rusanov forms is visible here too
     assert _rel(_emulate(sweep, X, prototype=True), z_plain) > 1e-6
+
+
+def test_permuted_combos_match_plain():
+    tab0 = build_tables(box_3d(3, 4, 5, periodic=(False,) * 3), 2, **GLL)
+    tab_np = _permuted(tab0)
+    ctx = _ctx(3, "navier-stokes")
+    ctx = RHSContext(fluxes=ctx.fluxes, riemann=ctx.riemann,
+                     bcs=bc_slices(tab_np.f_bdr_attr, lambda p: WallBC("inviscid")))
+    _, _, _, X = _slot_case((3, 4, 5), 2, "navier-stokes", True, True, seed=11)
+    sweep = build_face_sweep(tab_np.to_torch(torch.float64, "cpu"), ctx)
+    assert sweep.n_combo == 7 and sorted(sweep.combo_perm[6].tolist()) == list(range(25))
+    assert sweep.combo_perm[6].tolist() != list(range(25))
+    z_plain = sweep(X)
+    assert _rel(_emulate(sweep, X), z_plain) <= TOL
+    # the permutation is visible: the unpermuted tables give another sum
+    unperm = build_face_sweep(tab0.to_torch(torch.float64, "cpu"), ctx)
+    assert _rel(unperm(X), z_plain) > 1e-3
+
+
+@pytest.mark.parametrize("case", ["walled_gll", "periodic_gl", "box_2d"])
+def test_combo_tables_rebuild_btr_or(case):
+    mesh = {"walled_gll": box_3d(2, 3, 2, periodic=(False,) * 3),
+            "periodic_gl": box_3d(2, 2, 3, periodic=(True,) * 3),
+            "box_2d": box_2d(3, 2, periodic_x=True, periodic_y=False)}[case]
+    tab = build_tables(mesh, 2, **({} if case == "periodic_gl" else GLL))
+    face, perm = cuda_faces.combo_tables(tab.Btr_or, tab.nlf, tab.nqf)
+    B = np.asarray(tab.Btr_or).reshape(-1, tab.nqf, tab.ndof)
+    rebuilt = np.empty_like(B)
+    for c in range(tab.n_combo):
+        rebuilt[c, perm[c]] = np.asarray(tab.Btr)[face[c] * tab.nqf:(face[c] + 1) * tab.nqf]
+    np.testing.assert_array_equal(rebuilt, B)  # exact copies
+    # generator boxes: one identity combo per face
+    assert tab.n_combo == tab.nlf
+    np.testing.assert_array_equal(face, np.arange(tab.nlf))
+    np.testing.assert_array_equal(perm, np.tile(np.arange(tab.nqf), (tab.nlf, 1)))
+    # and the permuted combo of `_permuted`
+    t2 = _permuted(tab)
+    face2, perm2 = cuda_faces.combo_tables(t2.Btr_or, t2.nlf, t2.nqf)
+    assert face2[-1] == 1
+    np.testing.assert_array_equal(
+        np.asarray(t2.Btr_or)[-tab.nqf:][perm2[-1]], np.asarray(tab.Btr)[tab.nqf:2 * tab.nqf])
 
 
 def test_prototype_algebra_on_a_small_box():
@@ -251,10 +346,13 @@ def test_gate_and_shared_memory_bound():
     fl = Fluxes(mixture=mix, transport=ConstantTransport(1e-5, 0.0, 0.02),
                 eq_system="navier-stokes")
     assert not face_sweep_supported(tab, RHSContext(fluxes=fl, riemann=Rusanov(fl)))
-    # p=5 NS in f64 needs more than a block's 48 KB: refused for CUDA
-    big = build_tables(box_3d(1, 1, 2, periodic=(False,) * 3), 5, **GLL)
-    assert cuda_faces.shared_bytes(big.ndof, big.nqf, 20, 5, torch.float64) \
-        > cuda_faces.SHARED_LIMIT
+    # p=7 NS in f64 (ndof 512): one element's states need more than a
+    # block's 227 KB: refused for CUDA; p=6 still fits, one element a block
+    assert cuda_faces.plan(343, 81, 6, 20, 5, torch.float64)[0] == 1
+    big = build_tables(box_3d(1, 1, 1, periodic=(False,) * 3), 7, **GLL)
+    assert (big.ndof, big.nqf) == (512, 100)
+    tile, _res, smem = cuda_faces.plan(big.ndof, big.nqf, 6, 20, 5, torch.float64)
+    assert tile == 0 and smem > cuda_faces.SHARED_LIMIT
     with pytest.raises(ValueError, match="shared memory"):
         cuda_faces._check_cuda(big, True, torch.float64, "cuda")
     cuda_faces._check_cuda(big, True, torch.float64, "cpu")  # CPU: any size

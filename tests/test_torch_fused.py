@@ -6,9 +6,12 @@ Pallas megakernel in interpret mode and its XLA FusedRHS, at the bar of
 tests/test_pallas_fused.py (1e-11 relative to max|y|, max char speed to
 1e-12).  The CUDA kernels themselves run only on a GPU
 (tests/test_torch_cuda.py, chip_smoke.py); what can be checked here is
-their algebra: `_emulate` replays, in numpy, exactly the products and
-neighbor arithmetic of csrc/fused_rhs.cu on the folds and grid words the
-wrapper passes, and must agree with the plain version.
+their algebra: `_emulate` replays, in numpy, the products and neighbor
+arithmetic of csrc/fused_rhs.cu on the folds and grid words the wrapper
+passes, K2 in its decomposition (tiles of the kernel's plan, the last one
+ragged; each face's products over the nodes its trace rows touch), and
+must agree with the plain version, also on periodic boxes one and two
+elements wide.
 """
 
 import jax.numpy as jnp
@@ -132,7 +135,7 @@ def test_fused_ns_2d_matches_jax():
 
 
 # ---------------------------------------------------------------- the
-# kernels' algebra, replayed in numpy exactly as csrc/fused_rhs.cu does it
+# kernels' algebra, replayed in numpy as csrc/fused_rhs.cu does it
 
 
 def _neighbors(geo, ne):
@@ -187,28 +190,41 @@ def _emulate(rhs, U):
     if not rhs.viscous:
         G = None
 
-    # K2 volume
+    # K2: tiles of the kernel's E elements; the ragged last tile's empty
+    # slots (no element, no neighbor, flux 0) are padding, dropped at the end
+    E = cuda_fused.k2_plan(ndof, rhs.nqf, rhs.viscous, torch.float64)[0]
+    nt = -(-ne // E)
+    pad = nt * E - ne
+    Ut = np.concatenate([U, np.repeat(U[:1], pad, 0)])
+    Gp = None if G is None else np.concatenate([G, np.repeat(G[:1], pad, 0)])
+    valid = np.arange(nt * E) < ne
+    nbrp = [np.concatenate([nb, np.zeros(pad, np.int64)]) for nb in nbr]
+    Bl = f["Btr"]
+    support = [np.flatnonzero((Bl[lf] != 0).any(0)) for lf in range(6)]
+
+    # volume: each element's flux and its scatter through V
+    rho, vel, p = prims(Ut)
     mcs = np.max(np.sqrt(np.sum(vel**2, -1)) + np.sqrt(gamma * p / rho), 1)
-    F = np.zeros(U.shape + (3,))
-    F[..., 0, :] = U[..., 1:4]
-    F[..., 1:4, :] = U[..., 1:4, None] * vel[..., None, :] + \
+    F = np.zeros(Ut.shape + (3,))
+    F[..., 0, :] = Ut[..., 1:4]
+    F[..., 1:4, :] = Ut[..., 1:4, None] * vel[..., None, :] + \
         p[..., None, None] * np.eye(3)
-    F[..., 4, :] = vel * (U[..., 4] + p)[..., None]
-    if G is not None:
+    F[..., 4, :] = vel * (Ut[..., 4] + p)[..., None]
+    if Gp is not None:
         mu, kap = mu_kap(p / rho / R)
-        t = tau(G, mu, (bulk_mult - 2.0 / 3.0) * mu)
+        t = tau(Gp, mu, (bulk_mult - 2.0 / 3.0) * mu)
         F[..., 1:4, :] -= t
         F[..., 4, :] -= np.einsum("...id,...i->...d", t, vel) + \
-            kap[..., None] * G[..., 4, :]
+            kap[..., None] * Gp[..., 4, :]
     y = np.einsum("djq,eqcd->ejc", f["Vvol"], F)
 
-    # K2 faces
+    # the six faces: both traces over the face's nodes, the flux, the
+    # scatter through W_lf (to the same nodes)
     for lf in range(6):
-        bo, bn, n = f["Btr"][lf], f["Btr"][opp[lf]], f["nor"][lf]
-        to = np.einsum("sk,ekc->esc", bo, U)
-        tn = np.einsum("sk,ekc->esc", bn, U[nbr[lf]])
-        flux = 0
-        lam = 0
+        so, sn, n = support[lf], support[opp[lf]], f["nor"][lf]
+        bo, bn = Bl[lf][:, so], Bl[opp[lf]][:, sn]
+        to = np.einsum("sk,ekc->esc", bo, Ut[:, so])
+        tn = np.einsum("sk,ekc->esc", bn, U[nbrp[lf]][:, sn])
         fl = []
         cs = []
         for tr in (to, tn):
@@ -221,9 +237,9 @@ def _emulate(rhs, U):
             cs.append(np.sqrt(gamma * pp / r) + np.sqrt(np.sum(v**2, -1)))
         lam = 0.5 * np.linalg.norm(n, axis=-1) * np.maximum(cs[0], cs[1])
         flux = 0.5 * (fl[0] + fl[1]) - lam[..., None] * (tn - to)
-        if G is not None:
-            for tr, g in ((to, np.einsum("sk,ekcd->escd", bo, G)),
-                          (tn, np.einsum("sk,ekcd->escd", bn, G[nbr[lf]]))):
+        if Gp is not None:
+            for tr, g in ((to, np.einsum("sk,ekcd->escd", bo, Gp[:, so])),
+                          (tn, np.einsum("sk,ekcd->escd", bn, G[nbrp[lf]][:, sn]))):
                 r, v, _ = prims(tr)
                 T = (gamma - 1) / R * (tr[..., 4] / r - 0.5 * np.sum(v**2, -1))
                 mu, kap = mu_kap(T)
@@ -232,14 +248,19 @@ def _emulate(rhs, U):
                 qn = kap * np.einsum("esd,sd->es", g[..., 4, :], n)
                 flux[..., 1:4] -= 0.5 * taun
                 flux[..., 4] -= 0.5 * (np.sum(taun * v, -1) + qn)
-        y += np.einsum("js,esc->ejc", f["Wscat"][lf], flux)
-    return G, y, mcs
+        flux = np.where(valid[:, None, None], flux, 0.0)
+        y[:, so] += np.einsum("js,esc->ejc", f["Wscat"][lf][so], flux)
+    return G, y[:ne], mcs[:ne]
 
 
 @pytest.mark.parametrize("n,order,eq_system", [
     ((3, 4, 5), 2, "navier-stokes"),  # non-cubic: a swapped axis shows up
     ((3, 4, 5), 2, "euler"),
     ((2, 3, 4), 3, "navier-stokes"),
+    # periodic extents 1 and 2: an element its own neighbor, both x
+    # neighbors one element; 6 and 27 elements (ragged tiles of 8)
+    ((1, 2, 3), 2, "navier-stokes"),
+    ((3, 3, 3), 2, "euler"),
 ])
 def test_kernel_algebra_matches_plain(n, order, eq_system):
     tab, ctx, U = _port_setup(n, order, eq_system)
@@ -276,10 +297,14 @@ def test_kernel_folds_shapes_and_gate():
 
 
 def test_shared_memory_bound_raises_for_cuda():
-    """p=4 in f64 needs more than a block's 48 KB: refused before any CUDA
-    call, while the CPU (plain) path takes it."""
-    tab = build_tables(box_3d(2, 2, 2, periodic=(True, True, True)), 4)
+    """p=5 in f64 (ndof 216) needs more than K1's 48 KB per block (K2 would
+    take it, one element a block): refused before any CUDA call, while the
+    CPU (plain) path takes it.  p=4 fits both."""
+    assert 7 * 125 * 5 * 8 <= cuda_fused.K1_SHARED_LIMIT
+    assert cuda_fused.k2_plan(125, 36, True, torch.float64)[0] >= 1
+    tab = build_tables(box_3d(2, 2, 2, periodic=(True, True, True)), 5)
     ctx = _ctx(3, "navier-stokes")
+    assert cuda_fused.k2_plan(tab.ndof, tab.nqf, True, torch.float64)[0] == 1
     with pytest.raises(ValueError, match="shared memory"):
         build_cuda_fused(tab, ctx, torch.float64, "cuda")
-    assert build_cuda_fused(tab, ctx, torch.float64, "cpu").ndof == 125
+    assert build_cuda_fused(tab, ctx, torch.float64, "cpu").ndof == 216

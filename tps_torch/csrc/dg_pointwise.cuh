@@ -70,8 +70,33 @@ __device__ __forceinline__ void conv_dot_n(const T* u, const T* n, T gam,
   vmag = sqrt(v2);
 }
 
-// Rusanov flux, the package form (dg/riemann.py): the dissipation speed is
-// max over the two sides of |u| + c, times |n|.
+// The Rusanov flux from each side's conv_dot_n results (f, sound speed s,
+// |u| v, u.n): PROTO, the face-sweep prototype's form
+// (tools/pallas_face_prototype.py:57-77), per side |u.n| + c |n|, then the
+// max over the sides; else the package form (dg/riemann.py), the max over
+// the two sides of |u| + c, times |n|.
+template <typename T, int DIM, bool PROTO>
+__device__ __forceinline__ void rusanov_combine(const T* u1, const T* u2,
+                                                const T* n, const T* f1,
+                                                const T* f2, T s1, T v1, T un1,
+                                                T s2, T v2, T un2, T* f) {
+  constexpr int NEQ = DIM + 2;
+  T nmag2 = T(0);
+  for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
+  T lam;
+  if constexpr (PROTO) {
+    const T nmag = sqrt(nmag2);
+    const T c1 = fabs(un1) + s1 * nmag, c2 = fabs(un2) + s2 * nmag;
+    lam = T(0.5) * (c1 > c2 ? c1 : c2);
+  } else {
+    const T c1 = s1 + v1, c2 = s2 + v2;
+    lam = T(0.5) * sqrt(nmag2) * (c1 > c2 ? c1 : c2);
+  }
+  for (int q = 0; q < NEQ; ++q)
+    f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
+}
+
+// Rusanov flux, the package form (dg/riemann.py).
 template <typename T, int DIM>
 __device__ __forceinline__ void rusanov(const T* u1, const T* u2, const T* n,
                                         T gam, T* f) {
@@ -79,17 +104,11 @@ __device__ __forceinline__ void rusanov(const T* u1, const T* u2, const T* n,
   T f1[NEQ], f2[NEQ], s1, s2, v1, v2, un1, un2;
   conv_dot_n<T, DIM>(u1, n, gam, f1, s1, v1, un1);
   conv_dot_n<T, DIM>(u2, n, gam, f2, s2, v2, un2);
-  T nmag2 = T(0);
-  for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
-  const T c1 = s1 + v1, c2 = s2 + v2;
-  const T lam = T(0.5) * sqrt(nmag2) * (c1 > c2 ? c1 : c2);
-  for (int q = 0; q < NEQ; ++q)
-    f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
+  rusanov_combine<T, DIM, false>(u1, u2, n, f1, f2, s1, v1, un1, s2, v2, un2,
+                                 f);
 }
 
-// Rusanov flux, the face-sweep prototype's form
-// (tools/pallas_face_prototype.py:57-77): per side |u.n| + c |n|, then
-// the max over the sides.
+// Rusanov flux, the face-sweep prototype's form.
 template <typename T, int DIM>
 __device__ __forceinline__ void rusanov_prototype(const T* u1, const T* u2,
                                                   const T* n, T gam, T* f) {
@@ -97,13 +116,8 @@ __device__ __forceinline__ void rusanov_prototype(const T* u1, const T* u2,
   T f1[NEQ], f2[NEQ], s1, s2, v1, v2, un1, un2;
   conv_dot_n<T, DIM>(u1, n, gam, f1, s1, v1, un1);
   conv_dot_n<T, DIM>(u2, n, gam, f2, s2, v2, un2);
-  T nmag2 = T(0);
-  for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
-  const T nmag = sqrt(nmag2);
-  const T c1 = fabs(un1) + s1 * nmag, c2 = fabs(un2) + s2 * nmag;
-  const T lam = T(0.5) * (c1 > c2 ? c1 : c2);
-  for (int q = 0; q < NEQ; ++q)
-    f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
+  rusanov_combine<T, DIM, true>(u1, u2, n, f1, f2, s1, v1, un1, s2, v2, un2,
+                                f);
 }
 
 // One-sided viscous normal flux of a traced state (T from the traced

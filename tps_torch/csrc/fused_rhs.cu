@@ -19,16 +19,24 @@
 // grid; the neighbor across local face lf sits `step[lf]` cells along
 // `axis[lf]` (step = -shift of the tables' roll_info), with wrap-around.
 //
-// Design: one thread block per element.  A block stages its element's
-// state (and for K1 the six neighbors' primitives) in shared memory and
-// walks the small dense products with block-strided loops; the folded
-// matrices are read from global memory through the read-only cache (every
-// block reads the same few tens of KB, so they stay in L1/L2).
+// Bound on this card: bytes, for both (K1: U in, G out; K2: U and G in, y
+// out).  The least work at 16^3 p=2 takes 0.4 (K1) and ~1.0 (K2) of the
+// bytes' time, counted sum-factorised; the dense folds do ~10x more.
 //
-// Bound: arithmetic.  At p=2 K1 does 7*81*27*5 multiply-adds per element
-// and K2 about 77k, against ~4 KB of state and gradient read per element;
-// the dense folds trade extra flops for a simple, general-in-ndof kernel.
-// No tensor cores, TMA or CUTLASS: correct first, fast in later work.
+// K1: one thread block per element; the element's and its six neighbors'
+// primitives in shared memory, the folds through the read-only cache.
+//
+// K2: the face stage of dg_face_stage.cuh, shared with face_sweep.cu.  A
+// block owns a tile of E elements (`k2_plan`).  V, Btr and W are copied
+// into shared memory once per block by cp.async (read from global where
+// they do not fit beside a tile, p >= 3); so are the tile's U and G and, for
+// each face, the tile's neighbors' U and G, the next face's copy in
+// flight while the current face is computed.  The volume flux runs one
+// thread per node of the tile, the face flux one per face point of the
+// tile, the products register-blocked.  The first version (one element
+// per block, the neighbor's state read from global memory inside the FMA
+// chain, 16-27 of 128 lanes in the flux stages, three barriers per face
+// per element) ran ~90x above the bound.
 //
 // The pointwise physics (primitives, Sutherland, fluxes, Rusanov) is in
 // dg_pointwise.cuh, shared with face_sweep.cu.
@@ -36,7 +44,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "dg_pointwise.cuh"
+#include "dg_face_stage.cuh"
 
 namespace {
 
@@ -45,7 +53,7 @@ using namespace tps_dg;
 constexpr int NEQ = 5;   // rho, rho u, rho v, rho w, rho E
 constexpr int DIM = 3;
 constexpr int NLF = 6;
-constexpr int BLOCK = 128;
+constexpr int BLOCK = 128;  // K1
 
 struct Geo {
   int nz, ny, nx;
@@ -111,67 +119,172 @@ k1_gradient(const T* __restrict__ U, const T* __restrict__ W,
 }
 
 // ---------------------------------------------------------------- K2
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
+
+// Shared memory of a block of E elements (values, regions 16-byte
+// aligned): the faces' supports; V, Btr per node [NLF][ndof][ldq], W (if
+// resident); U and G of the tile and two neighbor buffers of each (row
+// slots, `row_slot`; the second also stages Btr as copied); the two
+// traces [E][nqf][NEQ + NG], which the volume flux [E][ndof][NEQ*DIM]
+// uses before them; the face flux
+// [E][nqf*NEQ + 1]; the accumulator [E][ndof][NEQ]; |u| + c [E][ndof].
+Plan k2_plan(int ndof, int nqf, int viscous, size_t ts) {
+  const size_t ng = viscous ? NEQ * DIM : 0, k = NEQ + ng;
+  auto bytes = [=](int E, int res) {
+    size_t v = support_values(NLF, ndof, ts);
+    const size_t nb_ = (size_t)NLF * nqf * ndof;
+    v += res ? al4((size_t)DIM * ndof * ndof) +
+                   al4((size_t)NLF * ndof * trace_ld(nqf)) + al4(nb_)
+             : 0;
+    v += al4((size_t)E * ndof * NEQ) + al4((size_t)E * ndof * ng);
+    const size_t nbuf =
+        E * (row_slot(ndof * NEQ, ts) + (ng ? row_slot(ndof * ng, ts) : 0));
+    const size_t staged = res ? nb_ : 0;
+    v += nbuf + al4(nbuf > staged ? nbuf : staged);
+    const size_t tr = 2 * al4((size_t)E * nqf * k);
+    const size_t vf = al4((size_t)E * ndof * NEQ * DIM);
+    v += tr > vf ? tr : vf;
+    v += al4((size_t)E * (nqf * NEQ + 1)) + al4((size_t)E * ndof * NEQ) +
+         al4((size_t)E * ndof);
+    return v * ts;
+  };
+  return make_plan(bytes);
+}
+
+// RES: V, Btr and W are resident in shared memory (then every operand
+// load is a shared-memory load).
+template <typename T, bool VISCOUS, bool RES>
+__global__ void __launch_bounds__(THREADS_MAX)
 k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
-                const T* __restrict__ V,     // [DIM][ndof][ndof]
-                const T* __restrict__ Btr,   // [NLF][nqf][ndof]
-                const T* __restrict__ Wsc,   // [NLF][ndof][nqf]
+                const T* __restrict__ Vg,    // [DIM][ndof][ndof]
+                const T* __restrict__ Bg,    // [NLF][nqf][ndof]
+                const T* __restrict__ Wg,    // [NLF][ndof][nqf]
                 const T* __restrict__ Nor,   // [NLF][nqf][DIM]
-                T* __restrict__ Y, T* __restrict__ mcs, int ndof, int nqf,
-                int viscous, Geo geo, Phys ph) {
+                T* __restrict__ Y, T* __restrict__ mcs, int ne, int ndof,
+                int nqf, int E, Geo geo, Phys ph) {
+  constexpr int NG = VISCOUS ? NEQ * DIM : 0;
+  constexpr int K = NEQ + NG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* su = reinterpret_cast<T*>(smem_raw);  // [ndof][NEQ]
-  T* sg = su + ndof * NEQ;                  // [ndof][NEQ][DIM]
-  T* sf = sg + ndof * NEQ * DIM;            // [ndof][NEQ][DIM] volume flux
-  T* sy = sf + ndof * NEQ * DIM;            // [ndof][NEQ] accumulator
-  T* sm = sy + ndof * NEQ;                  // [ndof] char speed
-  T* to = sm + ndof;                        // [nqf][NEQ] own U trace
-  T* tn = to + nqf * NEQ;                   // [nqf][NEQ] neighbor U trace
-  T* go = tn + nqf * NEQ;                   // [nqf][NEQ][DIM] own G trace
-  T* gn = go + nqf * NEQ * DIM;             // [nqf][NEQ][DIM] nbr G trace
-  T* fl = gn + nqf * NEQ * DIM;             // [nqf][NEQ] face flux
+  __shared__ int s_nb[NLF * TILE_MAX];     // neighbor of (lf, el); -1: none
+  __shared__ double s_m[NLF * TILE_MAX];   // 1, or 0 past the mesh
 
-  const int e = blockIdx.x;
   const int tid = threadIdx.x;
-  const T gam = T(ph.gamma);
-  const T gm1 = gam - T(1);
-  const int nu = ndof * NEQ, ng = ndof * NEQ * DIM;
+  const int e0 = blockIdx.x * E;
+  const int nt = ne - e0 < E ? ne - e0 : E;  // elements of this tile
+  const int nu = ndof * NEQ, ng = ndof * NG, fs = nqf * NEQ + 1;
+  const size_t nv = (size_t)DIM * ndof * ndof, nb_ = (size_t)NLF * nqf * ndof;
+  const int ldq = trace_ld(nqf);
+  T* p = reinterpret_cast<T*>(smem_raw);
+  int* s_cnt = reinterpret_cast<int*>(p);  // face supports
+  int* s_node = s_cnt + NLF;
+  p += support_values(NLF, ndof, sizeof(T));
+  T* sV = p;
+  T* sBT = sV + (RES ? al4(nv) : 0);  // Btr per node, [NLF][ndof][ldq]
+  T* sW = sBT + (RES ? al4((size_t)NLF * ndof * ldq) : 0);
+  p = sW + (RES ? al4(nb_) : 0);
+  T* sU = p;  // the tile's U and G
+  p += al4((size_t)E * nu);
+  T* sG = p;
+  p += al4((size_t)E * ng);
+  // two neighbor buffers: U at sUn + b * nbuf, G at sGn + b * nbuf, one
+  // row slot per element
+  const int ldu = (int)row_slot(nu, sizeof(T));
+  const int ldg = NG ? (int)row_slot(ng, sizeof(T)) : 0;
+  const size_t nbuf = (size_t)E * (ldu + ldg);
+  T* sUn = p;
+  T* sGn = p + (size_t)E * ldu;
+  T* staged = p + nbuf;  // buffer 1 also stages Btr as copied
+  p = staged + al4(nbuf > (RES ? nb_ : 0) ? nbuf : nb_);
+  T* sTo = p;  // the traces; the volume flux sf before them
+  T* sTn = sTo + al4((size_t)E * nqf * K);
+  T* sf = p;   // [E][ndof][NEQ][DIM]
+  {
+    const size_t tr = 2 * al4((size_t)E * nqf * K);
+    const size_t vf = al4((size_t)E * ndof * NEQ * DIM);
+    p += tr > vf ? tr : vf;
+  }
+  T* sF = p;
+  p += al4((size_t)E * fs);
+  T* sY = p;
+  p += al4((size_t)E * nu);
+  T* sM = p;
+  const T* V = RES ? sV : Vg;
+  const T* W = RES ? sW : Wg;
+  // Btr: per node in shared memory (RES), else its rows in global memory
+  const T* B = RES ? sBT : Bg;
+  const int ldb = RES ? ldq : ndof;
+  const size_t fstride = RES ? (size_t)ndof * ldq : (size_t)nqf * ndof;
+  const T *Uend = U + (size_t)ne * nu, *Gend = G + (size_t)ne * ng;
 
-  for (int i = tid; i < nu; i += blockDim.x) su[i] = U[(size_t)e * nu + i];
-  if (viscous)
-    for (int i = tid; i < ng; i += blockDim.x) sg[i] = G[(size_t)e * ng + i];
+  // group 0: the operators (Btr as copied) and the tile's U and G
+  if (RES) {
+    copy_async(sV, Vg, (int)nv);
+    copy_async(staged, Bg, (int)nb_);
+    copy_async(sW, Wg, (int)nb_);
+  }
+  copy_async(sU, U + (size_t)e0 * nu, nt * nu);
+  if (VISCOUS) copy_async(sG, G + (size_t)e0 * ng, nt * ng);
+  cp_async_commit();
+  for (int i = tid; i < NLF * E; i += blockDim.x) {
+    const int lf = i / E, el = i - lf * E;
+    const bool in = el < nt;
+    s_nb[i] = in ? neighbor(e0 + el, lf, geo) : -1;
+    s_m[i] = in ? 1.0 : 0.0;
+  }
   __syncthreads();
 
+  auto nbr_u = [&](int lf, int el) -> const T* {
+    const int nb = s_nb[lf * E + el];
+    return nb < 0 ? nullptr : U + (size_t)nb * nu;
+  };
+  auto nbr_g = [&](int lf, int el) -> const T* {
+    const int nb = s_nb[lf * E + el];
+    return nb < 0 ? nullptr : G + (size_t)nb * ng;
+  };
+  auto fetch = [&](int lf) {  // one group: face lf's neighbors' U and G
+    copy_rows_async(sUn + (lf & 1) * nbuf, E, nu, ldu,
+                    [&](int el) { return nbr_u(lf, el); }, U, Uend);
+    if (VISCOUS)
+      copy_rows_async(sGn + (lf & 1) * nbuf, E, ng, ldg,
+                      [&](int el) { return nbr_g(lf, el); }, G, Gend);
+    cp_async_commit();
+  };
+  fetch(0);
+  cp_async_wait<1>();
+  __syncthreads();
+  prepare_faces<T, RES>(sBT, RES ? staged : Bg, NLF, nqf, ndof, ldq, s_cnt,
+                        s_node);  // synchronised below
+
   // ---- pointwise volume flux F = Fconv - Fvisc, and |u| + c ----
-  for (int q = tid; q < ndof; q += blockDim.x) {
-    const T* u = su + q * NEQ;
+  const T gam = T(ph.gamma);
+  const T gm1 = gam - T(1);
+  for (int i = tid; i < nt * ndof; i += blockDim.x) {
+    const T* u = sU + (size_t)i * NEQ;
     const T rho = u[0];
     const T inv = T(1) / rho;
     const T vel[3] = {u[1] * inv, u[2] * inv, u[3] * inv};
     const T v2 = vel[0] * vel[0] + vel[1] * vel[1] + vel[2] * vel[2];
-    const T p = gm1 * (u[4] - T(0.5) * rho * v2);
-    sm[q] = sqrt(v2) + sqrt(gam * p / rho);
-    T* F = sf + q * NEQ * DIM;
+    const T pr = gm1 * (u[4] - T(0.5) * rho * v2);
+    sM[i] = sqrt(v2) + sqrt(gam * pr / rho);
+    T* F = sf + (size_t)i * NEQ * DIM;
     for (int d = 0; d < 3; ++d) {
       F[0 * DIM + d] = u[1 + d];
-      for (int i = 0; i < 3; ++i)
-        F[(1 + i) * DIM + d] = u[1 + i] * vel[d] + (i == d ? p : T(0));
-      F[4 * DIM + d] = vel[d] * (u[4] + p);
+      for (int a = 0; a < 3; ++a)
+        F[(1 + a) * DIM + d] = u[1 + a] * vel[d] + (a == d ? pr : T(0));
+      F[4 * DIM + d] = vel[d] * (u[4] + pr);
     }
-    if (viscous) {
-      const T* g = sg + q * NEQ * DIM;
+    if constexpr (VISCOUS) {
+      const T* g = sG + (size_t)i * NG;
       T mu, kap;
-      mu_kappa(p * inv / T(ph.rgas), ph, mu, kap);
+      mu_kappa(pr * inv / T(ph.rgas), ph, mu, kap);
       const T bulk = (T(ph.bulk_mult) - T(2) / T(3)) * mu;
       const T div = g[1 * DIM + 0] + g[2 * DIM + 1] + g[3 * DIM + 2];
       for (int d = 0; d < 3; ++d) {
         T fe = T(0);
-        for (int i = 0; i < 3; ++i) {
-          T tau = mu * (g[(1 + i) * DIM + d] + g[(1 + d) * DIM + i]);
-          if (i == d) tau += bulk * div;
-          F[(1 + i) * DIM + d] -= tau;
-          fe += tau * vel[i];
+        for (int a = 0; a < 3; ++a) {
+          T tau = mu * (g[(1 + a) * DIM + d] + g[(1 + d) * DIM + a]);
+          if (a == d) tau += bulk * div;
+          F[(1 + a) * DIM + d] -= tau;
+          fe += tau * vel[a];
         }
         F[4 * DIM + d] -= fe + kap * g[4 * DIM + d];
       }
@@ -179,83 +292,88 @@ k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
   }
   __syncthreads();
 
-  // ---- volume scatter: y[j][eq] = sum_dd sum_q V[dd][j][q] F[q][eq][dd] ----
-  for (int o = tid; o < nu; o += blockDim.x) {
-    const int j = o / NEQ, q = o - j * NEQ;
-    T acc = T(0);
+  // ---- volume scatter y[el][j][q] = sum_dd sum_k V[dd][j][k] F[el][k][q][dd]
+  // (one thread per (element, node), element fastest), and each
+  // element's max |u| + c ----
+  for (int t = tid; t < E * ndof; t += blockDim.x) {
+    const int el = t % E, j = t / E;
+    if (el >= nt) continue;
+    T acc[NEQ];
+#pragma unroll
+    for (int q = 0; q < NEQ; ++q) acc[q] = T(0);
     for (int dd = 0; dd < DIM; ++dd) {
       const T* v = V + ((size_t)dd * ndof + j) * ndof;
-      for (int k = 0; k < ndof; ++k)
-        acc += __ldg(v + k) * sf[(k * NEQ + q) * DIM + dd];
+      const T* f = sf + (size_t)el * ndof * NEQ * DIM + dd;
+      for (int k = 0; k < ndof; ++k) {
+        const T w = v[k];
+#pragma unroll
+        for (int q = 0; q < NEQ; ++q) acc[q] += w * f[(k * NEQ + q) * DIM];
+      }
     }
-    sy[o] = acc;
+    T* y = sY + ((size_t)el * ndof + j) * NEQ;
+#pragma unroll
+    for (int q = 0; q < NEQ; ++q) y[q] = acc[q];
   }
+  for (int el = tid; el < nt; el += blockDim.x) {
+    const T* s = sM + (size_t)el * ndof;
+    T m = s[0];
+    for (int q = 1; q < ndof; ++q) m = nan_max(m, s[q]);
+    mcs[e0 + el] = m;
+  }
+  __syncthreads();  // the traces overwrite the volume flux
 
   // ---- the six faces ----
-  const int nt = nqf * NEQ * (viscous ? 1 + DIM : 1);
+  // scatter through W_lf = -(w * Btr_lf^T * Minv)
+  auto scatter = [&](int lf) {
+    scatter_stage<T, NEQ>(E, nqf, s_node + lf * ndof, s_cnt[lf],
+                          W + (size_t)lf * ndof * nqf, nqf, 1, sF, fs, sY,
+                          ndof);
+  };
   for (int lf = 0; lf < NLF; ++lf) {
+    // buffer (lf + 1) & 1 was last read by face lf - 1's traces
+    if (lf + 1 < NLF) {
+      fetch(lf + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // face lf - 1's scatter (its flux is complete) beside face lf's traces
+    if (lf > 0) scatter(lf - 1);
+    const size_t b = (lf & 1) * nbuf;
     const int opp = geo.opp[lf];
-    const int nb = neighbor(e, lf, geo);
-    const T* bo = Btr + (size_t)lf * nqf * ndof;
-    const T* bn = Btr + (size_t)opp * nqf * ndof;
-    const T* un = U + (size_t)nb * nu;
-    const T* gnb = G + (size_t)nb * ng;
-    // traces: own side from shared memory, neighbor side (its opposite
-    // face) straight from global memory
-    for (int o = tid; o < 2 * nt; o += blockDim.x) {
-      const bool own = o < nt;
-      const int i = own ? o : o - nt;
-      const T* b = own ? bo : bn;
-      T acc = T(0);
-      if (i < nqf * NEQ) {  // U trace (s, eq)
-        const int s = i / NEQ, q = i - s * NEQ;
-        const T* src = own ? su + q : un + q;
-        for (int k = 0; k < ndof; ++k)
-          acc += __ldg(b + s * ndof + k) * src[k * NEQ];
-        (own ? to : tn)[i] = acc;
-      } else {  // G trace (s, eq, dd)
-        const int ig = i - nqf * NEQ;
-        const int s = ig / (NEQ * DIM), c = ig - s * NEQ * DIM;
-        const T* src = own ? sg + c : gnb + c;
-        for (int k = 0; k < ndof; ++k)
-          acc += __ldg(b + s * ndof + k) * src[k * NEQ * DIM];
-        (own ? go : gn)[ig] = acc;
-      }
-    }
+    trace_stage<T, NEQ, K, RES>(
+        E, nqf, ndof, B, ldb, fstride, s_cnt, s_node,
+        [&](int side, int, int& face, const int*& pos) {
+          face = side ? opp : lf;
+          pos = nullptr;
+        },
+        [&](int side, int el, int cg, const T*& x, int& ldx) {
+          // own, or a fetched row at its phase
+          if (cg == 0) {
+            const T* src = side ? nbr_u(lf, el) : nullptr;
+            x = side ? sUn + b + (size_t)el * ldu + (src ? row_phase(src) : 0)
+                     : sU + (size_t)el * nu;
+            ldx = NEQ;
+          } else {
+            const T* src = side ? nbr_g(lf, el) : nullptr;
+            x = side ? sGn + b + (size_t)el * ldg + (src ? row_phase(src) : 0)
+                     : sG + (size_t)el * ng;
+            x += (cg - 1) * NEQ;
+            ldx = NG;
+          }
+        },
+        sTo, sTn);
     __syncthreads();
-
-    for (int s = tid; s < nqf; s += blockDim.x) {
-      const T* n = Nor + ((size_t)lf * nqf + s) * DIM;
-      const T* u1 = to + s * NEQ;
-      const T* u2 = tn + s * NEQ;
-      T* f = fl + s * NEQ;
-      rusanov<T, DIM>(u1, u2, n, gam, f);
-      if (viscous) {
-        T v1[NEQ], v2[NEQ];
-        visc_dot_n<T, DIM>(u1, go + s * NEQ * DIM, n, ph, v1);
-        visc_dot_n<T, DIM>(u2, gn + s * NEQ * DIM, n, ph, v2);
-        for (int q = 1; q < NEQ; ++q) f[q] -= T(0.5) * (v1[q] + v2[q]);
-      }
-    }
-    __syncthreads();
-
-    // scatter through W_lf = -(w * Btr_lf^T * Minv)
-    const T* w = Wsc + (size_t)lf * ndof * nqf;
-    for (int o = tid; o < nu; o += blockDim.x) {
-      const int j = o / NEQ, q = o - j * NEQ;
-      T acc = T(0);
-      for (int s = 0; s < nqf; ++s) acc += __ldg(w + j * nqf + s) * fl[s * NEQ + q];
-      sy[o] += acc;
-    }
+    flux_stage<T, DIM, VISCOUS, false, K>(E, nqf, sTo, sTn,
+                                          Nor + (size_t)lf * nqf * DIM, 0, e0,
+                                          s_m + lf * E, ph, sF, fs);
     __syncthreads();
   }
-
-  for (int i = tid; i < nu; i += blockDim.x) Y[(size_t)e * nu + i] = sy[i];
-  if (tid == 0) {
-    T m = sm[0];
-    for (int q = 1; q < ndof; ++q) m = nan_max(m, sm[q]);
-    mcs[e] = m;
-  }
+  scatter(NLF - 1);
+  __syncthreads();
+  for (int i = tid; i < nt * nu; i += blockDim.x)
+    Y[(size_t)e0 * nu + i] = sY[i];
 }
 
 Geo make_geo(const int* g) {
@@ -275,11 +393,6 @@ size_t k1_smem(int ndof, size_t tsize) {
   return (size_t)(1 + NLF) * ndof * NEQ * tsize;
 }
 
-size_t k2_smem(int ndof, int nqf, size_t tsize) {
-  return ((size_t)ndof * (2 * NEQ + 2 * NEQ * DIM + 1) +
-          (size_t)nqf * (3 * NEQ + 2 * NEQ * DIM)) * tsize;
-}
-
 template <typename T>
 int launch_k1(const T* U, const T* W, T* G, int ne, int ndof, const int* g,
               const double* p, void* stream) {
@@ -290,16 +403,32 @@ int launch_k1(const T* U, const T* W, T* G, int ne, int ndof, const int* g,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, bool VISCOUS>
 int launch_k2(const T* U, const T* G, const T* V, const T* B, const T* Wsc,
               const T* N, T* Y, T* mcs, int ne, int ndof, int nqf,
-              int viscous, const int* g, const double* p, void* stream) {
-  const size_t smem = k2_smem(ndof, nqf, sizeof(T));
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  k2_faces_volume<T><<<ne, BLOCK, smem, (cudaStream_t)stream>>>(
-      U, G, V, B, Wsc, N, Y, mcs, ndof, nqf, viscous, make_geo(g),
+              const int* g, const double* p, void* stream) {
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  const Plan pl = k2_plan(ndof, nqf, VISCOUS, sizeof(T));
+  if (pl.tile == 0 || ne < 0) return (int)cudaErrorInvalidValue;
+  if (ne == 0) return 0;
+  auto kernel = pl.resident ? k2_faces_volume<T, VISCOUS, true>
+                            : k2_faces_volume<T, VISCOUS, false>;
+  if (int err = allow_smem(kernel, pl.smem, allowed[pl.resident])) return err;
+  const int blocks = (ne + pl.tile - 1) / pl.tile;
+  kernel<<<blocks, THREADS_MAX, pl.smem, (cudaStream_t)stream>>>(
+      U, G, V, B, Wsc, N, Y, mcs, ne, ndof, nqf, pl.tile, make_geo(g),
       make_phys(p));
   return (int)cudaGetLastError();
+}
+
+template <typename T>
+int dispatch_k2(const T* U, const T* G, const T* V, const T* B, const T* W,
+                const T* N, T* Y, T* mcs, int ne, int ndof, int nqf,
+                int viscous, const int* g, const double* p, void* stream) {
+  return viscous ? launch_k2<T, true>(U, G, V, B, W, N, Y, mcs, ne, ndof, nqf,
+                                      g, p, stream)
+                 : launch_k2<T, false>(U, G, V, B, W, N, Y, mcs, ne, ndof,
+                                       nqf, g, p, stream);
 }
 
 }  // namespace
@@ -326,8 +455,8 @@ int tps_k2_faces_volume_f32(const float* U, const float* G, const float* V,
                             float* Y, float* mcs, int ne, int ndof, int nqf,
                             int viscous, const int* geo, const double* phys,
                             void* stream) {
-  return launch_k2<float>(U, G, V, B, W, N, Y, mcs, ne, ndof, nqf, viscous,
-                          geo, phys, stream);
+  return dispatch_k2<float>(U, G, V, B, W, N, Y, mcs, ne, ndof, nqf, viscous,
+                            geo, phys, stream);
 }
 
 int tps_k2_faces_volume_f64(const double* U, const double* G, const double* V,
@@ -335,8 +464,16 @@ int tps_k2_faces_volume_f64(const double* U, const double* G, const double* V,
                             double* Y, double* mcs, int ne, int ndof, int nqf,
                             int viscous, const int* geo, const double* phys,
                             void* stream) {
-  return launch_k2<double>(U, G, V, B, W, N, Y, mcs, ne, ndof, nqf, viscous,
-                           geo, phys, stream);
+  return dispatch_k2<double>(U, G, V, B, W, N, Y, mcs, ne, ndof, nqf, viscous,
+                             geo, phys, stream);
+}
+
+// K2's plan, no launch: dynamic shared bytes per block; *tile gets the
+// elements per block (0: the shape does not fit).
+long long tps_k2_smem(int ndof, int nqf, int viscous, int tsize, int* tile) {
+  const Plan pl = k2_plan(ndof, nqf, viscous, (size_t)tsize);
+  if (tile) *tile = pl.tile;
+  return (long long)pl.smem;
 }
 
 }  // extern "C"

@@ -10,7 +10,11 @@ dg/rhs.py:143-178 of the JAX package.  For each element e
     z_e = sign * sum_lf Btr_or[lf]^T mask[e,lf] F(tr_own, tr_nbr, n[e,lf])
 
 on X = [U | G] [ne, ndof, k], with the neighbour (e', combo) decoded from
-nbr_row (see the .cu file).  Two modes:
+nbr_row (see the .cu file).  The kernel keeps only the nlf identity trace
+blocks in shared memory: combo c's rows are face block combo_face[c]'s
+rows in the order combo_perm[c] (`combo_tables`, derived once from
+Btr_or).  Its block owns a tile of elements (`plan`, the kernel's own
+csrc/face_sweep.cu::face_plan).  Two modes:
 
 - slot (`build_face_sweep`): the package Rusanov minus the mean one-sided
   viscous normal flux, normals nor_wpf, mask interior_mask, sign -1; its
@@ -39,7 +43,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from .cuda_fused import SHARED_LIMIT, _Library, build_kernels, kernel_phys
+from .cuda_fused import (SHARED_LIMIT, _al4, _Library, build_kernels,
+                         kernel_phys, row_slot, support_values, tile_plan)
 from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version)
 
 # kernel launches since the last reset_launches()
@@ -73,10 +78,49 @@ def face_sweep_supported(tab_np, ctx) -> bool:
     return fl.eq_system == "euler" or type(fl.transport).__name__ == "DryAirTransport"
 
 
-def shared_bytes(ndof, nqf, k, neq, dtype):
-    """Shared memory of one block (csrc/face_sweep.cu::face_smem)."""
+def plan(ndof, nqf, nlf, k, neq, dtype):
+    """(elements per block, trace blocks resident, shared bytes) of the
+    kernel (csrc/face_sweep.cu::face_plan): the faces' supports, the nlf
+    trace blocks per node if resident, the tile's states and two
+    neighbour buffers (row slots; the second also stages the blocks),
+    both traces, the flux and the accumulator.  Elements 0: the shape does
+    not fit."""
     size = torch.empty((), dtype=dtype).element_size()
-    return (ndof * (k + neq) + nqf * (2 * k + neq)) * size
+
+    def nbytes(E, res):
+        nb = E * row_slot(ndof * k, size)
+        v = support_values(nlf, ndof, size)
+        v += _al4(nlf * ndof * _al4(nqf)) if res else 0
+        v += _al4(E * ndof * k) + nb + _al4(max(nb, nlf * nqf * ndof if res else 0))
+        v += 2 * _al4(E * nqf * k)
+        v += _al4(E * (nqf * neq + 1)) + _al4(E * ndof * neq)
+        return v * size
+
+    return tile_plan(nbytes)
+
+
+def combo_tables(Btr_or, nlf, nqf):
+    """(combo_face [n_combo], combo_perm [n_combo, nqf]) int32 numpy with
+    Btr_or[c*nqf + combo_perm[c, s]] == Btr_or[combo_face[c]*nqf + s]
+    exactly: every combo is one of the nlf identity blocks that lead Btr_or
+    (dg/discretization.py's oriented traces) with its points reordered,
+    point s landing at combo_perm[c, s].  Raises if a combo is not."""
+    B = np.asarray(Btr_or)
+    blocks = B.reshape(-1, nqf, B.shape[-1])
+    n_combo = blocks.shape[0]
+    face = np.zeros(n_combo, np.int32)
+    perm = np.zeros((n_combo, nqf), np.int32)
+    for c in range(n_combo):
+        for lf in range(nlf):
+            eq = np.all(blocks[c][:, None, :] == blocks[lf][None, :, :], -1)
+            pc = np.argmax(eq, 1)
+            if eq.any(1).all() and np.array_equal(np.sort(pc), np.arange(nqf)):
+                face[c], perm[c] = lf, np.argsort(pc)
+                break
+        else:
+            raise ValueError(f"combo {c} of Btr_or is no point permutation "
+                             f"of a face block")
+    return face, perm
 
 
 # ---------------------------------------------------------------- plain
@@ -130,6 +174,8 @@ class CudaFaceSweep:
 
     plain: object  # X -> [ne, ndof, neq]
     Btr_or: torch.Tensor  # [n_combo*nqf, ndof]
+    combo_face: torch.Tensor  # [n_combo] int32
+    combo_perm: torch.Tensor  # [n_combo, nqf] int32
     nbr_row: torch.Tensor  # [ne, nlf] int32
     nor: torch.Tensor  # normals, element stride nor_e, face stride nor_lf
     mask: torch.Tensor | None  # [ne, nlf] (None: every slot interior)
@@ -173,6 +219,7 @@ class CudaFaceSweep:
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(X.data_ptr(), self.Btr_or.data_ptr(),
+                     self.combo_face.data_ptr(), self.combo_perm.data_ptr(),
                      self.nbr_row.data_ptr(), self.nor.data_ptr(),
                      None if self.mask is None else self.mask.data_ptr(),
                      Y.data_ptr(), self.ne, self.ndof, self.nqf, self.nlf,
@@ -190,11 +237,17 @@ def _check_cuda(tab, viscous, dtype, device):
         return
     neq = tab.dim + 2
     k = neq * (1 + tab.dim) if viscous else neq
-    smem = shared_bytes(tab.ndof, tab.nqf, k, neq, dtype)
-    if smem > SHARED_LIMIT:
+    tile, _res, smem = plan(tab.ndof, tab.nqf, tab.nlf, k, neq, dtype)
+    if not tile:
         raise ValueError(f"ndof={tab.ndof}, nqf={tab.nqf}, k={k} needs {smem} "
-                         f"B of shared memory per block in {dtype}; the face "
-                         f"sweep kernel takes {SHARED_LIMIT}")
+                         f"B of shared memory for one element in {dtype}; "
+                         f"the face sweep kernel's block takes {SHARED_LIMIT}")
+
+
+def _combo_tensors(Btr_or, nlf, nqf, device):
+    face, perm = combo_tables(Btr_or, nlf, nqf)
+    return (torch.as_tensor(face, device=device),
+            torch.as_tensor(perm, device=device).contiguous())
 
 
 def build_face_sweep(tab, ctx) -> CudaFaceSweep:
@@ -211,9 +264,10 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         _check_cuda(tab, viscous, dtype, device)
     phys = kernel_phys(ctx)
     nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
+    cface, cperm = _combo_tensors(tab.Btr_or.cpu().numpy(), nlf, nqf, device)
     return CudaFaceSweep(
         plain=functools.partial(face_sweep_plain, ctx, tab),
-        Btr_or=tab.Btr_or.contiguous(),
+        Btr_or=tab.Btr_or.contiguous(), combo_face=cface, combo_perm=cperm,
         nbr_row=tab.nbr_row.to(torch.int32).contiguous(),
         nor=tab.nor_wpf.contiguous(),
         mask=tab.interior_mask.contiguous(),
@@ -224,11 +278,11 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
     )
 
 
-def build_prototype_sweep(tab_np, dtype=torch.float32, device="cpu",
-                          gamma=1.4) -> CudaFaceSweep:
-    """The prototype-mode sweep on a periodic 3-D box's numpy tables:
-    Euler, gamma 1.4 (the prototype's GAM), one set of face normals and
-    weights for every element (nor_slot[0], wts_slot[0])."""
+def build_prototype_sweep(tab_np, dtype, device, gamma=1.4) -> CudaFaceSweep:
+    """The prototype-mode sweep on a periodic 3-D box's numpy tables, in
+    dtype on device: Euler, gamma 1.4 (the prototype's GAM), one set of
+    face normals and weights for every element (nor_slot[0],
+    wts_slot[0])."""
     t = tab_np
     if t.dim != 3 or t.roll_info is None or t.nfb:
         raise ValueError("prototype mode needs a periodic 3-D box")
@@ -238,11 +292,13 @@ def build_prototype_sweep(tab_np, dtype=torch.float32, device="cpu",
 
     nor, wts = dev(t.nor_slot[0]), dev(t.wts_slot[0])  # [nlf, nqf, 3], [nlf, nqf]
     _check_cuda(t, False, dtype, device)
+    cface, cperm = _combo_tensors(t.Btr_or, t.nlf, t.nqf, device)
     return CudaFaceSweep(
         plain=functools.partial(prototype_chain_plain, Btr=dev(t.Btr),
                                 nor=nor, wts=wts, roll_info=t.roll_info,
                                 gamma=gamma),
-        Btr_or=dev(t.Btr_or), nbr_row=dev(t.nbr_row, torch.int32),
+        Btr_or=dev(t.Btr_or), combo_face=cface, combo_perm=cperm,
+        nbr_row=dev(t.nbr_row, torch.int32),
         nor=(wts[..., None] * nor).contiguous(), mask=None,
         ne=t.ne, ndof=t.ndof, nqf=t.nqf, nlf=t.nlf, n_combo=t.n_combo, dim=3,
         viscous=False, prototype=True, nor_lf=t.nqf * 3, nor_e=0, sign=1.0,

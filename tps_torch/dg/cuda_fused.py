@@ -6,8 +6,10 @@ k2_kernel, and compute the same algebra on the same folded matrices
 (`kernel_folds`, the numpy folds of that module).  The TPU kernels'
 channel-major [nz, neq*ndof, ny*nx] carry, lane rolls and VMEM limits
 were shaped by the TPU; here the kernels read the solver's element-major
-[ne, ndof, neq] state directly, one thread block per element, with
-neighbors found from the grid coordinates (see the .cu file's notes).
+[ne, ndof, neq] state directly, with neighbors found from the grid
+coordinates: K1 one thread block per element, K2 a tile of elements per
+block with its operators and states in shared memory (see the .cu
+files' notes and csrc/dg_face_stage.cuh).
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain PyTorch version, FusedRHS
@@ -25,8 +27,9 @@ Preconditions (`cuda_fusable`): the fused-path preconditions (periodic
 roll topology, collocated GL basis, uniform affine elements, no BCs) plus
 3-D hexes, DryAir with 3 velocities, Rusanov, Euler or Navier-Stokes with
 Sutherland transport, and no forcings.  Any grid extents; ndof generic
-(48 KB of shared memory per block bounds it at p <= 3 in f64, p <= 4 in
-f32; build_cuda_fused raises beyond).
+up to the shared memory of a block: K1 stages seven elements' primitives
+in at most 48 KB (p <= 4 in f64, p <= 6 in f32); K2 follows `k2_plan`
+(dynamic shared memory up to 227 KB).  build_cuda_fused raises beyond.
 """
 
 from __future__ import annotations
@@ -52,7 +55,14 @@ COMPILE_FLAGS = ("-O3", *ARCH, "-std=c++17", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*ARCH, "-shared")
 
-SHARED_LIMIT = 48 * 1024  # bytes of shared memory a block may take
+# Shared memory (csrc/dg_face_stage.cuh): K1 takes static-size launches
+# up to 48 KB; K2 and the face sweep take dynamic shared memory up to 227
+# KB a block (232,448 B, less 1 KB for their static neighbor tables) and
+# aim at two blocks per SM.
+K1_SHARED_LIMIT = 48 * 1024
+SHARED_LIMIT = 232448 - 1024
+SHARED_TARGET = 114688
+TILE_MAX = 8  # elements per block (of 256 threads)
 
 # kernel launches since the last reset_launches(), by kernel name
 launches = {"k1_gradient": 0, "k2_faces_volume": 0}
@@ -137,9 +147,13 @@ def build_kernels():
         fn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, ip, dbl, ptr]
         fn.restype = i32
         fn = getattr(lib, f"tps_face_sweep_{suffix}")
-        fn.argtypes = ([ptr] * 6 + [i32] * 5 + [i64, i64, ctypes.c_double]
+        fn.argtypes = ([ptr] * 8 + [i32] * 5 + [i64, i64, ctypes.c_double]
                        + [i32] * 3 + [dbl, ptr])
         fn.restype = i32
+    lib.tps_k2_smem.argtypes = [i32, i32, i32, i32, ip]
+    lib.tps_k2_smem.restype = i64
+    lib.tps_face_sweep_smem.argtypes = [i32] * 6 + [ip]
+    lib.tps_face_sweep_smem.restype = i64
     _Library.lib, _Library.path = lib, path
     return path
 
@@ -164,6 +178,66 @@ def cuda_fusable(tab_np, ctx) -> bool:
         return False
     tr = ctx.fluxes.transport
     return eq == "euler" or type(tr).__name__ == "DryAirTransport"
+
+
+def _al4(n):
+    return (n + 3) & ~3
+
+
+def tile_plan(nbytes):
+    """(elements per block, operators resident, shared bytes) of a tiled
+    kernel whose block takes nbytes(E, resident) bytes: the most elements
+    in flight per SM (2 or 1 blocks by shared memory, times E) over E in
+    (8, 4, 2, 1) and operators in shared memory or read through the cache;
+    on a tie the larger tile, then resident.  E = 0: it does not fit.  The
+    kernels' own formula: csrc/dg_face_stage.cuh::make_plan."""
+    best, best_score = (0, False, nbytes(1, False)), 0
+    for E in (8, 4, 2, 1):
+        for res in (True, False):
+            b = nbytes(E, res)
+            score = (2 if b <= SHARED_TARGET else 1 if b <= SHARED_LIMIT else 0) * E
+            if score > best_score:
+                best, best_score = (E, res, b), score
+    return best
+
+
+def row_slot(n, size):
+    """Values of a neighbor row slot (dg_face_stage.cuh::row_slot): n
+    values copied in 16-byte chunks from any phase."""
+    v = 16 // size
+    s = _al4((n + 2 * v - 2) // v * v)
+    return s if s % 8 else s + 4
+
+
+def support_values(nlf, ndof, size):
+    """Values of `size` bytes that the kernels' face supports take (nlf
+    counts and nlf node lists, int32): dg_face_stage.cuh::support_values."""
+    return _al4(-(-nlf * (ndof + 1) * 4 // size))
+
+
+def k2_plan(ndof, nqf, viscous, dtype):
+    """K2's tile plan (csrc/fused_rhs.cu::k2_plan): the face supports; V,
+    Btr per node, W if resident; U and G of the tile and two neighbor
+    buffers (the second also stages Btr); the traces (or the volume flux
+    before them); the face flux, accumulator, |u| + c."""
+    size = torch.empty((), dtype=dtype).element_size()
+    ng = 15 if viscous else 0
+    k = 5 + ng
+
+    def nbytes(E, res):
+        nb = 6 * nqf * ndof
+        v = support_values(6, ndof, size)
+        if res:
+            v += _al4(3 * ndof * ndof) + _al4(6 * ndof * _al4(nqf)) + _al4(nb)
+        v += _al4(E * ndof * 5) + _al4(E * ndof * ng)
+        nbuf = E * (row_slot(ndof * 5, size)
+                    + (row_slot(ndof * ng, size) if ng else 0))
+        v += nbuf + _al4(max(nbuf, nb if res else 0))
+        v += max(2 * _al4(E * nqf * k), _al4(E * ndof * 15))
+        v += _al4(E * (nqf * 5 + 1)) + _al4(E * ndof * 5) + _al4(E * ndof)
+        return v * size
+
+    return tile_plan(nbytes)
 
 
 def kernel_phys(ctx):
@@ -323,30 +397,30 @@ class CudaFusedRHS:
         return y, {"max_char_speed": torch.amax(mcs)}
 
 
-def build_cuda_fused(tab_np, ctx, dtype=None, device=None) -> CudaFusedRHS:
-    """Fold the tables for the kernels (and for the plain FusedRHS)."""
+def build_cuda_fused(tab_np, ctx, dtype, device) -> CudaFusedRHS:
+    """Fold the tables for the kernels (and for the plain FusedRHS), in
+    dtype on device.  Raises for CUDA where a kernel's block would not fit
+    its shared memory (K1: 48 KB; K2: `k2_plan`)."""
     if not cuda_fusable(tab_np, ctx):
         raise ValueError("the CUDA fused kernels' preconditions do not hold "
                          "(see cuda_fusable)")
-    if dtype is None:
-        dtype = torch.get_default_dtype()
-    # each block stages one element (and K1 its six neighbors' primitives)
-    # in at most 48 KB of shared memory: p <= 3 in f64, p <= 4 in f32
-    size = torch.empty((), dtype=dtype).element_size()
-    nd, nq = tab_np.ndof, tab_np.nqf
-    smem = max(7 * nd * 5, nd * 41 + nq * 45) * size
-    on_cuda = device is not None and torch.device(device).type == "cuda"
-    if on_cuda and smem > SHARED_LIMIT:
-        raise ValueError(f"ndof={nd}, nqf={nq} needs {smem} B of shared "
-                         f"memory per block in {dtype}; the kernels take "
-                         f"{SHARED_LIMIT}")
+    viscous = ctx.fluxes.eq_system != "euler"
+    if torch.device(device).type == "cuda":
+        size = torch.empty((), dtype=dtype).element_size()
+        nd, nq = tab_np.ndof, tab_np.nqf
+        k1 = 7 * nd * 5 * size
+        tile, _res, k2 = k2_plan(nd, nq, viscous, dtype)
+        if k1 > K1_SHARED_LIMIT or not tile:
+            raise ValueError(
+                f"ndof={nd}, nqf={nq} in {dtype} needs {k1} B of shared "
+                f"memory per block for K1 (limit {K1_SHARED_LIMIT}) and "
+                f"{k2} B for one element of K2 (limit {SHARED_LIMIT})")
     plain = build_fused(tab_np, ctx, dtype, device)
     folds = kernel_folds(tab_np)
     grid, per_lf = tab_np.roll_info
     geo = ([int(g) for g in grid] + [int(a) for (a, _s, _o) in per_lf]
            + [-int(s) for (_a, s, _o) in per_lf]
            + [int(o) for (_a, _s, o) in per_lf])
-    viscous = ctx.fluxes.eq_system != "euler"
     phys = kernel_phys(ctx)
 
     def dev(a):
