@@ -47,6 +47,9 @@ DECK = os.path.join(REPO, "examples", "cases", "vortex3d_ns.ini")
 # the plain version OR no farther than twice the plain version's own
 # distance from the f64 plain result on the same input.
 TOL = {torch.float64: 1e-11, torch.float32: 5e-5}
+# K1 in f64 against the dense plain gradient: the compressed folds drop
+# entries of at most ~1e-14 of their fold, so K1 is held tighter
+K1_TOL_F64 = 1e-12
 MCS_TOL_F64 = 1e-12
 FREESTREAM_TOL = 1e-5  # f32, 100 RK4 steps from a uniform state
 SOLVER_TOL = 1e-10  # f64, 20 fixed-dt steps, kernels vs plain RK4 loop
@@ -197,7 +200,8 @@ def compare_kernels(rhs, plain64, U):
     def check(name, kern, ref, ref64_fn):
         r = {"vs_plain": rel(kern, ref),
              "max_abs": float(torch.max(torch.abs(kern - ref)))}
-        r["ok"] = r["vs_plain"] <= TOL[U.dtype]
+        bar = K1_TOL_F64 if name == "k1_gradient" and not f32 else TOL[U.dtype]
+        r["ok"] = r["vs_plain"] <= bar
         if f32:
             ref64 = ref64_fn()
             r["kernel_vs_f64"] = rel(kern.double(), ref64)
@@ -365,7 +369,8 @@ def phase_solver(dev):
 
 def phase_timing(setup, dev):
     """ms/RHS (RK4 chains of 50 steps) and ms per kernel, kernels vs plain,
-    in turns plain, kernel, kernel, plain."""
+    in turns plain, kernel, kernel, plain, by CUDA events; each kernel's
+    time on the device alone (`kernel_ms`), f32 and f64."""
     from tps_torch.dg.cuda_fused import build_cuda_fused
     from tps_torch.time.integrators import rk4
 
@@ -409,17 +414,29 @@ def phase_timing(setup, dev):
         }
         for name, (p1, k1, k2, p2) in k.items():
             res[name] = {"ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2}
-        # K2 in f64 (the kernel alone; its plain version is host-bound)
+        # K1 and K2 in f64 (the kernels alone; K2's plain version is
+        # host-bound)
         rhs64 = build_cuda_fused(tab, ctx, torch.float64, dev)
         U64 = U.double()
         G64 = rhs64.gradient(U64)
-        res["k2_faces_volume"]["f64_ms"] = cuda_ms(
-            lambda: rhs64.faces_volume(U64, G64), 50)
+        calls = {"k1_gradient": (lambda: rhs.gradient(U),
+                                 lambda: rhs64.gradient(U64)),
+                 "k2_faces_volume": (lambda: rhs.faces_volume(U, G),
+                                     lambda: rhs64.faces_volume(U64, G64))}
+        for name, (f32_call, f64_call) in calls.items():
+            res[name]["f64_ms"] = cuda_ms(f64_call, 50)
+            res[name]["device_ms"] = kernel_ms(f32_call, name)
+            res[name]["f64_device_ms"] = kernel_ms(f64_call, name)
         res["profile"] = device_share(lambda: rk4(rhs, U, 0.0, dt))
         log(f"  {n} p=2 NS f32: ms/RHS kernels {times['kernels']} "
             f"plain {times['plain']}; per kernel (plain, kernel, kernel, "
-            f"plain) {k}; K2 f64 {res['k2_faces_volume']['f64_ms']:.4f} ms; "
-            f"profiled RK4 step {res['profile']}")
+            f"plain) {k}; f64 (CUDA events) K1 "
+            f"{res['k1_gradient']['f64_ms']:.4f}, K2 "
+            f"{res['k2_faces_volume']['f64_ms']:.4f} ms; on the device "
+            + "; ".join(f"{name} {ms_text(res[name]['device_ms'])} (f64 "
+                        f"{ms_text(res[name]['f64_device_ms'])})"
+                        for name in calls)
+            + f"; profiled RK4 step {res['profile']}")
         res["tab"] = tab
         out[n] = res
     return out
@@ -618,17 +635,40 @@ def phase_slot_timing(setup, dev):
         tab64 = tab_np.to_torch(torch.float64, dev)
         sweep64, X64 = build_face_sweep(tab64, ctx), X.double()
         f64_ms = cuda_ms(lambda: sweep64(X64), 50)
+        dev_ms = kernel_ms(lambda: sweep(X), "face_sweep")
         log(f"  {name} {n} p={order} {basis}: ms/RHS kernel {ms_rhs:.4f}, "
-            f"plain {plain_rhs:.4f} {t_rhs}; face sweep kernel {ms_sw:.4f}, "
+            f"plain {plain_rhs:.4f} {t_rhs}; face sweep kernel {ms_sw:.4f} "
+            f"(on the device {ms_text(dev_ms)}), "
             f"plain {plain_sw:.4f} {t_sw}; parts (ms, each timed alone; rest "
             f"= volume, inverse mass, RK, host gaps) {parts}; launches/RHS "
             f"{per_rhs}; profiled RHS {busy}; face sweep f64 {f64_ms:.4f} ms")
         out[name] = {"ms_per_rhs": ms_rhs, "plain_ms_per_rhs": plain_rhs,
-                     "face_sweep_ms": ms_sw, "face_sweep_plain_ms": plain_sw,
+                     "face_sweep_ms": ms_sw, "face_sweep_device_ms": dev_ms,
+                     "face_sweep_plain_ms": plain_sw,
                      "face_sweep_f64_ms": f64_ms,
                      "parts_ms": parts, "launches_per_rhs": per_rhs,
                      "profile": busy, "tab": tab_np}
     return out
+
+
+def kernel_ms(fn, name, n=50):
+    """Device ms per call of the kernels named `name` that fn launches:
+    their intervals on the device under torch.profiler over n calls, the
+    host's launch cost excluded (a small kernel's wrapper can take longer
+    on the host than the kernel on the device).  None (not measured) where
+    three profiled runs record no such kernel (a run now and then records
+    none)."""
+    for _ in range(3):
+        prof = device_share(fn, n)
+        ms = sum(v for k, v in prof.get("top_ms", {}).items() if name in k)
+        if ms > 0:
+            return ms
+    log(f"  {name}: no device time from the profiler ({prof}): not measured")
+    return None
+
+
+def ms_text(ms):
+    return "not measured" if ms is None else f"{ms:.4f}"
 
 
 def device_share(fn, n=8):
@@ -790,10 +830,27 @@ def design_fma(t, k, volume):
     return t.ne * per
 
 
-def rate_line(name, fma, ms, b):
-    share = 2 * fma / (ms * 1e-3) / PEAK_OPS[torch.float32]
-    return (f"  {name}: {fma / 1e6:.1f} M FMA by design, {ms:.4f} ms: "
-            f"{share:.1%} of 67 TFLOP/s; time/bound {ms / b[0]:.1f}")
+def k1_design_fma(t):
+    """FMAs of K1 on tables t: per element and group of its compressed
+    folds, every column times every row times 5 primitives (the zeros a
+    group's block holds included)."""
+    from tps_torch.dg.cuda_fused import gradient_groups, kernel_folds
+
+    ngroup, ncol, nrow = gradient_groups(kernel_folds(t)["Wgrad"])["vals"].shape
+    return t.ne * ngroup * ncol * nrow * 5
+
+
+def rate_line(name, fma, ms, device_ms, b):
+    """The achieved f32 rate and time/bound by CUDA events (ms) and by the
+    device time alone (device_ms)."""
+    def part(t):
+        share = 2 * fma / (t * 1e-3) / PEAK_OPS[torch.float32]
+        return (f"{t:.4f} ms: {share:.1%} of 67 TFLOP/s, time/bound "
+                f"{t / b[0]:.1f}")
+
+    return (f"  {name}: {fma / 1e6:.1f} M FMA by design; CUDA events "
+            f"{part(ms)}; on the device "
+            + ("not measured" if device_ms is None else part(device_ms)))
 
 
 def run(dev):
@@ -852,6 +909,7 @@ def run(dev):
          "launches": counts["k1_gradient"],
          "max_abs_err": main_err["k1_gradient"],
          "ms": t16["k1_gradient"]["ms"],
+         "device_ms": t16["k1_gradient"]["device_ms"],
          "plain_ms": t16["k1_gradient"]["plain_ms"],
          "bound_ms": k1b[0], "bound_by": k1b[1], "library_ms": None},
         {"name": "k2_faces_volume", "route": "cuda",
@@ -860,6 +918,7 @@ def run(dev):
          "launches": counts["k2_faces_volume"],
          "max_abs_err": main_err["k2_faces_volume"],
          "ms": t16["k2_faces_volume"]["ms"],
+         "device_ms": t16["k2_faces_volume"]["device_ms"],
          "plain_ms": t16["k2_faces_volume"]["plain_ms"],
          "bound_ms": k2b[0], "bound_by": k2b[1], "library_ms": None},
         {"name": "face_sweep", "route": "cuda",
@@ -867,44 +926,58 @@ def run(dev):
          "replaces": "tools/pallas_face_prototype.py:102",
          "launches": counts_slot["face_sweep"],
          "max_abs_err": face_err,
-         "ms": gll["face_sweep_ms"], "plain_ms": gll["face_sweep_plain_ms"],
+         "ms": gll["face_sweep_ms"], "device_ms": gll["face_sweep_device_ms"],
+         "plain_ms": gll["face_sweep_plain_ms"],
          "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None},
     ]
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
                                    "plain_ms_per_rhs": v["plain_ms_per_rhs"],
-                                   "k2_ms": v["k2_faces_volume"]["ms"],
-                                   "k2_f64_ms": v["k2_faces_volume"]["f64_ms"],
+                                   **{f"{k}_{f}": v[name][f]
+                                      for k, name in (("k1", "k1_gradient"),
+                                                      ("k2", "k2_faces_volume"))
+                                      for f in ("ms", "f64_ms", "device_ms",
+                                                "f64_device_ms")},
                                    "profile": v["profile"]}
                for n, v in timing.items()}
     summary.update({f"slot {k}": {kk: v[kk] for kk in (
         "ms_per_rhs", "plain_ms_per_rhs", "face_sweep_ms",
+        "face_sweep_device_ms",
         "face_sweep_plain_ms", "face_sweep_f64_ms", "parts_ms",
         "launches_per_rhs", "profile")}
         for k, v in slot.items()})
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}
-    log(f"ms (f32, CUDA events): {json.dumps(summary)}")
+    log(f"ms (f32 unless named; CUDA events, host included, except "
+        f"device_ms: torch.profiler, the kernel alone): {json.dumps(summary)}")
     for name, b in (("k1_gradient", k1b), ("k2_faces_volume", k2b),
                     ("face_sweep", fb), ("face_sweep prototype mode", pb)):
         log(f"  bound {name}: operations {b[2]:.6f} ms, bytes {b[3]:.6f} ms")
     log("design FMAs and achieved f32 rate:")
     t32 = timing[(32, 32, 32)]
-    k2b32 = k2_bound(t32["tab"])
+    k1b32, k2b32 = k1_bound(t32["tab"]), k2_bound(t32["tab"])
     walled = slot["walled_gl"]
     fbw = face_bound(walled["tab"], "navier-stokes", "gl")
-    for name, fma, ms, b in (
+    for name, fma, t, b in (
+            ("K1 16^3 f32", k1_design_fma(tab16), t16["k1_gradient"], k1b),
+            ("K1 32^3 f32", k1_design_fma(t32["tab"]), t32["k1_gradient"],
+             k1b32),
             ("K2 16^3 f32", design_fma(tab16, 20, True),
-             t16["k2_faces_volume"]["ms"], k2b),
+             t16["k2_faces_volume"], k2b),
             ("K2 32^3 f32", design_fma(t32["tab"], 20, True),
-             t32["k2_faces_volume"]["ms"], k2b32),
+             t32["k2_faces_volume"], k2b32)):
+        log(rate_line(name, fma, t["ms"], t["device_ms"], b))
+    for name, fma, t, b in (
             ("face sweep GLL deck f32", design_fma(gll["tab"], 20, False),
-             gll["face_sweep_ms"], fb),
+             gll, fb),
             ("face sweep walled GL f32", design_fma(walled["tab"], 20, False),
-             walled["face_sweep_ms"], fbw)):
-        log(rate_line(name, fma, ms, b))
-    log(f"  f64 ms: K2 16^3 {t16['k2_faces_volume']['f64_ms']:.4f}, 32^3 "
+             walled, fbw)):
+        log(rate_line(name, fma, t["face_sweep_ms"],
+                      t["face_sweep_device_ms"], b))
+    log(f"  f64 ms (CUDA events): K1 16^3 {t16['k1_gradient']['f64_ms']:.4f}, 32^3 "
+        f"{t32['k1_gradient']['f64_ms']:.4f}; "
+        f"K2 16^3 {t16['k2_faces_volume']['f64_ms']:.4f}, 32^3 "
         f"{t32['k2_faces_volume']['f64_ms']:.4f}; face sweep GLL deck "
         f"{gll['face_sweep_f64_ms']:.4f}, walled GL "
         f"{walled['face_sweep_f64_ms']:.4f}")

@@ -1,5 +1,6 @@
 """The CUDA kernels K1/K2 and the face sweep == their plain PyTorch
-versions, on a GPU.
+versions, on a GPU (K1 on its compressed folds against the dense plain
+gradient).
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -33,6 +34,8 @@ from tps_torch.physics.transport import DryAirTransport  # noqa: E402
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float64: 1e-11, torch.float32: 5e-5}
+# K1 (compressed folds) against the dense plain gradient
+K1_TOL = {torch.float64: 1e-12, torch.float32: 5e-5}
 
 
 @pytest.fixture
@@ -69,10 +72,13 @@ def _rel(a, b):
     ((5, 6, 7), 2, "navier-stokes"),
     ((5, 6, 7), 2, "euler"),
     ((3, 4, 5), 3, "navier-stokes"),
-    # periodic extents 1 and 2 (self- and double neighbors); 6 and 27
-    # elements, ragged tiles
+    # periodic extents 1 and 2 (self- and double neighbors, in K1's tile);
+    # 6 and 27 elements, ragged tiles
     ((1, 2, 3), 2, "navier-stokes"),
     ((3, 3, 3), 2, "euler"),
+    ((3, 3, 3), 2, "navier-stokes"),
+    # ndof 216 (K1 and K2 one or two elements a block in f64)
+    ((2, 2, 3), 5, "navier-stokes"),
 ])
 def test_kernels_match_plain(device, n, order, eq_system, dtype):
     rhs, U = _setup(n, order, eq_system, dtype, device)
@@ -90,7 +96,7 @@ def test_kernels_match_plain(device, n, order, eq_system, dtype):
                                rtol=TOL[dtype])
     if rhs.viscous:
         G_ref = plain.gradient(U2).reshape(rhs.ne, rhs.ndof, 5, 3)
-        assert _rel(rhs.gradient(U), G_ref) <= TOL[dtype]
+        assert _rel(rhs.gradient(U), G_ref) <= K1_TOL[dtype]
 
 
 def test_wrapper_rejects_bad_input(device):
@@ -191,6 +197,16 @@ def test_shared_memory_plans_match_the_kernels(device):
     tile = ctypes.c_int()
     for dtype in (torch.float32, torch.float64):
         size = torch.empty((), dtype=dtype).element_size()
+        # K1: (ndof, groups, columns, rows) of GL boxes p = 1..6, and folds
+        # kept dense (one group of 8 rows per 8 rows, every column)
+        for ndof, ngroup, ncol, nrow in ((8, 12, 6, 2), (27, 27, 9, 3),
+                                         (64, 48, 12, 4), (125, 75, 15, 5),
+                                         (216, 108, 18, 6), (343, 147, 21, 7),
+                                         (27, 11, 189, 8)):
+            E, _res, smem = cuda_fused.k1_plan(ndof, ngroup, ncol, nrow, dtype)
+            assert lib.tps_k1_smem(ndof, ngroup, ncol, nrow, size,
+                                   ctypes.byref(tile)) == smem
+            assert tile.value == E
         for ndof, nqf in ((27, 16), (64, 25), (125, 36), (216, 49), (343, 64)):
             for viscous in (True, False):
                 E, _res, smem = cuda_fused.k2_plan(ndof, nqf, viscous, dtype)

@@ -8,10 +8,12 @@ tests/test_pallas_fused.py (1e-11 relative to max|y|, max char speed to
 (tests/test_torch_cuda.py, chip_smoke.py); what can be checked here is
 their algebra: `_emulate` replays, in numpy, the products and neighbor
 arithmetic of csrc/fused_rhs.cu on the folds and grid words the wrapper
-passes, K2 in its decomposition (tiles of the kernel's plan, the last one
-ragged; each face's products over the nodes its trace rows touch), and
-must agree with the plain version, also on periodic boxes one and two
-elements wide.
+passes, each kernel in its decomposition (tiles of the kernel's plan, the
+last one ragged; K1 on the compressed folds, a neighbour inside the tile
+read from it; K2's face products over the nodes its trace rows touch),
+and must agree with the plain version, also on periodic boxes one and
+two elements wide.  K1's compressed folds are checked against the dense
+ones on their own (`test_gradient_folds_compressed`).
 """
 
 import jax.numpy as jnp
@@ -22,7 +24,8 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from tps_torch.dg import cuda_fused  # noqa: E402
-from tps_torch.dg.cuda_fused import build_cuda_fused, cuda_fusable, kernel_folds  # noqa: E402
+from tps_torch.dg.cuda_fused import (build_cuda_fused, cuda_fusable,  # noqa: E402
+                                     gradient_groups, kernel_folds)
 from tps_torch.dg.discretization import build_tables  # noqa: E402
 from tps_torch.dg.fluxes import Fluxes  # noqa: E402
 from tps_torch.dg.fused import maybe_build_fused  # noqa: E402
@@ -31,6 +34,7 @@ from tps_torch.dg.riemann import Rusanov  # noqa: E402
 from tps_torch.mesh.generators import box_2d, box_3d  # noqa: E402
 from tps_torch.physics.gas import DryAir  # noqa: E402
 from tps_torch.physics.transport import DryAirTransport  # noqa: E402
+from tps_torch.tools.k1_layouts import per_row_layout  # noqa: E402
 from tps_tpu.dg.discretization import build_tables as jbuild_tables  # noqa: E402
 from tps_tpu.dg.fluxes import Fluxes as JFluxes  # noqa: E402
 from tps_tpu.dg.fused import maybe_build_fused as jmaybe_build_fused  # noqa: E402
@@ -153,10 +157,49 @@ def _neighbors(geo, ne):
     return out
 
 
+def _emulate_k1(rhs, U, nbr, primitives):
+    """K1 as csrc/fused_rhs.cu does it: tiles of k1_plan's E elements (the
+    last one ragged); a neighbour inside the tile read from the tile, the
+    others copied into the row slot of (face, element); primitives once
+    per staged row; per (element, group) the group's rows summed over its
+    columns (slot << 16 | node) from the compressed folds, each column
+    less the element's node 0."""
+    rows, cols, vals = (getattr(rhs, k).numpy()
+                        for k in ("k1_rows", "k1_cols", "k1_vals"))
+    ngroup, ncol, nrow = vals.shape
+    ne, ndof = U.shape[:2]
+    E = cuda_fused.k1_plan(ndof, ngroup, ncol, nrow, torch.float64)[0]
+    slot, node = cols >> 16, cols & 0xffff
+    valid = rows >= 0
+    dd, j = np.divmod(rows[valid], ndof)
+    G = np.full((ne, ndof, 5, 3), np.nan)
+    for e0 in range(0, ne, E):
+        nt = min(E, ne - e0)
+        staged = np.full((7 * E, ndof, 5), np.nan)  # own rows, then slots
+        staged[:nt] = U[e0:e0 + nt]
+        off = np.tile(np.arange(E), (7, 1))  # staged row of (slot, element)
+        copied = np.arange(7 * E) < nt
+        for lf in range(6):
+            for el in range(nt):
+                n = nbr[lf][e0 + el]
+                if e0 <= n < e0 + nt:
+                    off[1 + lf, el] = n - e0
+                else:
+                    r = E + lf * E + el
+                    staged[r], off[1 + lf, el], copied[r] = U[n], r, True
+        staged[copied] = primitives(staged[copied])
+        for el in range(nt):
+            # every column less the element's node 0 (the folds annihilate
+            # constants)
+            acc = np.einsum("gcr,gcq->grq", vals,
+                            staged[off[slot, el], node] - staged[el, 0])
+            G[e0 + el, j, :, dd] = acc[valid]
+    return G
+
+
 def _emulate(rhs, U):
     """(G, y, per-element mcs) from the kernels' algorithm in numpy."""
-    f = {k: getattr(rhs, k).numpy() for k in
-         ("Wgrad", "Vvol", "Btr", "Wscat", "nor")}
+    f = {k: getattr(rhs, k).numpy() for k in ("Vvol", "Btr", "Wscat", "nor")}
     geo = list(rhs.geo)
     gamma, R, C1, S0, cp_pr, bulk_mult = list(rhs.phys)
     U = U.numpy()
@@ -180,15 +223,13 @@ def _emulate(rhs, U):
         return (mu[..., None, None] * (gv + np.swapaxes(gv, -1, -2))
                 + (bulk * div)[..., None, None] * np.eye(3))
 
-    # K1
-    rho, vel, p = prims(U)
-    Up = np.concatenate([rho[..., None], vel, (p / rho / R)[..., None]], -1)
-    S = np.stack([Up] + [Up[nb] for nb in nbr])  # [7, ne, ndof, 5]
-    Gr = np.einsum("srk,sekq->erq", f["Wgrad"], S)
+    def primitives(u):
+        rho, vel, p = prims(u)
+        return np.concatenate([rho[..., None], vel, (p / rho / R)[..., None]],
+                              -1)
+
     ndof = U.shape[1]
-    G = Gr.reshape(ne, 3, ndof, 5).transpose(0, 2, 3, 1)
-    if not rhs.viscous:
-        G = None
+    G = _emulate_k1(rhs, U, nbr, primitives) if rhs.viscous else None
 
     # K2: tiles of the kernel's E elements; the ragged last tile's empty
     # slots (no element, no neighbor, flux 0) are padding, dropped at the end
@@ -296,15 +337,112 @@ def test_kernel_folds_shapes_and_gate():
         build_cuda_fused(gll, ctx, torch.float64, "cpu")
 
 
-def test_shared_memory_bound_raises_for_cuda():
-    """p=5 in f64 (ndof 216) needs more than K1's 48 KB per block (K2 would
-    take it, one element a block): refused before any CUDA call, while the
-    CPU (plain) path takes it.  p=4 fits both."""
-    assert 7 * 125 * 5 * 8 <= cuda_fused.K1_SHARED_LIMIT
-    assert cuda_fused.k2_plan(125, 36, True, torch.float64)[0] >= 1
+@pytest.mark.parametrize("n,order", [
+    ((4, 4, 4), 2), ((4, 6, 8), 2), ((3, 3, 3), 3), ((3, 4, 5), 3),
+    ((2, 2, 2), 4), ((2, 2, 3), 4),
+])
+def test_gradient_folds_compressed(n, order):
+    """K1's compressed folds: a clean cut (no entry of Wgrad between 1e-13
+    and 1e-4 of its fold's largest), each kept entry stored once and bit
+    for bit, every row in one group, and the product equal to the dense
+    one to 1e-13 on a random input."""
+    tab = build_tables(box_3d(*n, periodic=(True, True, True)), order)
+    W = kernel_folds(tab)["Wgrad"]
+    g = gradient_groups(W)
+    rel = np.abs(W) / np.abs(W).reshape(7, -1).max(1)[:, None, None]
+    assert not np.any((rel > 1e-13) & (rel < 1e-4))
+    assert np.array_equal(g["keep"], rel > cuda_fused.FOLD_CUT)
+    if order == 2:
+        assert g["keep"].sum() == 648 and g["vals"].shape == (27, 9, 3)
+    rows, cols, vals = g["rows"], g["cols"], g["vals"]
+    assert np.array_equal(np.sort(rows[rows >= 0]), np.arange(3 * tab.ndof))
+    s, k = cols >> 16, cols & 0xffff
+    at = np.broadcast_arrays(s[:, :, None], rows[:, None, :], k[:, :, None])
+    nz = vals != 0
+    assert np.all(at[1][nz] >= 0) and nz.sum() == g["keep"].sum()
+    rebuilt = np.zeros_like(W)
+    rebuilt[at[0][nz], at[1][nz], at[2][nz]] = vals[nz]
+    assert np.array_equal(rebuilt, np.where(g["keep"], W, 0.0))
+    x = np.random.default_rng(3).standard_normal((7, tab.ndof, 5))
+    dense = np.einsum("srk,skq->rq", W, x)
+    comp = np.empty_like(dense)
+    comp[rows[rows >= 0]] = np.einsum("gcr,gcq->grq", vals, x[s, k])[rows >= 0]
+    assert np.max(np.abs(comp - dense)) <= 1e-13 * np.max(np.abs(dense))
+
+
+@pytest.mark.parametrize("n,order", [((4, 6, 8), 2), ((3, 4, 5), 3)])
+def test_per_row_layout_holds_the_kept_entries(n, order):
+    """The per-row layout that tools/k1_layouts.py times K1's grouped folds
+    against: one output row a group, every kept entry once and bit for
+    bit, and the grouped folds' product on a random input."""
+    tab = build_tables(box_3d(*n, periodic=(True, True, True)), order)
+    W = kernel_folds(tab)["Wgrad"]
+    g = gradient_groups(W)
+    rows, cols, vals = per_row_layout(W)
+    nrow = 3 * tab.ndof
+    assert np.array_equal(rows[:, 0], np.arange(nrow)) and vals.shape[2] == 1
+    s, k = cols >> 16, cols & 0xffff
+    nz = vals[..., 0] != 0
+    assert nz.sum() == g["keep"].sum()
+    rebuilt = np.zeros_like(W)
+    rebuilt[s[nz], np.nonzero(nz)[0], k[nz]] = vals[..., 0][nz]
+    assert np.array_equal(rebuilt, np.where(g["keep"], W, 0.0))
+    x = np.random.default_rng(5).standard_normal((7, tab.ndof, 5))
+    per_row = np.einsum("rc,rcq->rq", vals[..., 0], x[s, k])
+    gr, gs, gk = g["rows"], g["cols"] >> 16, g["cols"] & 0xffff
+    grouped = np.empty_like(per_row)
+    grouped[gr[gr >= 0]] = np.einsum("gcr,gcq->grq", g["vals"],
+                                     x[gs, gk])[gr >= 0]
+    assert np.max(np.abs(per_row - grouped)) <= 1e-14 * np.max(np.abs(grouped))
+
+
+def test_centred_columns_keep_the_dense_result():
+    """Why K1 takes the element's node-0 primitives off every column.  The
+    dropped entries are ~1e-15 of their fold but multiply T ~ 300 where G
+    is ~1e2: on the perturbed state at 8^3 p=2 the compressed map alone
+    sits more than 2e-13 of max|G| from the dense one (a gap that grows
+    as 1/h, with the folds).  The folds annihilate constants (the DG
+    gradient of a constant is 0), so centring changes nothing in exact
+    arithmetic, and it cuts the gap at least threefold.  Products in
+    extended precision."""
+    tab, ctx, U = _port_setup((8, 8, 8), 2, "navier-stokes")
+    geo = list(build_cuda_fused(tab, ctx, torch.float64, "cpu").geo)
+    W = kernel_folds(tab)["Wgrad"]
+    Wc = np.where(gradient_groups(W)["keep"], W, 0.0)
+    Up = ctx.mixture.primitives(U).numpy()
+    S = np.stack([Up] + [Up[nb] for nb in _neighbors(geo, tab.ne)])
+    S = S.astype(np.longdouble)
+
+    def grad(Wm, X):
+        return np.einsum("srk,sekq->erq", Wm.astype(np.longdouble), X)
+
+    dense = grad(W, S)
+    scale = np.max(np.abs(dense))
+    plain_gap = float(np.max(np.abs(grad(Wc, S) - dense)) / scale)
+    centred_gap = float(np.max(np.abs(grad(Wc, S - S[0][None, :, :1])
+                                      - dense)) / scale)
+    assert plain_gap > 2e-13
+    assert centred_gap < plain_gap / 3
+
+
+def test_shared_memory_bound_raises_for_cuda(monkeypatch):
+    """K1's block follows k1_plan (dynamic shared memory): p=5 in f64
+    (ndof 216) fits with its folds read through the cache.  A shape whose
+    block fits no element is refused before any CUDA call, naming the
+    kernels that do not fit
+    (K1 only where it runs: Navier-Stokes), while the CPU (plain) path
+    takes it."""
     tab = build_tables(box_3d(2, 2, 2, periodic=(True, True, True)), 5)
-    ctx = _ctx(3, "navier-stokes")
-    assert cuda_fused.k2_plan(tab.ndof, tab.nqf, True, torch.float64)[0] == 1
-    with pytest.raises(ValueError, match="shared memory"):
-        build_cuda_fused(tab, ctx, torch.float64, "cuda")
-    assert build_cuda_fused(tab, ctx, torch.float64, "cpu").ndof == 216
+    g = gradient_groups(kernel_folds(tab)["Wgrad"])
+    assert g["vals"].shape == (108, 18, 6)
+    assert 7 * 216 * 5 * 8 > 48 * 1024
+    assert cuda_fused.k1_plan(216, 108, 18, 6, torch.float64)[0] >= 1
+    assert cuda_fused.k1_plan(27, 27, 9, 3, torch.float32)[:2] == (8, True)
+    monkeypatch.setattr(cuda_fused, "SHARED_LIMIT", 4096)
+    monkeypatch.setattr(cuda_fused, "SHARED_TARGET", 4096)
+    for eq in ("navier-stokes", "euler"):
+        ctx = _ctx(3, eq)
+        with pytest.raises(ValueError, match="K2 needs") as exc:
+            build_cuda_fused(tab, ctx, torch.float64, "cuda")
+        assert ("K1 needs" in str(exc.value)) == (eq == "navier-stokes")
+        assert build_cuda_fused(tab, ctx, torch.float64, "cpu").ndof == 216

@@ -23,8 +23,44 @@
 // out).  The least work at 16^3 p=2 takes 0.4 (K1) and ~1.0 (K2) of the
 // bytes' time, counted sum-factorised; the dense folds do ~10x more.
 //
-// K1: one thread block per element; the element's and its six neighbors'
-// primitives in shared memory, the folds through the read-only cache.
+// K1 replaces k1_kernel.  It is bound by U in and G out; its design keeps
+// the work per byte small and every byte moved once:
+// - Compressed folds.  On the collocated GL basis of an axis-aligned box
+//   a row (dd, j) of the folds touches only the nodes on the line through
+//   j along dd: n1 - 1 of the element's, n1 of each of the two neighbours
+//   across the faces normal to dd (8 of 189 columns at p=2); every other
+//   entry of the dense folds is rounding noise of the folding (<= 1.1e-14
+//   of its fold's largest entry for p <= 4; the smallest kept one is >=
+//   2.4e-3).  dg/cuda_fused.py::gradient_groups keeps the entries above
+//   1e-12 of their fold's largest and groups the rows that share their
+//   columns (a line: n1 rows, 3*n1 columns), so a thread loads each
+//   column's state once for R = n1 rows (one row a group is slower on
+//   the card: tps_torch/tools/k1_layouts.py).  Dense folds (another mesh) keep everything in
+//   the same format: correct, only slower.
+// - Centred columns.  The dropped entries are small against their fold,
+//   but they multiply T ~ 300 where G is ~1e2: left out of a sum over
+//   absolute primitives they would move G by ~1e-12 of max|G| at 32^3 p=2
+//   (more on finer grids: the folds scale with 1/h).  So every column
+//   enters less the element's node-0 primitives.  The folds annihilate
+//   constants (the DG gradient of a constant is 0), so the sum is the
+//   same in exact arithmetic, and the dropped entries multiply only the
+//   field's variation.
+// - Tiles.  A block owns E consecutive elements (`k1_plan`: up to 8, along
+//   x): a neighbour inside the tile is read where it is, the others are
+//   staged once per (face, element).  A warp loads a staged row, a lane
+//   per node, four rows' loads in flight together, and writes the node's
+//   primitives to shared memory: each staged node is converted once, in
+//   the pass that loads it.  The folds go to shared memory by cp.async
+//   when they fit.
+// - One thread per (element, group), element fastest: the lanes of a warp
+//   share a group's columns and values (broadcast loads) and R x NEQ sums
+//   in registers (3 x 5 at p=2 over 9 columns; 3,645 FMA per element
+//   against 76,545 dense).
+// - The tile's G is staged in its own order and written as one span with
+//   16-byte stores.
+// - No tensor cores: after compression K1 does ~0.45 us of f32 FMA at 16^3,
+//   a sixth of its bytes' time, in products of 9 columns.  It stays its own
+//   kernel: K2 needs the neighbours' G, a grid-wide barrier away.
 //
 // K2: the face stage of dg_face_stage.cuh, shared with face_sweep.cu.  A
 // block owns a tile of E elements (`k2_plan`).  V, Btr and W are copied
@@ -33,10 +69,7 @@
 // each face, the tile's neighbors' U and G, the next face's copy in
 // flight while the current face is computed.  The volume flux runs one
 // thread per node of the tile, the face flux one per face point of the
-// tile, the products register-blocked.  The first version (one element
-// per block, the neighbor's state read from global memory inside the FMA
-// chain, 16-27 of 128 lanes in the flux stages, three barriers per face
-// per element) ran ~90x above the bound.
+// tile, the products register-blocked.
 //
 // The pointwise physics (primitives, Sutherland, fluxes, Rusanov) is in
 // dg_pointwise.cuh, shared with face_sweep.cu.
@@ -53,7 +86,8 @@ using namespace tps_dg;
 constexpr int NEQ = 5;   // rho, rho u, rho v, rho w, rho E
 constexpr int DIM = 3;
 constexpr int NLF = 6;
-constexpr int BLOCK = 128;  // K1
+constexpr int K1_ROWS = 8;  // rows of a group of K1's folds at most
+constexpr int LB = 4;       // K1: staged rows a warp loads at a time
 
 struct Geo {
   int nz, ny, nx;
@@ -74,48 +108,192 @@ __device__ __forceinline__ int neighbor(int e, int lf, const Geo& g) {
 }
 
 // ---------------------------------------------------------------- K1
-template <typename T>
-__global__ void __launch_bounds__(BLOCK)
-k1_gradient(const T* __restrict__ U, const T* __restrict__ W,
-            T* __restrict__ G, int ndof, Geo geo, Phys ph) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* up = reinterpret_cast<T*>(smem_raw);  // [1+NLF][ndof][NEQ]
-  const int e = blockIdx.x;
-  const T gm1 = T(ph.gamma) - T(1);
-  const T rgas = T(ph.rgas);
 
-  // primitives of the element (slot 0) and its six neighbors
-  for (int i = threadIdx.x; i < (1 + NLF) * ndof; i += blockDim.x) {
-    const int s = i / ndof, k = i - s * ndof;
-    const int src = s == 0 ? e : neighbor(e, s - 1, geo);
-    const T* u = U + ((size_t)src * ndof + k) * NEQ;
-    const T rho = u[0];
-    const T inv = T(1) / rho;
-    const T vx = u[1] * inv, vy = u[2] * inv, vz = u[3] * inv;
-    const T ke = T(0.5) * rho * (vx * vx + vy * vy + vz * vz);
-    const T p = gm1 * (u[4] - ke);
-    T* o = up + i * NEQ;
-    o[0] = rho;
-    o[1] = vx;
-    o[2] = vy;
-    o[3] = vz;
-    o[4] = p * inv / rgas;
+// n values from shared src to global dst, src at dst's 16-byte phase
+// (src - row_phase(dst) is 16-byte aligned), by all threads of the block:
+// the whole 16-byte chunks inside [dst, dst + n) one store each, the ends
+// one value per store.
+template <typename T>
+__device__ __forceinline__ void store_span(T* dst, const T* src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x, nthr = blockDim.x;
+  int head = (V - row_phase(dst)) % V;
+  head = head < n ? head : n;
+  const int nv = (n - head) / V;
+  for (int i = tid; i < head; i += nthr) dst[i] = src[i];
+  for (int c = tid; c < nv; c += nthr)
+    *reinterpret_cast<uint4*>(dst + head + c * V) =
+        *reinterpret_cast<const uint4*>(src + head + c * V);
+  for (int i = head + nv * V + tid; i < n; i += nthr) dst[i] = src[i];
+}
+
+// Shared memory of a block of E elements (values, regions 16-byte
+// aligned): the compressed folds if resident (columns as ints, then the
+// values); the staged rows [1 + NLF][E][ndof][NEQ] as primitives (the
+// tile's own, then one per (face, element)); the tile's G
+// [E][ndof][NEQ][DIM] at the 16-byte phase of its place in G.
+Plan k1_plan(int ndof, int ngroup, int ncol, int nrow, size_t ts) {
+  const size_t nu = (size_t)ndof * NEQ, nc = (size_t)ngroup * ncol;
+  auto bytes = [=](int E, int res) {
+    size_t v = res ? al4((nc * sizeof(int) + ts - 1) / ts) + al4(nc * nrow)
+                   : 0;
+    v += al4((1 + NLF) * E * nu) + al4(E * nu * DIM) + 4;
+    return v * ts;
+  };
+  return make_plan(bytes);
+}
+
+// R: rows per group (the register block); RES: the folds resident in
+// shared memory (else read through the cache).
+template <typename T, int R, bool RES>
+__global__ void __launch_bounds__(THREADS_MAX)
+k1_gradient(const T* __restrict__ U,
+            const int* __restrict__ Rows,  // [ngroup][R]: dd*ndof + j; -1
+            const int* __restrict__ Cols,  // [ngroup][ncol]: slot << 16 | k
+            const T* __restrict__ Vals,    // [ngroup][ncol][R]
+            T* __restrict__ G, int ne, int ndof, int ngroup, int ncol, int E,
+            Geo geo, Phys ph) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // the staged row that holds (slot, element): slot 0 the element, slot
+  // 1 + lf its neighbour across face lf
+  __shared__ int s_row[(1 + NLF) * TILE_MAX];
+  // the element loaded into staged row r; -1: none
+  __shared__ int s_src[(1 + NLF) * TILE_MAX];
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int e0 = blockIdx.x * E;
+  const int nt = ne - e0 < E ? ne - e0 : E;  // elements of this tile
+  const int lgE = __ffs(E) - 1;              // E is a power of two
+  const int nu = ndof * NEQ, ng = nu * DIM;
+  const size_t nc = (size_t)ngroup * ncol;
+  T* p = reinterpret_cast<T*>(smem_raw);
+  int* sC = reinterpret_cast<int*>(p);
+  p += RES ? al4((nc * sizeof(int) + sizeof(T) - 1) / sizeof(T)) : 0;
+  T* sV = p;
+  p += RES ? al4(nc * R) : 0;
+  T* sU = p;  // staged rows
+  p += al4((size_t)(1 + NLF) * E * nu);
+  T* Gt = G + (size_t)e0 * ng;
+  T* sG = p + row_phase(Gt);
+  const int* C = RES ? sC : Cols;
+  const T* V = RES ? sV : Vals;
+
+  if (RES) {
+    copy_async(sC, Cols, (int)nc);
+    copy_async(sV, Vals, (int)(nc * R));
+    cp_async_commit();
+  }
+  // a neighbour inside the tile is read from its row there; the others
+  // are loaded into the row of (face, element)
+  for (int i = tid; i < (1 + NLF) * E; i += blockDim.x) {
+    const int s = i >> lgE, el = i & (E - 1);
+    int row = i, src = -1;
+    if (el < nt) {
+      src = e0 + el;
+      if (s > 0) {
+        const int n = neighbor(src, s - 1, geo);
+        src = n >= e0 && n < e0 + nt ? -1 : n;
+        row = src < 0 ? n - e0 : i;
+      }
+    }
+    s_row[i] = row;
+    s_src[i] = src;
   }
   __syncthreads();
 
-  // G[(dd, j), eq] = sum_s sum_k W[s][(dd, j)][k] up[s][k][eq]
-  const int nrow = DIM * ndof;
-  for (int o = threadIdx.x; o < nrow * NEQ; o += blockDim.x) {
-    const int r = o / NEQ, q = o - r * NEQ;
-    T acc = T(0);
-    for (int s = 0; s < 1 + NLF; ++s) {
-      const T* w = W + ((size_t)s * nrow + r) * ndof;
-      const T* x = up + s * ndof * NEQ + q;
-      for (int k = 0; k < ndof; ++k) acc += __ldg(w + k) * x[k * NEQ];
+  // load and convert: a warp per staged row, a lane per node, LB rows a
+  // warp at a time (their loads in flight together); the primitives (rho,
+  // u, v, w, T) of each loaded node once
+  const T gm1 = T(ph.gamma) - T(1);
+  const T rrg = T(1) / T(ph.rgas);
+  const int nwarp = blockDim.x >> 5, nrows = (1 + NLF) * E;
+  for (int r0 = tid >> 5; r0 < nrows; r0 += LB * nwarp) {
+    int src[LB];
+#pragma unroll
+    for (int b = 0; b < LB; ++b) {
+      const int r = r0 + b * nwarp;
+      src[b] = r < nrows ? s_src[r] : -1;
     }
-    const int dd = r / ndof, j = r - dd * ndof;
-    G[(((size_t)e * ndof + j) * NEQ + q) * DIM + dd] = acc;
+    for (int k = lane; k < ndof; k += 32) {
+      T x[LB][NEQ];
+#pragma unroll
+      for (int b = 0; b < LB; ++b)
+        if (src[b] >= 0) {
+          const T* u = U + (size_t)src[b] * nu + k * NEQ;
+#pragma unroll
+          for (int q = 0; q < NEQ; ++q) x[b][q] = __ldg(u + q);
+        }
+#pragma unroll
+      for (int b = 0; b < LB; ++b)
+        if (src[b] >= 0) {
+          const T inv = T(1) / x[b][0];
+          const T vx = x[b][1] * inv, vy = x[b][2] * inv, vz = x[b][3] * inv;
+          const T ke = T(0.5) * x[b][0] * (vx * vx + vy * vy + vz * vz);
+          T* y = sU + (size_t)(r0 + b * nwarp) * nu + k * NEQ;
+          y[0] = x[b][0];
+          y[1] = vx;
+          y[2] = vy;
+          y[3] = vz;
+          y[4] = gm1 * (x[b][4] - ke) * inv * rrg;
+        }
+    }
   }
+  if (RES) cp_async_wait<0>();
+  __syncthreads();
+
+  // one thread per (element, group), element fastest: the group's R rows
+  // of G, acc[r][q] = sum over its columns c = (slot, node k), in order,
+  // of vals[c][r] * (Up(slot)[k][q] - Up(0)[0][q]); each column's state
+  // loaded once.  The folds annihilate constants (the gradient of a
+  // constant is 0), so taking the element's node 0 off every column leaves
+  // the sum unchanged; the dropped entries then multiply the field's
+  // variation only, not T ~ 300 (see the note at the top)
+  for (int t = tid; t < E * ngroup; t += blockDim.x) {
+    const int el = t & (E - 1), g = t >> lgE;
+    if (el >= nt) continue;
+    const int* cg = C + (size_t)g * ncol;
+    const T* vg = V + (size_t)g * ncol * R;
+    T c0[NEQ];
+#pragma unroll
+    for (int q = 0; q < NEQ; ++q) c0[q] = sU[el * nu + q];
+    T acc[R][NEQ];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < NEQ; ++q) acc[r][q] = T(0);
+    int slot = -1;
+    const T* x = sU;
+    for (int c = 0; c < ncol; ++c) {
+      const int sk = cg[c];
+      if ((sk >> 16) != slot) {  // columns are sorted by slot
+        slot = sk >> 16;
+        x = sU + (size_t)s_row[(slot << lgE) + el] * nu;
+      }
+      const T* u = x + (sk & 0xffff) * NEQ;
+      T xv[NEQ];
+#pragma unroll
+      for (int q = 0; q < NEQ; ++q) xv[q] = u[q] - c0[q];
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const T w = vg[c * R + r];
+#pragma unroll
+        for (int q = 0; q < NEQ; ++q) acc[r][q] += w * xv[q];
+      }
+    }
+    const int* rg = Rows + (size_t)g * R;
+    T* o = sG + (size_t)el * ng;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = __ldg(rg + r);
+      if (row < 0) continue;
+      const int dd = row / ndof, j = row - dd * ndof;
+#pragma unroll
+      for (int q = 0; q < NEQ; ++q) o[(j * NEQ + q) * DIM + dd] = acc[r][q];
+    }
+  }
+  __syncthreads();
+  // the tile's G is one span of G
+  store_span(Gt, sG, nt * ng);
 }
 
 // ---------------------------------------------------------------- K2
@@ -389,18 +567,46 @@ Geo make_geo(const int* g) {
   return geo;
 }
 
-size_t k1_smem(int ndof, size_t tsize) {
-  return (size_t)(1 + NLF) * ndof * NEQ * tsize;
+template <typename T, int R>
+int launch_k1(const T* U, const int* rows, const int* cols, const T* vals,
+              T* G, int ne, int ndof, int ngroup, int ncol, const int* g,
+              const double* p, void* stream) {
+  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  const Plan pl = k1_plan(ndof, ngroup, ncol, R, sizeof(T));
+  if (pl.tile == 0 || ne < 0) return (int)cudaErrorInvalidValue;
+  if (ne == 0) return 0;
+  auto kernel = pl.resident ? k1_gradient<T, R, true>
+                            : k1_gradient<T, R, false>;
+  if (int err = allow_smem(kernel, pl.smem, allowed[pl.resident])) return err;
+  const int blocks = (ne + pl.tile - 1) / pl.tile;
+  kernel<<<blocks, THREADS_MAX, pl.smem, (cudaStream_t)stream>>>(
+      U, rows, cols, vals, G, ne, ndof, ngroup, ncol, pl.tile, make_geo(g),
+      make_phys(p));
+  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch_k1(const T* U, const T* W, T* G, int ne, int ndof, const int* g,
-              const double* p, void* stream) {
-  const size_t smem = k1_smem(ndof, sizeof(T));
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  k1_gradient<T><<<ne, BLOCK, smem, (cudaStream_t)stream>>>(
-      U, W, G, ndof, make_geo(g), make_phys(p));
-  return (int)cudaGetLastError();
+int dispatch_k1(const T* U, const int* rows, const int* cols, const T* vals,
+                T* G, int ne, int ndof, int ngroup, int ncol, int nrow,
+                const int* g, const double* p, void* stream) {
+  static_assert(K1_ROWS == 8, "one case per row count below");
+  switch (nrow) {
+#define K1_CASE(R)                                                       \
+  case R:                                                                \
+    return launch_k1<T, R>(U, rows, cols, vals, G, ne, ndof, ngroup, ncol, \
+                           g, p, stream);
+    K1_CASE(1)
+    K1_CASE(2)
+    K1_CASE(3)
+    K1_CASE(4)
+    K1_CASE(5)
+    K1_CASE(6)
+    K1_CASE(7)
+    K1_CASE(8)
+#undef K1_CASE
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 template <typename T, bool VISCOUS>
@@ -438,16 +644,31 @@ int dispatch_k2(const T* U, const T* G, const T* V, const T* B, const T* W,
 // bulk_mult.  Each returns the cudaError_t of its launch.
 extern "C" {
 
-int tps_k1_gradient_f32(const float* U, const float* W, float* G, int ne,
-                        int ndof, const int* geo, const double* phys,
-                        void* stream) {
-  return launch_k1<float>(U, W, G, ne, ndof, geo, phys, stream);
+// K1: rows [ngroup][nrow], cols [ngroup][ncol], vals [ngroup][ncol][nrow]
+// are the compressed folds (dg/cuda_fused.py::gradient_groups).
+int tps_k1_gradient_f32(const float* U, const int* rows, const int* cols,
+                        const float* vals, float* G, int ne, int ndof,
+                        int ngroup, int ncol, int nrow, const int* geo,
+                        const double* phys, void* stream) {
+  return dispatch_k1<float>(U, rows, cols, vals, G, ne, ndof, ngroup, ncol,
+                            nrow, geo, phys, stream);
 }
 
-int tps_k1_gradient_f64(const double* U, const double* W, double* G, int ne,
-                        int ndof, const int* geo, const double* phys,
-                        void* stream) {
-  return launch_k1<double>(U, W, G, ne, ndof, geo, phys, stream);
+int tps_k1_gradient_f64(const double* U, const int* rows, const int* cols,
+                        const double* vals, double* G, int ne, int ndof,
+                        int ngroup, int ncol, int nrow, const int* geo,
+                        const double* phys, void* stream) {
+  return dispatch_k1<double>(U, rows, cols, vals, G, ne, ndof, ngroup, ncol,
+                             nrow, geo, phys, stream);
+}
+
+// K1's plan, no launch: dynamic shared bytes per block; *tile gets the
+// elements per block (0: the shape does not fit).
+long long tps_k1_smem(int ndof, int ngroup, int ncol, int nrow, int tsize,
+                      int* tile) {
+  const Plan pl = k1_plan(ndof, ngroup, ncol, nrow, (size_t)tsize);
+  if (tile) *tile = pl.tile;
+  return (long long)pl.smem;
 }
 
 int tps_k2_faces_volume_f32(const float* U, const float* G, const float* V,

@@ -7,9 +7,22 @@ k2_kernel, and compute the same algebra on the same folded matrices
 channel-major [nz, neq*ndof, ny*nx] carry, lane rolls and VMEM limits
 were shaped by the TPU; here the kernels read the solver's element-major
 [ne, ndof, neq] state directly, with neighbors found from the grid
-coordinates: K1 one thread block per element, K2 a tile of elements per
-block with its operators and states in shared memory (see the .cu
-files' notes and csrc/dg_face_stage.cuh).
+coordinates, a tile of elements per block with its states in shared
+memory (see the .cu files' notes and csrc/dg_face_stage.cuh).
+
+Both are bound by bytes on the card (K1: U in, G out).  K1 takes the
+gradient folds compressed (`gradient_groups`): on the collocated GL basis
+of an axis-aligned box a row of the folds touches only the nodes on one
+line of the element and of its two neighbours along that direction (8 of
+189 columns at p=2); the other entries are rounding noise of the folding,
+at most 1.1e-14 of their fold's largest entry for p = 1..4, while the
+smallest kept entry is at least 2.4e-3 of it.  Entries at or below
+FOLD_CUT (1e-12) of their fold's largest are dropped: the same linear map
+up to rounding, about 1/20 of the dense FMAs.  Rows that share their
+columns (a line) are grouped so the kernel loads each column's state once
+for the group; one row a group (a per-row ELL) is slower on the card
+(tps_torch/tools/k1_layouts.py).  Dense folds stay correct in the same
+format, only slower.  The plain version (FusedRHS.gradient) keeps the dense folds.
 
 Each wrapper launches its kernel for CUDA tensors and counts the launch in
 `launches`; for CPU tensors it runs the plain PyTorch version, FusedRHS
@@ -27,9 +40,10 @@ Preconditions (`cuda_fusable`): the fused-path preconditions (periodic
 roll topology, collocated GL basis, uniform affine elements, no BCs) plus
 3-D hexes, DryAir with 3 velocities, Rusanov, Euler or Navier-Stokes with
 Sutherland transport, and no forcings.  Any grid extents; ndof generic
-up to the shared memory of a block: K1 stages seven elements' primitives
-in at most 48 KB (p <= 4 in f64, p <= 6 in f32); K2 follows `k2_plan`
-(dynamic shared memory up to 227 KB).  build_cuda_fused raises beyond.
+up to the shared memory of a block (dynamic, up to 227 KB): K1 follows
+`k1_plan`, K2 `k2_plan`, each with its folds or operators read through
+the cache where they do not fit beside one element.  build_cuda_fused
+raises beyond, naming the kernel.
 """
 
 from __future__ import annotations
@@ -55,14 +69,17 @@ COMPILE_FLAGS = ("-O3", *ARCH, "-std=c++17", "-Xcompiler", "-fPIC",
                  "-Xptxas", "-v", "-c")
 LINK_FLAGS = (*ARCH, "-shared")
 
-# Shared memory (csrc/dg_face_stage.cuh): K1 takes static-size launches
-# up to 48 KB; K2 and the face sweep take dynamic shared memory up to 227
-# KB a block (232,448 B, less 1 KB for their static neighbor tables) and
-# aim at two blocks per SM.
-K1_SHARED_LIMIT = 48 * 1024
+# Shared memory (csrc/dg_face_stage.cuh): K1, K2 and the face sweep take
+# dynamic shared memory up to 227 KB a block (232,448 B, less 1 KB for
+# their static neighbor tables) and aim at two blocks per SM.
 SHARED_LIMIT = 232448 - 1024
 SHARED_TARGET = 114688
 TILE_MAX = 8  # elements per block (of 256 threads)
+# K1's compressed folds (`gradient_groups`): the share of a fold's largest
+# entry at or below which an entry is dropped, and the most rows a group
+# holds (csrc/fused_rhs.cu::K1_ROWS)
+FOLD_CUT = 1e-12
+GROUP_ROWS = 8
 
 # kernel launches since the last reset_launches(), by kernel name
 launches = {"k1_gradient": 0, "k2_faces_volume": 0}
@@ -141,7 +158,7 @@ def build_kernels():
     ip, i64 = ctypes.POINTER(ctypes.c_int), ctypes.c_longlong
     for suffix in ("f32", "f64"):
         fn = getattr(lib, f"tps_k1_gradient_{suffix}")
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, ip, dbl, ptr]
+        fn.argtypes = [ptr] * 5 + [i32] * 5 + [ip, dbl, ptr]
         fn.restype = i32
         fn = getattr(lib, f"tps_k2_faces_volume_{suffix}")
         fn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, ip, dbl, ptr]
@@ -150,6 +167,8 @@ def build_kernels():
         fn.argtypes = ([ptr] * 8 + [i32] * 5 + [i64, i64, ctypes.c_double]
                        + [i32] * 3 + [dbl, ptr])
         fn.restype = i32
+    lib.tps_k1_smem.argtypes = [i32] * 5 + [ip]
+    lib.tps_k1_smem.restype = i64
     lib.tps_k2_smem.argtypes = [i32, i32, i32, i32, ip]
     lib.tps_k2_smem.restype = i64
     lib.tps_face_sweep_smem.argtypes = [i32] * 6 + [ip]
@@ -213,6 +232,22 @@ def support_values(nlf, ndof, size):
     """Values of `size` bytes that the kernels' face supports take (nlf
     counts and nlf node lists, int32): dg_face_stage.cuh::support_values."""
     return _al4(-(-nlf * (ndof + 1) * 4 // size))
+
+
+def k1_plan(ndof, ngroup, ncol, nrow, dtype):
+    """K1's tile plan (csrc/fused_rhs.cu::k1_plan) for folds of ngroup
+    groups of ncol columns and nrow rows (`gradient_groups`): the folds if
+    resident (columns as int32, values); the staged rows (the tile's own
+    and one per face and element), and the tile's G at a 16-byte phase."""
+    size = torch.empty((), dtype=dtype).element_size()
+    nu, nc = ndof * 5, ngroup * ncol
+
+    def nbytes(E, res):
+        v = _al4(-(-nc * 4 // size)) + _al4(nc * nrow) if res else 0
+        v += _al4(7 * E * nu) + _al4(E * nu * 3) + 4
+        return v * size
+
+    return tile_plan(nbytes)
 
 
 def k2_plan(ndof, nqf, viscous, dtype):
@@ -292,6 +327,62 @@ def kernel_folds(t):
             "Wscat": np.stack(W), "nor": n_s}
 
 
+def gradient_groups(Wgrad):
+    """K1's folds, compressed.  Wgrad [nslot, nrow, ndof] (slot 0 the
+    element, slot 1 + lf its neighbour across face lf; row dd*ndof + j).
+
+    An entry is kept when it exceeds FOLD_CUT times its fold's largest;
+    the rest is rounding noise of the folding (module docstring).  Rows
+    whose kept columns overlap (at least half of the smaller row's, joined
+    transitively: on a box, the rows of one line of nodes along one
+    direction) form a group, cut into chunks of at most GROUP_ROWS rows.  A
+    group lists the union of its rows' columns, sorted by (slot, node), and
+    a dense block of values over them (0 where a row lacks a column), so K1
+    loads each column's state once for all the group's rows (faster on the
+    card than one row a group: tps_torch/tools/k1_layouts.py).  Groups are
+    padded to the widest (columns: slot 0 node 0, values 0; rows: -1).
+
+    Returns keep [nslot, nrow, ndof] (bool) and the kernel's arrays: rows
+    [ngroup, R] (output row, -1: none), cols [ngroup, M] (slot << 16 |
+    node), vals [ngroup, M, R] (Wgrad's kept entries, bit for bit)."""
+    W = np.asarray(Wgrad, dtype=np.float64)
+    nslot, nrow, ndof = W.shape
+    if ndof >= 1 << 16:
+        raise ValueError(f"ndof={ndof}: a column packs its node in 16 bits")
+    big = np.abs(W).reshape(nslot, -1).max(1)
+    keep = np.abs(W) > FOLD_CUT * big[:, None, None]
+    K = keep.transpose(1, 0, 2).reshape(nrow, nslot * ndof)
+    n = K.sum(1)
+    common = K.astype(np.float64) @ K.T.astype(np.float64)  # exact counts
+    near = (common > 0) & (2 * common >= np.minimum(n[:, None], n[None, :]))
+    near |= np.eye(nrow, dtype=bool)
+    label = np.arange(nrow)
+    while True:  # each row takes the least row index of its component
+        new = np.where(near, label[None, :], nrow).min(1)
+        if np.array_equal(new, label):
+            break
+        label = new
+    chunks = []
+    for lab in np.unique(label):
+        rows = np.flatnonzero(label == lab)
+        chunks += [rows[i:i + GROUP_ROWS]
+                   for i in range(0, len(rows), GROUP_ROWS)]
+    colsets = [np.flatnonzero(K[r].any(0)) for r in chunks]
+    R = max(len(r) for r in chunks)
+    M = max(1, max(len(c) for c in colsets))
+    rows_a = np.full((len(chunks), R), -1, np.int32)
+    cols_a = np.zeros((len(chunks), M), np.int32)
+    vals_a = np.zeros((len(chunks), M, R))
+    for g, (rows, cols) in enumerate(zip(chunks, colsets)):
+        s, k = np.divmod(cols, ndof)
+        rows_a[g, :len(rows)] = rows
+        cols_a[g, :len(cols)] = (s << 16) | k
+        blk = W[s[:, None], rows[None, :], k[:, None]]
+        vals_a[g, :len(cols), :len(rows)] = np.where(
+            keep[s[:, None], rows[None, :], k[:, None]], blk, 0.0)
+    return {"keep": keep, "rows": rows_a, "cols": cols_a, "vals": vals_a}
+
+
 @dataclass(frozen=True, eq=False)
 class CudaFusedRHS:
     """Fused RHS on the solver's [ne, ndof, neq] state: K1 + K2 for CUDA
@@ -299,7 +390,10 @@ class CudaFusedRHS:
 
     plain: FusedRHS
     viscous: bool
-    Wgrad: torch.Tensor  # [1+nlf, dim*ndof, ndof]
+    # K1's compressed folds (gradient_groups)
+    k1_rows: torch.Tensor  # int32 [ngroup, R]
+    k1_cols: torch.Tensor  # int32 [ngroup, M]
+    k1_vals: torch.Tensor  # [ngroup, M, R]
     Vvol: torch.Tensor  # [dim, ndof, ndof]
     Btr: torch.Tensor  # [nlf, nqf, ndof]
     Wscat: torch.Tensor  # [nlf, ndof, nqf]
@@ -331,9 +425,9 @@ class CudaFusedRHS:
         return U
 
     def _check(self, name, x, shape):
-        if x.device != self.Wgrad.device or x.dtype != self.Wgrad.dtype:
+        if x.device != self.Vvol.device or x.dtype != self.Vvol.dtype:
             raise ValueError(
-                f"{name}: expected {self.Wgrad.dtype} on {self.Wgrad.device}, "
+                f"{name}: expected {self.Vvol.dtype} on {self.Vvol.device}, "
                 f"got {x.dtype} on {x.device}")
         if tuple(x.shape) != shape or not x.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous {shape} tensor, "
@@ -341,7 +435,7 @@ class CudaFusedRHS:
 
     def _fn(self, kernel):
         build_kernels()
-        suffix = "f64" if self.Wgrad.dtype == torch.float64 else "f32"
+        suffix = "f64" if self.Vvol.dtype == torch.float64 else "f32"
         return getattr(_Library.lib, f"tps_{kernel}_{suffix}")
 
     def gradient(self, U):
@@ -352,11 +446,13 @@ class CudaFusedRHS:
                 ne, ndof, neq, 3)
         self._check("U", U, (ne, ndof, neq))
         G = torch.empty((ne, ndof, neq, 3), dtype=U.dtype, device=U.device)
+        ngroup, ncol, nrow = self.k1_vals.shape
         with torch.cuda.device(U.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = self._fn("k1_gradient")(
-                U.data_ptr(), self.Wgrad.data_ptr(), G.data_ptr(), ne, ndof,
-                self.geo, self.phys, stream)
+                U.data_ptr(), self.k1_rows.data_ptr(), self.k1_cols.data_ptr(),
+                self.k1_vals.data_ptr(), G.data_ptr(), ne, ndof, ngroup, ncol,
+                nrow, self.geo, self.phys, stream)
         if err:
             raise RuntimeError(f"k1_gradient launch failed: CUDA error {err}")
         launches["k1_gradient"] += 1
@@ -400,23 +496,25 @@ class CudaFusedRHS:
 def build_cuda_fused(tab_np, ctx, dtype, device) -> CudaFusedRHS:
     """Fold the tables for the kernels (and for the plain FusedRHS), in
     dtype on device.  Raises for CUDA where a kernel's block would not fit
-    its shared memory (K1: 48 KB; K2: `k2_plan`)."""
+    its shared memory with one element (`k1_plan`, `k2_plan`)."""
     if not cuda_fusable(tab_np, ctx):
         raise ValueError("the CUDA fused kernels' preconditions do not hold "
                          "(see cuda_fusable)")
     viscous = ctx.fluxes.eq_system != "euler"
-    if torch.device(device).type == "cuda":
-        size = torch.empty((), dtype=dtype).element_size()
-        nd, nq = tab_np.ndof, tab_np.nqf
-        k1 = 7 * nd * 5 * size
-        tile, _res, k2 = k2_plan(nd, nq, viscous, dtype)
-        if k1 > K1_SHARED_LIMIT or not tile:
-            raise ValueError(
-                f"ndof={nd}, nqf={nq} in {dtype} needs {k1} B of shared "
-                f"memory per block for K1 (limit {K1_SHARED_LIMIT}) and "
-                f"{k2} B for one element of K2 (limit {SHARED_LIMIT})")
-    plain = build_fused(tab_np, ctx, dtype, device)
     folds = kernel_folds(tab_np)
+    groups = gradient_groups(folds["Wgrad"])
+    if torch.device(device).type == "cuda":
+        nd, nq = tab_np.ndof, tab_np.nqf
+        plans = {"K2": k2_plan(nd, nq, viscous, dtype)}
+        if viscous:  # Euler does not launch K1
+            plans["K1"] = k1_plan(nd, *groups["vals"].shape, dtype)
+        misfits = [f"{k} needs {smem} B for one element" for k, (tile, _r, smem)
+                   in sorted(plans.items()) if not tile]
+        if misfits:
+            raise ValueError(
+                f"ndof={nd}, nqf={nq} in {dtype}: shared memory per block: "
+                f"{'; '.join(misfits)} (limit {SHARED_LIMIT})")
+    plain = build_fused(tab_np, ctx, dtype, device)
     grid, per_lf = tab_np.roll_info
     geo = ([int(g) for g in grid] + [int(a) for (a, _s, _o) in per_lf]
            + [-int(s) for (_a, s, _o) in per_lf]
@@ -427,9 +525,13 @@ def build_cuda_fused(tab_np, ctx, dtype, device) -> CudaFusedRHS:
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype,
                                device=device)
 
+    def idx(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
     return CudaFusedRHS(
         plain=plain, viscous=viscous,
-        Wgrad=dev(folds["Wgrad"]), Vvol=dev(folds["Vvol"]),
+        k1_rows=idx(groups["rows"]), k1_cols=idx(groups["cols"]),
+        k1_vals=dev(groups["vals"]), Vvol=dev(folds["Vvol"]),
         Btr=dev(folds["Btr"]), Wscat=dev(folds["Wscat"]),
         nor=dev(folds["nor"]),
         geo=(ctypes.c_int * len(geo))(*geo),
