@@ -1,7 +1,7 @@
 """GPU smoke test of tps_torch: builds the CUDA kernels, checks each against
 its plain PyTorch version, drives the solver's CLI on two decks, checks
-the solver against plain RK4 loops, and times kernels and right-hand
-sides.
+the solver against plain RK4 loops and its step graph against eager
+steps, and times kernels, right-hand sides and steps through solve().
 
     python3 chip_smoke.py
 
@@ -13,13 +13,17 @@ launch counts set to 0 just before it and read just after:
     basis (basisType = 0, integrationRule = 0 added), K1 + K2;
   - the slot path: examples/cases/vortex3d_ns.ini as shipped (the
     reference-default Gauss-Lobatto basis), the face sweep.
+Both run solve()'s chunked loop, each step a replay of the solver's
+captured CUDA graph (tps_torch/solvers/step_graph.py); each kernel of a
+path must count 4 launches a step (RK4), those of the other path none.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
 build or launch, when any comparison misses its tolerance, or when a CLI
-run did not launch its kernels.  The last stdout line is
-{"ok": true, "device": {...}}; the line before it the card's name and
-power limit; the one before that the kernels' JSON record.
+run did not launch its kernels or did not step through the graph.  The
+last stdout line is {"ok": true, "device": {...}}; the line before it the
+card's name and power limit; the one before that the kernels' JSON
+record.
 """
 
 from __future__ import annotations
@@ -53,6 +57,9 @@ K1_TOL_F64 = 1e-12
 MCS_TOL_F64 = 1e-12
 FREESTREAM_TOL = 1e-5  # f32, 100 RK4 steps from a uniform state
 SOLVER_TOL = 1e-10  # f64, 20 fixed-dt steps, kernels vs plain RK4 loop
+# f64, the step graph against eager steps: the same kernels on the same
+# inputs, so equal up to the order of atomics (none on these paths)
+GRAPH_TOL = 1e-12
 PROTO_TOL = 1e-5  # the face-sweep prototype's own bar (f32)
 GLL = dict(basis="gauss-lobatto", quad_rule="gauss-lobatto")
 
@@ -267,7 +274,9 @@ def reset_all_launches():
 
 def phase_cli(path, launched, idle):
     """A main path: the harness on a deck (f32, CUDA), freestream kept;
-    the kernels in `launched` ran, those in `idle` did not."""
+    its steps replayed the step graph; the kernels in `launched` ran
+    4 times a step (RK4), those in `idle` did not.  Returns the counts,
+    the steps and the solver."""
     from tps_torch import harness
 
     torch.set_default_dtype(torch.float32)
@@ -296,11 +305,17 @@ def phase_cli(path, launched, idle):
         raise SystemExit("CLI run: non-finite or misshapen final state")
     if not dev <= FREESTREAM_TOL:
         raise SystemExit("CLI run: freestream not preserved")
-    missing = [k for k in launched if counts[k] == 0]
+    missing = [k for k in launched if counts[k] != 4 * s.iter]
     stray = [k for k in idle if counts[k] != 0]
     if missing or stray:
-        raise SystemExit(f"CLI run launched no {missing} / launched {stray}")
-    return counts, s.iter
+        raise SystemExit(f"CLI run: not 4 launches a step of {missing} / "
+                         f"launched {stray} ({s.iter} steps)")
+    if s._loop.graph is None:
+        raise SystemExit("CLI run: the steps did not go through the graph")
+    log(f"  step graph: captured in {s._loop.capture_s:.3f} s, pool "
+        f"{s._loop.pool_bytes / 2**20:.1f} MiB, launches a replay "
+        f"{s._loop.per_replay}")
+    return counts, s.iter, s
 
 
 SOLVER_DECK = """
@@ -324,23 +339,26 @@ periodic_y = 1
 periodic_z = 1
 [time]
 integrator = rk4
-dt_fixed = {dt}
+{dt}
 [io]
 outdirBase = build/solver_check
 """
 
 
-def phase_solver(dev):
-    """The solver (kernels) vs a plain-version RK4 loop, 32^3 p=2 f64."""
-    from tps_torch import harness
-    from tps_torch.dg.fused import build_fused
-    from tps_torch.time.integrators import rk4
+FIXED_DT = "dt_fixed = 3e-06"
+CFL = "cfl = 0.12"
 
-    torch.set_default_dtype(torch.float64)
-    dt = 3.0e-6
-    path = os.path.join(REPO, "build", "solver_check.ini")
+
+def deck_solver(deck, name, dt_line, dtype, dev, perturb=True):
+    """A solver on the card through the harness, from `deck` with its
+    [time] line dt_line, in dtype; from perturbed_U where perturb."""
+    from tps_torch import harness
+
+    torch.set_default_dtype(dtype)
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    path = os.path.join(REPO, "build", name + ".ini")
     with open(path, "w") as f:
-        f.write(SOLVER_DECK.format(dt=dt))
+        f.write(deck.format(dt=dt_line))
     tps = harness.Tps()
     tps.parse_command_line_args(["tps", "--runFile", path])
     tps.parse_input()
@@ -348,10 +366,23 @@ def phase_solver(dev):
     tps.choose_solver()
     tps.initialize()
     s = tps.solver
-    U0 = perturbed_U(s.mixture, s.tables_np.xyz_dof, torch.float64, dev)
-    s.set_state_global(U0.cpu().numpy())
-    tps.solve()
-    U_solver = s.U
+    if perturb:
+        s.set_state_global(perturbed_U(s.mixture, s.tables_np.xyz_dof,
+                                       torch.float64, "cpu").numpy())
+    return s
+
+
+def phase_solver(dev):
+    """The solver (kernels, step graph) vs a plain-version RK4 loop, 32^3
+    p=2 f64.  Returns the solver and its initial state."""
+    from tps_torch.dg.fused import build_fused
+    from tps_torch.time.integrators import rk4
+
+    dt = 3.0e-6
+    s = deck_solver(SOLVER_DECK, "solver_check", FIXED_DT, torch.float64, dev)
+    U0 = s.U.clone()
+    s.solve()
+    U_solver = s.U.clone()
 
     plain = build_fused(s.tables_np, s.ctx, torch.float64, dev)
     U2 = U0.reshape(U0.shape[0], -1)
@@ -365,11 +396,13 @@ def phase_solver(dev):
         f"(bar {SOLVER_TOL}); the state moved by {moved:.3e}")
     if not err <= SOLVER_TOL or not moved > 0:
         raise SystemExit("solver vs plain RK4 loop failed")
+    return s, U0
 
 
 def phase_timing(setup, dev):
-    """ms/RHS (RK4 chains of 50 steps) and ms per kernel, kernels vs plain,
-    in turns plain, kernel, kernel, plain, by CUDA events; each kernel's
+    """ms/RHS (RK4 chains of 50 steps through the kernels, 10 through the
+    host-bound plain version) and ms per kernel, kernels vs plain, in
+    turns plain, kernel, kernel, plain, by CUDA events; each kernel's
     time on the device alone (`kernel_ms`), f32 and f64."""
     from tps_torch.dg.cuda_fused import build_cuda_fused
     from tps_torch.time.integrators import rk4
@@ -384,18 +417,20 @@ def phase_timing(setup, dev):
         U2 = U.reshape(tab.ne, -1)
         dt = 1e-6
 
-        def chain(f, u):
+        def chain(f, u, steps):
             def run():
                 x = u
-                for _ in range(50):
+                for _ in range(steps):
                     x = rk4(f, x, 0.0, dt)[0]
                 return x
             return run
 
-        runs = {"plain": chain(plain, U2), "kernels": chain(rhs, U)}
+        steps = {"plain": 10, "kernels": 50}
+        runs = {"plain": chain(plain, U2, steps["plain"]),
+                "kernels": chain(rhs, U, steps["kernels"])}
         times = {"plain": [], "kernels": []}
         for which in ("plain", "kernels", "kernels", "plain"):
-            times[which].append(cuda_ms(runs[which], 2) / 200.0)
+            times[which].append(cuda_ms(runs[which], 2) / (4 * steps[which]))
         G = rhs.gradient(U)
         k = {
             "k1_gradient": [cuda_ms(lambda: plain.gradient(U2), 50),
@@ -524,7 +559,7 @@ ny = 16
 nz = 16
 [time]
 integrator = rk4
-dt_fixed = {dt}
+{dt}
 [io]
 outdirBase = build/walled_check
 """ + "".join(f"[boundaryConditions/wall{i}]\npatch = {i}\ntype = inviscid\n"
@@ -535,31 +570,19 @@ def phase_walled_solver(dev):
     """The slot path through the solver (the face-sweep kernel) vs a plain
     RK4 loop over compute_rhs with the plain face sweep: 16^3 p=2 GLL NS,
     six inviscid walls, f64, 20 fixed-dt steps."""
-    from tps_torch import harness
     from tps_torch.dg.cuda_faces import face_sweep_plain
     from tps_torch.dg.rhs import SlotRHS, compute_rhs
     from tps_torch.time.integrators import rk4
 
-    torch.set_default_dtype(torch.float64)
     dt = 3.0e-6
-    path = os.path.join(REPO, "build", "walled_check.ini")
-    with open(path, "w") as f:
-        f.write(WALLED_DECK.format(dt=dt))
-    tps = harness.Tps()
-    tps.parse_command_line_args(["tps", "--runFile", path])
-    tps.parse_input()
-    tps.choose_devices()
-    tps.choose_solver()
-    tps.initialize()
-    s = tps.solver
+    s = deck_solver(WALLED_DECK, "walled_check", FIXED_DT, torch.float64, dev)
     if not isinstance(s._rhs, SlotRHS) or len(s.ctx.bcs) != 6:
         raise SystemExit("walled deck: not on the slot path with six walls")
-    U0 = perturbed_U(s.mixture, s.tables_np.xyz_dof, torch.float64, dev)
-    s.set_state_global(U0.cpu().numpy())
+    U0 = s.U.clone()
     reset_all_launches()
-    tps.solve()
+    s.solve()
     counts = all_launches()
-    U_solver = s.U
+    U_solver = s.U.clone()
 
     plain = functools.partial(face_sweep_plain, s.ctx, s.tables)
     bc_states = tuple(None for _ in s.ctx.bcs)
@@ -577,6 +600,109 @@ def phase_walled_solver(dev):
         f"(bar {SOLVER_TOL}); moved {moved:.3e}; launches {counts}")
     if not err <= SOLVER_TOL or not moved > 0 or counts["face_sweep"] != 80:
         raise SystemExit("walled solver vs plain RK4 loop failed")
+    return s, U0
+
+
+def graph_vs_eager(s, U0, dt0):
+    """solve() from U0 at t = 0 and dt0, through the step graph and then
+    eagerly: the relative differences of U, t and dt."""
+    out = []
+    for graphs in (True, False):
+        s.set_state_global(U0.cpu().numpy())
+        s.time, s.dt, s.iter, s.cuda_graphs = 0.0, dt0, 0, graphs
+        s.solve()
+        out.append((s.U.clone(), float(s.time), float(s.dt)))
+    s.cuda_graphs = True
+    (Ug, tg, dtg), (Ue, te, dte) = out
+    return rel(Ug, Ue), abs(tg - te) / abs(te), abs(dtg - dte) / abs(dte)
+
+
+def phase_graphs(dev, fixed):
+    """The step graph against eager steps through solve(), f64, on the
+    fused path (32^3 p=2) and the walled slot deck (16^3 p=2 GLL, six
+    walls), in fixed-dt mode (`fixed`: phases 6 and 7's solvers, whose
+    graphs were captured before this state was set) and in CFL mode."""
+    failures = []
+    for name, deck, tag in (("fused 32^3", SOLVER_DECK, "solver_check"),
+                            ("walled slot", WALLED_DECK, "walled_check")):
+        cfl = deck_solver(deck, tag + "_cfl", CFL, torch.float64, dev)
+        for mode, (s, U0) in (("fixed dt", fixed[name]),
+                              ("CFL", (cfl, cfl.U.clone()))):
+            diffs = graph_vs_eager(s, U0, float(s.config.dt_fixed)
+                                   if mode == "fixed dt" else float(s.dt))
+            ok = max(diffs) <= GRAPH_TOL
+            log(f"  {name}, {mode}: graph vs eager, {s.iter} steps: U "
+                f"{diffs[0]:.3e}, t {diffs[1]:.3e}, dt {diffs[2]:.3e} (bar "
+                f"{GRAPH_TOL})" + ("" if ok else "  FAIL"))
+            if not ok:
+                failures.append(f"{name} {mode}")
+    if failures:
+        raise SystemExit(f"step graph vs eager failed: {failures}")
+
+
+def phase_step_timing(cases, steps=32, profiled=16):
+    """ms/step through solve() (f32), the step graph against eager steps,
+    in turns eager, graph, chain, chain, graph, eager, `steps` steps a
+    turn, host clock to a synchronize ("chain": the same integrator and
+    RHS called in a bare loop with Python-float t and dt, as phase 10's
+    chains, outside solve()); the device's busy share in a profiled
+    chunk of `profiled` steps, graph and eager; the capture's wall time
+    and the graph pool's device memory."""
+    out = {}
+    for name, s in cases.items():
+        s.config.timing_freq = 10**9  # no timing print inside the turns
+
+        def turn(graphs, n=steps):
+            s.cuda_graphs = graphs
+            s.config.max_iters = s.iter + n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.solve()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        def chain(n=steps):
+            U, dt = s.U.clone(), float(s.dt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                U = s._integrator(s._rhs, U, 0.0, dt)[0]
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        turn(True, 2)  # captures the graph where the solver has none
+        ms = {True: [], False: [], "chain": []}
+        for kind in (False, True, "chain", "chain", True, False):
+            ms[kind].append(chain() if kind == "chain" else turn(kind))
+        prof = {}
+        for graphs in (True, False):
+            s.cuda_graphs = graphs
+            prof["graph" if graphs else "eager"] = device_share(
+                lambda: s.solve_chunk(profiled), 1)
+        s.cuda_graphs = True
+        lp = s._loop
+        dev_ms = prof["graph"].get("device_ms")
+        res = {"graph_ms_per_step": float(np.mean(ms[True])),
+               "eager_ms_per_step": float(np.mean(ms[False])),
+               "chain_ms_per_step": float(np.mean(ms["chain"])),
+               "graph_turns": ms[True], "eager_turns": ms[False],
+               "chain_turns": ms["chain"],
+               "device_ms_per_step": (None if dev_ms is None
+                                      else dev_ms / profiled),
+               "capture_s": lp.capture_s, "pool_MiB": lp.pool_bytes / 2**20,
+               "launches_per_step": lp.per_replay,
+               "profile": {k: {kk: v[kk] for kk in ("wall_ms", "device_ms",
+                                                    "busy_share")
+                               if kk in v} or v
+                           for k, v in prof.items()}}
+        log(f"  {name}: ms/step graph {res['graph_ms_per_step']:.4f} "
+            f"{ms[True]}, eager {res['eager_ms_per_step']:.4f} {ms[False]}, "
+            f"bare chain {res['chain_ms_per_step']:.4f} {ms['chain']}; "
+            f"device ms/step {res['device_ms_per_step']}; profiled chunk of "
+            f"{profiled} {res['profile']}; capture {lp.capture_s:.3f} s, "
+            f"pool {res['pool_MiB']:.1f} MiB")
+        out[name] = res
+    return out
 
 
 def phase_slot_timing(setup, dev):
@@ -860,7 +986,10 @@ def run(dev):
 
     t_start = time.perf_counter()
 
-    log("phase 1: build")
+    def log_phase(text):
+        log(f"{text} [{time.perf_counter() - t_start:.1f} s]")
+
+    log_phase("phase 1: build")
     t0 = time.perf_counter()
     path = cuda_fused.build_kernels()
     log(f"  built {os.path.relpath(path, REPO)} in "
@@ -872,30 +1001,43 @@ def run(dev):
     log(f"  card: {smi}")
 
     setup = Setup()
-    log("phase 2: K1/K2 vs plain version (relative to max|plain|)")
+    log_phase("phase 2: K1/K2 vs plain version (relative to max|plain|)")
     main_err = phase_kernels(setup, dev)
-    log("phase 3: face sweep vs plain versions (relative to max|plain|)")
+    log_phase("phase 3: face sweep vs plain versions (relative to "
+              "max|plain|)")
     face_err, proto = phase_faces(setup, dev)
-    log("phase 4: the fused path's CLI (flagship deck with the GL basis, "
-        "16^3 p=2 NS, RK4, f32)")
-    counts, _ = phase_cli(flagship_deck(), ("k1_gradient", "k2_faces_volume"),
-                          ("face_sweep",))
-    log("phase 5: the slot path's CLI (vortex3d_ns.ini as shipped: GLL, "
-        "16^3 p=2 NS, RK4, f32)")
-    counts_slot, steps = phase_cli(DECK, ("face_sweep",),
-                                   ("k1_gradient", "k2_faces_volume"))
-    if counts_slot["face_sweep"] != 4 * steps:
-        raise SystemExit(f"slot CLI: {counts_slot['face_sweep']} face-sweep "
-                         f"launches for {steps} RK4 steps")
-    log("phase 6: solver vs plain RK4 loop (32^3 p=2 NS, f64, fixed dt)")
-    phase_solver(dev)
-    log("phase 7: slot solver vs plain RK4 loop (16^3 p=2 GLL NS, six "
-        "inviscid walls, f64, fixed dt)")
-    phase_walled_solver(dev)
-    log("phase 8: timing K1/K2 (f32, NS, p=2)")
+    log_phase("phase 4: the fused path's CLI (flagship deck with the GL "
+              "basis, 16^3 p=2 NS, RK4, f32)")
+    counts, _, fused16 = phase_cli(flagship_deck(),
+                                   ("k1_gradient", "k2_faces_volume"),
+                                   ("face_sweep",))
+    log_phase("phase 5: the slot path's CLI (vortex3d_ns.ini as shipped: "
+              "GLL, 16^3 p=2 NS, RK4, f32)")
+    counts_slot, _, gll_deck = phase_cli(DECK, ("face_sweep",),
+                                         ("k1_gradient", "k2_faces_volume"))
+    log_phase("phase 6: solver vs plain RK4 loop (32^3 p=2 NS, f64, fixed dt)")
+    fixed = {"fused 32^3": phase_solver(dev)}
+    log_phase("phase 7: slot solver vs plain RK4 loop (16^3 p=2 GLL NS, "
+              "six inviscid walls, f64, fixed dt)")
+    fixed["walled slot"] = phase_walled_solver(dev)
+    log_phase("phase 8: the step graph vs eager steps through solve() (f64)")
+    phase_graphs(dev, fixed)
+    del fixed
+    log_phase("phase 9: timing K1/K2 (f32, NS, p=2)")
     timing = phase_timing(setup, dev)
-    log("phase 9: timing the slot path (f32, NS, 16^3 p=2)")
+    log_phase("phase 10: timing the slot path (f32, NS, 16^3 p=2)")
     slot = phase_slot_timing(setup, dev)
+    log_phase("phase 11: ms/step through solve(), step graph vs eager "
+              "(f32, NS, p=2, RK4)")
+    walled_gl = WALLED_DECK.replace(
+        "[flow]\n", "[flow]\nbasisType = 0\nintegrationRule = 0\n", 1)
+    steps = phase_step_timing({
+        "gll_deck 16^3": gll_deck,
+        "walled_gl 16^3": deck_solver(walled_gl, "walled_gl", FIXED_DT,
+                                      torch.float32, dev),
+        "fused 16^3": fused16,
+        "fused 32^3": deck_solver(SOLVER_DECK, "fused32", CFL, torch.float32,
+                                  dev)})
 
     t16 = timing[(16, 16, 16)]
     tab16 = setup.tables((16, 16, 16), 2)
@@ -946,6 +1088,7 @@ def run(dev):
         "face_sweep_plain_ms", "face_sweep_f64_ms", "parts_ms",
         "launches_per_rhs", "profile")}
         for k, v in slot.items()})
+    summary["solve() ms/step"] = steps
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

@@ -1,6 +1,6 @@
 """The CUDA kernels K1/K2 and the face sweep == their plain PyTorch
 versions, on a GPU (K1 on its compressed folds against the dense plain
-gradient).
+gradient); the solver's step graph == its eager steps.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -9,7 +9,9 @@ the suite's jax-configuring conftest:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Bars: 1e-11 (f64) and 5e-5 (f32) relative to max|plain|; the two sum the
-same products in another order.  TF32 is off for the plain version.
+same products in another order.  TF32 is off for the plain version.  The
+step graph against eager steps: 1e-12 of max|U| in f64 (the same kernels
+on the same inputs).
 """
 
 import numpy as np
@@ -293,3 +295,176 @@ def test_slot_solver_launches_the_face_sweep(device, tmp_path):
         torch.set_default_dtype(old)
     np.testing.assert_allclose(states["cuda"], states["cpu"], rtol=1e-10,
                                atol=1e-10 * np.max(np.abs(states["cpu"])))
+
+
+# ---------------------------------------------------------------- step graphs
+
+CHANNEL_2D = """
+[solver]
+type = flow
+[flow]
+order = 2
+maxIters = {iters}
+timingFreq = 4
+equation_system = navier-stokes
+[mesh]
+generator = box2d
+nx = 5
+ny = 3
+x1 = 0.05
+y1 = 0.03
+[time]
+cfl = 0.2
+integrator = rk4
+{dt}
+[initialConditions]
+rho = 1.2
+rhoU = 12.0
+pressure = 101300
+[boundaryConditions/inlet]
+patch = 4
+type = subsonic
+density = 1.2
+uvw = '10.0 0.0 0.0'
+[boundaryConditions/outlet]
+patch = 2
+type = subsonicPressure
+pressure = 101000
+[boundaryConditions/bottom]
+patch = 1
+type = viscous_isothermal
+temperature = 300
+[boundaryConditions/top]
+patch = 3
+type = viscous_adiabatic
+[io]
+outdirBase = {outdir}
+"""
+
+FUSED_BOX = """
+[solver]
+type = flow
+[flow]
+order = 2
+basisType = 0
+integrationRule = 0
+maxIters = {iters}
+timingFreq = 4
+equation_system = navier-stokes
+[mesh]
+generator = box3d
+nx = 3
+ny = 4
+nz = 5
+periodic_x = 1
+periodic_y = 1
+periodic_z = 1
+[time]
+cfl = 0.2
+integrator = rk4
+{dt}
+[initialConditions]
+rho = 1.2
+rhoU = 12.0
+pressure = 101300
+[io]
+outdirBase = {outdir}
+"""
+
+# launches of each kernel per RK4 step (4 RHS) on each deck
+PER_STEP = {
+    "channel": {"face_sweep": 4, "k1_gradient": 0, "k2_faces_volume": 0},
+    "fused": {"face_sweep": 0, "k1_gradient": 4, "k2_faces_volume": 4}}
+
+
+def _solver(tmp_path, deck, iters, fixed_dt, graphs):
+    """A solver on the card in f64 from a seeded perturbed state."""
+    from tps_torch import harness
+
+    text = (CHANNEL_2D if deck == "channel" else FUSED_BOX).format(
+        iters=iters, outdir=tmp_path / "out",
+        dt=f"dt_fixed = {fixed_dt}" if fixed_dt else "")
+    path = tmp_path / f"{deck}.ini"
+    path.write_text(text)
+    tps = harness.Tps()
+    tps.parse_command_line_args(["tps", "--runFile", str(path)])
+    tps.parse_input()
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    s = tps.solver
+    s.cuda_graphs = graphs
+    U = s.state_global()
+    rng = np.random.default_rng(11)
+    scale = 1.0 + 0.02 * rng.standard_normal(U.shape[:-1] + (1,))
+    s.set_state_global(U * scale)
+    return s
+
+
+def _counts():
+    return {**cuda_fused.launches, **cuda_faces.launches}
+
+
+@pytest.fixture
+def f64():
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    yield
+    torch.set_default_dtype(old)
+
+
+@pytest.mark.parametrize("fixed_dt", [None, 2e-6])
+@pytest.mark.parametrize("deck", ["channel", "fused"])
+def test_step_graph_matches_eager(device, f64, tmp_path, deck, fixed_dt):
+    """Two chunks of 4 steps through solve(): graph replays == eager
+    steps (f64, 1e-12 of max|U|), t and dt too; launches = per step x 8."""
+    out = {}
+    for graphs in (True, False):
+        s = _solver(tmp_path, deck, 8, fixed_dt, graphs)
+        cuda_fused.reset_launches()
+        cuda_faces.reset_launches()
+        s.solve()
+        torch.cuda.synchronize()
+        assert _counts() == {k: v * 8 for k, v in PER_STEP[deck].items()}
+        assert (s._loop.graph is not None) == graphs
+        out[graphs] = (s.state_global(), float(s.time), float(s.dt))
+    (Ug, tg, dtg), (Ue, te, dte) = out[True], out[False]
+    np.testing.assert_allclose(Ug, Ue, rtol=0, atol=1e-12 * np.max(np.abs(Ue)))
+    np.testing.assert_allclose([tg, dtg], [te, dte], rtol=1e-12)
+
+
+def test_set_state_global_after_capture(device, f64, tmp_path):
+    """A state set after the capture is the one the replays step."""
+    s = _solver(tmp_path, "channel", 4, None, True)
+    U0, dt0 = s.state_global(), float(s.dt)
+    s.solve()
+    assert s._loop.graph is not None
+    U1 = s.state_global()
+    s.set_state_global(U0)
+    s.time, s.dt, s.iter = 0.0, dt0, 0
+    s.solve()
+    ref = _solver(tmp_path, "channel", 4, None, False)
+    ref.set_state_global(U0)
+    ref.dt = dt0
+    ref.solve()
+    np.testing.assert_allclose(s.state_global(), ref.state_global(), rtol=0,
+                               atol=1e-12 * np.max(np.abs(U1)))
+    np.testing.assert_allclose(float(s.time), float(ref.time), rtol=1e-12)
+
+
+def test_capture_with_host_sync_raises(device):
+    """A host sync inside the step raises at the capture; nothing falls
+    back, and the capture counts no launch."""
+    from tps_torch.solvers.step_graph import StepLoop
+
+    def body(U, t, dt):
+        if float(U.sum()) < 0:  # a host read
+            U = -U
+        return 2.0 * U, t + dt, dt, U.amax()
+
+    counter = {"k": 0}
+    lp = StepLoop(body, torch.ones(8, device=device), 0.5, counters=(counter,))
+    with pytest.raises(RuntimeError):
+        lp.run(2)
+    assert lp.graph is None and counter == {"k": 0}
+    torch.cuda.synchronize()

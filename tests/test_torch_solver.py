@@ -6,9 +6,11 @@ state: after 5 CFL-controlled RK4 steps U, t and dt agree to 1e-10.
 Part 2: the isentropic vortex advected to t=2 through the port (relative
 L2 < 5e-3, as the JAX package's canonical drive asks).  Part 3: the
 general (slot) path through the solver: the reference-default
-Gauss-Lobatto deck and a 2-D deck with walls, an inlet and an outlet, each
-against the JAX solver after 5 steps (1e-10).  Then the CLI surface: the
-timing line, the NaN guard, and the inputs the slice refuses.
+Gauss-Lobatto deck after 5 steps and a 2-D deck with walls, an inlet and
+an outlet through each package's chunked solve(), against the JAX solver
+(1e-10).  Then the CLI surface: the timing line, the NaN guard, and the
+inputs the slice refuses; and the chunked step loop: JAX's chunk lengths,
+chunks bitwise equal to single steps, a NaN reported mcsLagSteps late.
 """
 
 import pathlib
@@ -207,7 +209,7 @@ def test_nan_guard_reports_the_step(tmp_path, f64):
     U = s.state_global().copy()
     U[3, 2, 0] = np.nan
     s.set_state_global(U)
-    s.solve_step()  # the guard reads the buffer at the timing cadence
+    s.solve_step()  # the guard reads it 8 steps late, or at the end
     assert s.iter == 1
     with pytest.raises(FloatingPointError, match="iteration 1 .reported at 4"):
         s.solve()
@@ -225,10 +227,11 @@ def test_unported_inputs_raise(tmp_path, extra, match):
         tps.initialize()
 
 
-def _match_jax_solver(path, steps=5):
+def _match_jax_solver(path, steps=5, chunked=False):
     """The port's solver (device cpu) and the JAX package's on one deck,
-    from the deck's own initial state: after `steps` steps U, t and dt
-    agree to 1e-10."""
+    from the deck's own initial state: after `steps` steps (solve_step,
+    or with chunked, each one's chunked solve() to the deck's maxIters)
+    U, t and dt agree to 1e-10."""
     from tps_tpu import harness as jharness
 
     tps = _port_tps(path)
@@ -241,9 +244,13 @@ def _match_jax_solver(path, steps=5):
     js = jtps.solver
     U0 = s.state_global().copy()
     np.testing.assert_allclose(U0, np.asarray(js.state_global()), rtol=1e-14)
-    for _ in range(steps):
-        s.solve_step()
-        js.solve_step()
+    if chunked:
+        s.solve()
+        js.solve()
+    else:
+        for _ in range(steps):
+            s.solve_step()
+            js.solve_step()
     U, Uj = s.state_global(), np.asarray(js.state_global())
     np.testing.assert_allclose(U, Uj, rtol=1e-10,
                                atol=1e-10 * np.max(np.abs(Uj)))
@@ -271,8 +278,9 @@ WALLED_2D = """
 type = flow
 [flow]
 order = 2
-maxIters = 5
-timingFreq = 5
+maxIters = 8
+timingFreq = 4
+outputFreq = 1000
 fluid = dry_air
 equation_system = navier-stokes
 [mesh]
@@ -312,10 +320,11 @@ outdirBase = {outdir}
 
 def test_walled_inlet_outlet_deck_matches_jax(tmp_path, f64, capsys):
     """A 2-D channel (GLL, NS): isothermal and adiabatic walls, a subsonic
-    inlet, a subsonicPressure outlet; 5 CFL steps against the JAX solver."""
+    inlet, a subsonicPressure outlet; two chunks of 4 CFL steps through
+    each package's chunked solve()."""
     path = tmp_path / "channel.ini"
     path.write_text(WALLED_2D.format(outdir=tmp_path / "out"))
-    s, U0, U = _match_jax_solver(path)
+    s, U0, U = _match_jax_solver(path, steps=8, chunked=True)
     assert isinstance(s._rhs, SlotRHS) and s.tables_np.nfb == 16
     assert [type(b.bc).__name__ for b in s.ctx.bcs] == [
         "WallBC", "OutletBC", "WallBC", "InletBC"]
@@ -323,6 +332,85 @@ def test_walled_inlet_outlet_deck_matches_jax(tmp_path, f64, capsys):
     out = capsys.readouterr().out
     assert "[INLET]: # of boundary faces               = 3" in out
     assert "[OUTLET]: Total Surface Area                = 0.03000" in out
+
+
+CHANNEL = pathlib.Path(__file__).parent / "inputs" / "channel2d.ini"
+
+
+def _channel(tmp_path, sub, max_iters):
+    """The port's solver on tests/inputs/channel2d.ini (2-D NS: subsonic
+    inlet, pressure outlet, isothermal walls), device cpu."""
+    tps = _port_tps(CHANNEL)
+    tps.config.max_iters = max_iters
+    tps.config.outdir = str(tmp_path / sub)
+    tps.initialize()
+    return tps.solver
+
+
+def test_chunk_size_matches_jax(tmp_path):
+    """The port's chunk lengths are the JAX solver's on the same settings
+    (tests/test_harness.py::test_chunk_size_respects_service_boundaries,
+    with timingFreq / checkFreq binding: the port has no restart output,
+    so outputFreq binds in the JAX solver only)."""
+    from tps_tpu import harness as jharness
+
+    s = _channel(tmp_path, "port", 100)
+    jtps = jharness.Tps()
+    jtps.input_file = str(CHANNEL)
+    jtps.parse_input()
+    jtps.config.max_iters = 100
+    jtps.config.outdir = str(tmp_path / "jax")
+    jtps.choose_devices()
+    jtps.choose_solver()
+    jtps.initialize()
+    js = jtps.solver
+    for timing, check, it, want in ((10, 1000, 0, 8), (10, 1000, 6, 4),
+                                    (10, 1000, 9, 1), (1000, 12, 5, 4),
+                                    (1000, 1000, 0, 64), (1000, 1000, 97, 2)):
+        for solver in (s, js):
+            solver.config.timing_freq = timing
+            solver.config.exit_check_freq = check
+            solver.config.output_freq = 1000
+            solver.iter = it
+        assert s._chunk_size() == js._chunk_size() == want, (timing, check, it)
+
+
+def test_chunked_solve_matches_per_step(tmp_path, f64):
+    """solve_chunk(4) twice is bitwise 8 solve_step() calls (f64, the
+    channel deck's walls, inlet and outlet, CFL dt)."""
+    a, b = _channel(tmp_path, "a", 8), _channel(tmp_path, "b", 8)
+    for _ in range(8):
+        a.solve_step()
+    b.solve_chunk(4)
+    b.solve_chunk(4)
+    assert a.iter == b.iter == 8
+    np.testing.assert_array_equal(a.state_global(), b.state_global())
+    assert float(a.time) == float(b.time) and float(a.dt) == float(b.dt)
+    assert float(a.time) > 0
+
+
+def test_nan_mid_chunk_names_its_step(tmp_path, f64):
+    """A NaN that appears at step 3 of a chunk of 4 is reported by the
+    guard once it is mcsLagSteps old: after the next chunk, at 8."""
+    tps = _port_tps(_deck_2d(tmp_path, iters=12, timing=4))
+    tps.config.mcs_lag = 4
+    tps.initialize()
+    s = tps.solver
+    real, calls = s._integrator, []
+
+    def planting(rhs, U, t, dt):
+        calls.append(1)
+        U2, aux = real(rhs, U, t, dt)
+        if len(calls) == 2:  # step 2's result: step 3 starts from a NaN
+            U2 = U2.clone()
+            U2[3, 0] = np.nan
+        return U2, aux
+
+    s._integrator = planting
+    with pytest.raises(FloatingPointError,
+                       match="iteration 3 .reported at 8,"):
+        s.solve()
+    assert s.iter == 8
 
 
 def test_cuda_device_requires_cuda(tmp_path):

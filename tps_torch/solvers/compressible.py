@@ -18,10 +18,15 @@ ROADMAP item that ports it.
 
 Mirrors the reference solver's structure (reference: src/M2ulPhyS.cpp):
 CFL timestep control uses dt = CFL * hmin / max_char_speed / dim
-(reference: src/M2ulPhyS.cpp:2013-2016), kept as a device scalar so the
-step loop never waits on the device; the NaN guard (reference:
-src/M2ulPhyS.cpp:2463-2525) checks every step's max characteristic speed
-from a device buffer that is read at the timing cadence and at the end.
+(reference: src/M2ulPhyS.cpp:2013-2016).  The step loop is the JAX
+solver's chunked one (tps_tpu solvers/compressible.py:697-729,
+1238-1386): `solve` runs chunks of up to 64 steps between its service
+boundaries; U, t and dt are device scalars and buffers of the step loop
+(solvers/step_graph.py), and on a CUDA device each step is a replay of one
+captured CUDA graph.  The NaN guard (reference: src/M2ulPhyS.cpp:
+2463-2525) checks every step's max characteristic speed, read from a
+device ring after each chunk, `time/mcsLagSteps` steps late, and all of
+it at a DIE file and at the end.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from ..config.run_config import RunConfiguration
+from ..dg import cuda_faces, cuda_fused
 from ..dg.bc import InletBC, OutletBC, WallBC
 from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
@@ -47,6 +53,7 @@ from ..physics.transport import ConstantTransport, DryAirTransport
 from ..time.integrators import get_integrator
 from ..utils.cases import isentropic_vortex, taylor_green_2d, uniform_state
 from .base import SOLVER_REGISTRY, PlasmaSolver
+from .step_graph import RING, StepLoop
 
 STATUS_EARLY_EXIT = 10  # status of a run ended by a DIE file
 
@@ -160,6 +167,10 @@ def _enabled(raw, key):
 
 class CompressibleSolver(PlasmaSolver):
     """Explicit DG compressible flow solver on one device."""
+
+    # on a CUDA device each step is a replay of a captured CUDA graph;
+    # False steps eagerly there (the graphs' reference and yardstick)
+    cuda_graphs = True
 
     def __init__(self, config, tps=None, device=None):
         super().__init__(config, tps=tps)
@@ -296,30 +307,33 @@ class CompressibleSolver(PlasmaSolver):
         return float(np.sum(np.asarray(tab.f_wts[tab.nfi :])[sel] * nrm))
 
     def _initialize_state_and_loop(self):
-        """IC, RHS, CFL/dt, NaN-guard buffer."""
+        """IC, RHS, CFL/dt, the step loop and its NaN-guard queue."""
         rc = self.config
         dim = self.mesh.dim
-        self.U = self._initial_condition()
-        self.time = 0.0
+        U = self._initial_condition()
         self.iter = 0
         self.hmin = float(np.min(self.tables_np.delta) * max(rc.order, 1))
         self._integrator = get_integrator(rc.integrator)
+        self._cfl_mode = not (rc.constant_dt or rc.dt_fixed > 0)
         self._rhs = self._build_rhs()
         if self.ctx.bcs:
-            self._rhs.bc_states = init_bc_states(self.ctx, self.tables, self.U)
+            self._rhs.bc_states = init_bc_states(self.ctx, self.tables, U)
 
         # initial dt (reference: M2ulPhyS::initialTimeStep)
         if rc.dt_fixed > 0:
-            self.dt = rc.dt_fixed
+            dt = rc.dt_fixed
         else:
-            mcs0 = float(torch.amax(self.mixture.max_char_speed(self.U)))
-            self.dt = rc.cfl * self.hmin / mcs0 / dim
+            mcs0 = float(torch.amax(self.mixture.max_char_speed(U)))
+            dt = rc.cfl * self.hmin / mcs0 / dim
 
-        # every step's max char speed lands here on the device; the NaN
-        # guard reads the filled part at the timing cadence and at the end
-        self._mcs_buf = torch.empty(max(rc.timing_freq, 1), dtype=self.dtype,
-                                    device=self.device)
-        self._mcs_n = 0
+        # U, time and dt are the step loop's buffers from here on
+        self._loop = StepLoop(self._step_body, U, dt,
+                              counters=(cuda_fused.launches,
+                                        cuda_faces.launches))
+        self.U, self.time, self.dt = self._loop.U, self._loop.t, self._loop.dt
+        # (iteration of a chunk's last step, its max char speeds on the
+        # host, the event that says they have arrived), oldest first
+        self._mcs_queue = []
         self._wall0 = _time.perf_counter()
 
     def _initial_condition(self):
@@ -337,54 +351,84 @@ class CompressibleSolver(PlasmaSolver):
         return mix.conservatives(Up).to(self.dtype)
 
     # ------------------------------------------------------------------
-    def _step(self, U, t, dt):
-        """One integrator step on the RHS's own layout."""
+    def _step_body(self, U, t, dt):
+        """One step, the body of the JAX chunk's scan (tps_tpu
+        solvers/compressible.py:709-717): the integrator's stages on the
+        RHS's own layout, t + dt, and in CFL mode the next dt from this
+        step's max char speed.  Returns (U, t, dt, mcs), all on the
+        device; captured as the step graph on CUDA, so no host sync."""
         r = self._rhs
         U2, aux = self._integrator(r, r.to_fused(U), t, dt)
-        U = r.from_fused(U2)
+        U2 = r.from_fused(U2)
         if self.ctx.bcs:
             # the BC ghost states advance once per step, after the stages
-            # (tps_tpu solvers/compressible.py:674-676)
-            r.bc_states = advance_bc_states(self.ctx, self.tables, U,
+            # (tps_tpu solvers/compressible.py:674-676); every ported BC
+            # is stateless, so this keeps the tuple of None
+            r.bc_states = advance_bc_states(self.ctx, self.tables, U2,
                                             r.bc_states, dt)
-        return U, aux["max_char_speed"]
+        mcs = aux["max_char_speed"]
+        if self._cfl_mode:
+            rc = self.config
+            dt2 = rc.cfl * self.hmin / mcs / self.mesh.dim
+        else:
+            dt2 = dt
+        return U2, t + dt, dt2, mcs
 
     def solve_step(self):
         """One time step + dt update + guards (reference: solveStep :2004)."""
-        t = torch.as_tensor(self.time, dtype=self.dtype, device=self.device)
-        dt = torch.as_tensor(self.dt, dtype=self.dtype, device=self.device)
-        self.U, mcs = self._step(self.U, t, dt)
-        self.time = self.time + self.dt
-        self.iter += 1
-        self._post_step_services(mcs)
+        self.solve_chunk(1)
 
-    def _check_mcs(self):
-        """NaN guard over every step since the last check (one host read)."""
-        n = self._mcs_n
-        if n == 0:
-            return
-        vals = self._mcs_buf[:n].cpu().numpy()
-        self._mcs_n = 0
-        if not np.all(np.isfinite(vals)):
-            self.check_nan(verbose=True)
-            bad = int(np.argmax(~np.isfinite(vals)))
-            raise FloatingPointError(
-                f"NaN/Inf detected at iteration {self.iter - n + 1 + bad} "
-                f"(reported at {self.iter}, t={float(self.time):.6e})")
-
-    def _post_step_services(self, mcs):
-        """NaN-guard buffer, CFL dt, timing print, job management
-        (reference: src/M2ulPhyS.cpp:2004-2177)."""
+    def _chunk_size(self):
+        """Steps to run before the next service boundary (timing print,
+        exit check, the end): a power of two up to 64, as in the JAX
+        solver (tps_tpu solvers/compressible.py:1271-1298), where
+        `outputFreq` binds only once restart I/O exists (ROADMAP A4.1)."""
         rc = self.config
-        self._mcs_buf[self._mcs_n] = mcs
-        self._mcs_n += 1
-        if self._mcs_n == self._mcs_buf.numel():
-            self._check_mcs()
-        if not (rc.constant_dt or rc.dt_fixed > 0):
-            # dt from THIS step's wave speed, as a device scalar
-            self.dt = rc.cfl * self.hmin / mcs / self.mesh.dim
+        bounds = [self.max_iters - self.iter]
+        for freq in (rc.timing_freq, max(rc.exit_check_freq, 1)):
+            bounds.append(freq - self.iter % freq)
+        n = min(min(bounds), RING)
+        chunk = 1
+        while chunk * 2 <= n:
+            chunk *= 2
+        return chunk
+
+    def solve_chunk(self, n):
+        """n time steps (1 <= n <= 64) through the step loop (on CUDA,
+        replays of the step graph), then the service tail.  U, time and
+        dt that the caller rebound are copied into the loop first."""
+        lp = self._loop
+        lp.load(self.U, self.time, self.dt)
+        lp.run(n, graph=self.cuda_graphs)
+        self.U, self.time, self.dt = lp.U, lp.t, lp.dt
+        self.iter += n
+        self._mcs_queue.append((self.iter, *lp.speeds(n)))
+        self._post_chunk_services()
+
+    def _drain_mcs_queue(self, lag):
+        """NaN guard over the queued max char speeds of the chunks whose
+        last step is at least `lag` steps old (lag 0: all of them); waits
+        for their copies, which trail the chunks on the device."""
+        q = self._mcs_queue
+        while q and self.iter - q[0][0] >= lag:
+            it0, vals, done = q.pop(0)
+            if done is not None:
+                done.synchronize()
+            arr = vals.numpy()
+            if not np.all(np.isfinite(arr)):
+                self.check_nan(verbose=True)
+                bad = int(np.argmax(~np.isfinite(arr)))
+                step = it0 - len(arr) + 1 + bad
+                raise FloatingPointError(
+                    f"NaN/Inf detected at iteration {step} (reported at "
+                    f"{self.iter}, t={float(self.time):.6e})")
+
+    def _post_chunk_services(self):
+        """NaN guard, timing print, job management (reference:
+        src/M2ulPhyS.cpp:2004-2177); the CFL dt was updated in the step."""
+        rc = self.config
+        self._drain_mcs_queue(int(rc.mcs_lag))
         if self.iter % rc.timing_freq == 0:
-            self._check_mcs()
             wall = _time.perf_counter() - self._wall0
             print(
                 f"time step: {self.iter}, physical time {float(self.time):.6e} s"
@@ -401,19 +445,20 @@ class CompressibleSolver(PlasmaSolver):
         if check_die_file(self.config.outdir):
             print("DIE file detected: exiting early (no checkpoint: "
                   "ROADMAP A4.1)", flush=True)
-            self._check_mcs()
+            self._drain_mcs_queue(0)
             self.status = STATUS_EARLY_EXIT
 
     def solve(self):
-        """Step loop (reference: M2ulPhyS::solve, src/M2ulPhyS.cpp:2137-2177)."""
+        """Chunked step loop (reference: M2ulPhyS::solve, the while loop at
+        src/M2ulPhyS.cpp:2137-2177)."""
         self.solve_begin()
         while self.iter < self.max_iters and self.status == 0:
-            with self.timers.section("solve/step"):
-                self.solve_step()
+            with self.timers.section("solve/chunk"):
+                self.solve_chunk(self._chunk_size())
         self.solve_end()
 
     def solve_end(self):
-        self._check_mcs()
+        self._drain_mcs_queue(0)
         if self.timers._acc:
             self.timers.summarize()
 
@@ -435,8 +480,11 @@ class CompressibleSolver(PlasmaSolver):
         return self.U.detach().cpu().numpy()
 
     def set_state_global(self, Ug):
-        self.U = torch.as_tensor(np.ascontiguousarray(Ug), dtype=self.dtype,
-                                 device=self.device)
+        """Copy Ug into the step loop's U (a captured step graph reads
+        that buffer)."""
+        self._loop.U.copy_(torch.as_tensor(np.ascontiguousarray(Ug),
+                                           dtype=self.dtype))
+        self.U = self._loop.U
 
 
 def _flow_solver_factory(config, tps=None):
