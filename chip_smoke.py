@@ -1,7 +1,8 @@
 """GPU smoke test of tps_torch: builds the CUDA kernels, checks each against
-its plain PyTorch version, drives the solver's CLI on two decks, checks
-the solver against plain RK4 loops and its step graph against eager
-steps, and times kernels, right-hand sides and steps through solve().
+its plain PyTorch version, drives the solver's CLI on three decks, checks
+the solver against plain RK4 loops, its step graph against eager steps
+and its checkpoints against straight runs, and times kernels, right-hand
+sides, steps through solve() and checkpoint I/O.
 
     python3 chip_smoke.py
 
@@ -12,8 +13,11 @@ launch counts set to 0 just before it and read just after:
   - the fused path: the flagship deck with the collocated Gauss-Legendre
     basis (basisType = 0, integrationRule = 0 added), K1 + K2;
   - the slot path: examples/cases/vortex3d_ns.ini as shipped (the
-    reference-default Gauss-Lobatto basis), the face sweep.
-Both run solve()'s chunked loop, each step a replay of the solver's
+    reference-default Gauss-Lobatto basis), the face sweep;
+  - the cylinder: examples/cases/cyl2d_ogrid.ini as shipped (curved
+    O-grid, isothermal wall, far field, checkpoint every 100 steps,
+    ParaView output), the face sweep on curved elements.
+Each runs solve()'s chunked loop, each step a replay of the solver's
 captured CUDA graph (tps_torch/solvers/step_graph.py); each kernel of a
 path must count 4 launches a step (RK4), those of the other path none.
 
@@ -42,6 +46,7 @@ from tps_torch.tools.face_prototype import cuda_ms
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 DECK = os.path.join(REPO, "examples", "cases", "vortex3d_ns.ini")
+CYL_DECK = os.path.join(REPO, "examples", "cases", "cyl2d_ogrid.ini")
 
 # kernel vs plain version, relative to max|plain|: the two sum the same
 # products in another order.  In f64 that is rounding (1e-11).  In f32 the
@@ -58,8 +63,10 @@ MCS_TOL_F64 = 1e-12
 FREESTREAM_TOL = 1e-5  # f32, 100 RK4 steps from a uniform state
 SOLVER_TOL = 1e-10  # f64, 20 fixed-dt steps, kernels vs plain RK4 loop
 # f64, the step graph against eager steps: the same kernels on the same
-# inputs, so equal up to the order of atomics (none on these paths)
+# inputs, so equal up to the order of atomics (none on these paths); a
+# restarted run against a straight one: the checkpoint holds every bit
 GRAPH_TOL = 1e-12
+RESTART_TOL = 1e-12
 PROTO_TOL = 1e-5  # the face-sweep prototype's own bar (f32)
 GLL = dict(basis="gauss-lobatto", quad_rule="gauss-lobatto")
 
@@ -72,6 +79,7 @@ PEAK_BYTES = 3.35e12
 # (Rusanov of both sides, plus for NS the two one-sided viscous fluxes),
 # K2's volume flux, K1's primitives
 FACE_OPS = {"euler": 105, "navier-stokes": 280}
+# 2-D: the same counts scaled by the equations (4 of 5), an estimate
 VOLUME_OPS = 125
 PRIM_OPS = 12
 
@@ -130,19 +138,23 @@ class Setup:
         return self._tables[key]
 
     @staticmethod
-    def ctx(eq_system, dim=3, walls_of=None):
+    def ctx(eq_system, dim=3, walls_of=None, transport="sutherland"):
         """RHS context; walls_of: tables whose every boundary patch gets an
-        inviscid wall."""
+        inviscid wall; transport: "sutherland" or "constant" (CONSTANT)."""
         from tps_torch.dg.bc import WallBC
         from tps_torch.dg.fluxes import Fluxes
         from tps_torch.dg.rhs import RHSContext, bc_slices
         from tps_torch.dg.riemann import Rusanov
         from tps_torch.physics.gas import DryAir
-        from tps_torch.physics.transport import DryAirTransport
+        from tps_torch.physics.transport import ConstantTransport, DryAirTransport
 
         mix = DryAir(dim=dim, nvel=dim)
-        tr = None if eq_system == "euler" else DryAirTransport(
-            mix.gas_constant, mix.specific_heat_ratio)
+        if eq_system == "euler":
+            tr = None
+        elif transport == "constant":
+            tr = ConstantTransport(**CONSTANT)
+        else:
+            tr = DryAirTransport(mix.gas_constant, mix.specific_heat_ratio)
         fl = Fluxes(mixture=mix, transport=tr, eq_system=eq_system)
         bcs = ()
         if walls_of is not None:
@@ -157,6 +169,11 @@ def rel(a, b):
 # (nx, ny, nz), order; 8x12x16 is non-cubic so a swapped axis shows up
 KERNEL_GRIDS = (((16, 16, 16), 2), ((24, 24, 24), 2), ((32, 32, 32), 2),
                 ((12, 12, 12), 3), ((8, 12, 16), 2))
+# constant transport (physics/transport.py::ConstantTransport): air's
+# Sutherland values at 300 K times 1000, the cylinder deck's viscosity
+# multiplier, so that the viscous terms weigh in the comparison
+CONSTANT = {"visc": 1.846e-2, "bulk_visc": 2.0e-3, "kappa": 26.2}
+CONSTANT_GRIDS = ((16, 16, 16), (8, 12, 16))
 
 
 def phase_kernels(setup, dev, grids=KERNEL_GRIDS):
@@ -166,15 +183,20 @@ def phase_kernels(setup, dev, grids=KERNEL_GRIDS):
     failures, main_err = [], {}
     for n, order in grids:
         tab = setup.tables(n, order)
-        for eq in ("euler", "navier-stokes"):
-            ctx = setup.ctx(eq)
+        cases = [("euler", None), ("navier-stokes", "sutherland")]
+        if n in CONSTANT_GRIDS:
+            cases.append(("navier-stokes", "constant"))
+        for eq, transport in cases:
+            ctx = setup.ctx(eq, transport=transport)
             rhs64 = build_cuda_fused(tab, ctx, torch.float64, dev)
             U64 = perturbed_U(ctx.mixture, tab.xyz_dof, torch.float64, dev)
             for dtype in (torch.float64, torch.float32):
                 rhs = rhs64 if dtype == torch.float64 else build_cuda_fused(
                     tab, ctx, dtype, dev)
                 res = compare_kernels(rhs, rhs64.plain, U64.to(dtype))
-                name = f"{n} p={order} {eq} {str(dtype)[6:]}"
+                name = (f"{n} p={order} {eq}"
+                        f"{' constant transport' if transport == 'constant' else ''}"
+                        f" {str(dtype)[6:]}")
                 bad = [k for k, v in res.items() if not v["ok"]]
                 log(f"  {name}: " + "; ".join(
                     f"{k} {v['vs_plain']:.3e}" + (
@@ -185,7 +207,8 @@ def phase_kernels(setup, dev, grids=KERNEL_GRIDS):
                     + (f"  FAIL {bad}" if bad else ""))
                 if bad:
                     failures.append(name)
-                if n == (16, 16, 16) and dtype == torch.float32 and rhs.viscous:
+                if (n == (16, 16, 16) and dtype == torch.float32
+                        and transport == "sutherland"):
                     main_err = {k: res[k]["max_abs"]
                                 for k in ("k1_gradient", "k2_faces_volume")}
     if failures:
@@ -349,19 +372,30 @@ FIXED_DT = "dt_fixed = 3e-06"
 CFL = "cfl = 0.12"
 
 
-def deck_solver(deck, name, dt_line, dtype, dev, perturb=True):
+def deck_solver(deck, name, dt_line, dtype, dev, perturb=True,
+                constant_transport=False):
     """A solver on the card through the harness, from `deck` with its
-    [time] line dt_line, in dtype; from perturbed_U where perturb."""
+    [time] line dt_line, in dtype; from perturbed_U where perturb; with
+    CONSTANT transport where constant_transport (the run configuration's
+    transport_model, which no ini key sets)."""
     from tps_torch import harness
 
     torch.set_default_dtype(dtype)
     os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
     path = os.path.join(REPO, "build", name + ".ini")
+    text = deck.format(dt=dt_line)
+    if constant_transport:
+        text += ("[plasma_models/transport_model/constant]\n"
+                 f"viscosity = {CONSTANT['visc']}\n"
+                 f"bulkViscosity = {CONSTANT['bulk_visc']}\n"
+                 f"thermalConductivity = {CONSTANT['kappa']}\n")
     with open(path, "w") as f:
-        f.write(deck.format(dt=dt_line))
+        f.write(text)
     tps = harness.Tps()
     tps.parse_command_line_args(["tps", "--runFile", path])
     tps.parse_input()
+    if constant_transport:
+        tps.config.transport_model = "constant"
     tps.choose_devices()
     tps.choose_solver()
     tps.initialize()
@@ -514,8 +548,11 @@ def phase_faces(setup, dev):
     main_err = None
     for n, order, basis, walls in FACE_GRIDS:
         tab_np = setup.tables(n, order, basis, walls)
-        for eq in ("euler", "navier-stokes"):
-            ctx = setup.ctx(eq, len(n), tab_np if walls else None)
+        cases = [("euler", None), ("navier-stokes", "sutherland")]
+        if walls and basis == "gll" and n in ((16, 16, 16), (32, 32)):
+            cases.append(("navier-stokes", "constant"))
+        for eq, transport in cases:
+            ctx = setup.ctx(eq, len(n), tab_np if walls else None, transport)
             tab64 = tab_np.to_torch(torch.float64, dev)
             tab32 = tab_np.to_torch(torch.float32, dev)
             sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
@@ -529,13 +566,14 @@ def phase_faces(setup, dev):
             dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
             ok = r64 <= TOL[torch.float64] and (
                 r32 <= TOL[torch.float32] or dk <= 2 * dp)
-            name = f"{n} p={order} {basis}{' walls' if walls else ''} {eq}"
+            name = (f"{n} p={order} {basis}{' walls' if walls else ''} {eq}"
+                    f"{' constant transport' if transport == 'constant' else ''}")
             log(f"  {name}: f64 {r64:.3e}; f32 {r32:.3e} (f64 dist: kernel "
                 f"{dk:.3e}, plain {dp:.3e})" + ("" if ok else "  FAIL"))
             if not ok:
                 failures.append(name)
-            if (n, basis, walls, eq) == ((16, 16, 16), "gll", False,
-                                         "navier-stokes"):
+            if (n, basis, walls, transport) == ((16, 16, 16), "gll", False,
+                                                "sutherland"):
                 main_err = float(torch.max(torch.abs(k32 - p32)))
     torch.cuda.synchronize()
     if failures:
@@ -603,6 +641,42 @@ def phase_walled_solver(dev):
     return s, U0
 
 
+def phase_constant_decks(dev):
+    """ROADMAP C1: Navier-Stokes decks with constant transport through the
+    solver on the card (f32, CFL, 8 steps): the fused 16^3 GL box on
+    K1+K2 and the walled 16^3 GLL box on the face sweep, 4 launches a
+    step through the step graph; the state finite and moved."""
+    from tps_torch.dg.cuda_fused import CudaFusedRHS
+    from tps_torch.dg.rhs import SlotRHS
+    from tps_torch.physics.transport import ConstantTransport
+
+    fused = SOLVER_DECK.replace("= 32\n", "= 16\n").replace(
+        "solver_check", "constant_fused")
+    walled = WALLED_DECK.replace("walled_check", "constant_walled")
+    for name, deck, kind, kernels in (
+            ("fused 16^3 GL", fused, CudaFusedRHS,
+             ("k1_gradient", "k2_faces_volume")),
+            ("walled 16^3 GLL", walled, SlotRHS, ("face_sweep",))):
+        s = deck_solver(deck, name.split()[0] + "_constant", CFL,
+                        torch.float32, dev, constant_transport=True)
+        s.config.max_iters = 8
+        U0 = s.U.clone()
+        reset_all_launches()
+        s.solve()
+        counts = all_launches()
+        moved = rel(s.U, U0)
+        ok = (isinstance(s._rhs, kind) and s._loop.graph is not None
+              and isinstance(s.ctx.fluxes.transport, ConstantTransport)
+              and all(counts[k] == 4 * s.iter for k in kernels)
+              and sum(counts.values()) == 4 * s.iter * len(kernels)
+              and bool(torch.isfinite(s.U).all()) and moved > 0)
+        log(f"  constant transport, {name}: {type(s._rhs).__name__}, "
+            f"{s.iter} steps, launches {counts}, moved {moved:.3e}"
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"constant-transport deck {name} failed")
+
+
 def graph_vs_eager(s, U0, dt0):
     """solve() from U0 at t = 0 and dt0, through the step graph and then
     eagerly: the relative differences of U, t and dt."""
@@ -640,6 +714,363 @@ def phase_graphs(dev, fixed):
         raise SystemExit(f"step graph vs eager failed: {failures}")
 
 
+# ---------------------------------------------------------------- cylinder
+
+
+def cylinder_checks(s, wake):
+    """The physics of tests/test_farfield_cyl.py:76-100 on the solver's
+    state: a velocity deficit near the cylinder, slow flow at the wall,
+    stagnation pressure above p_inf ahead of it, the far field near the
+    free stream.  The deficit is the test's (mean u over 0.5 < r < 1) or,
+    with `wake`, the wake's behind the cylinder (r < 1.5, x > 0, |y| <
+    0.5): after 200 steps the flow speeds up around the sides, and the
+    ring's mean is no longer a deficit.  Returns the four numbers; raises
+    if one misses."""
+    Up = s.mixture.primitives(s.U).double().cpu().numpy()
+    p = s.mixture.pressure(s.U).double().cpu().numpy()
+    xyz = np.asarray(s.tables_np.xyz_dof)
+    r = np.linalg.norm(xyz, axis=-1)
+    if wake:
+        near = (r < 1.5) & (xyz[..., 0] > 0) & (np.abs(xyz[..., 1]) < 0.5)
+    else:
+        near = (r > 0.5) & (r < 1.0)
+    wall = r < r.min() + 0.08
+    stag = (r < 0.75) & (xyz[..., 0] < 0) & (np.abs(xyz[..., 1]) < 0.25)
+    far = r > 6.0
+    got = {"u_near": float(Up[..., 1][near].mean()),
+           "speed_wall": float(np.linalg.norm(Up[..., 1:3], axis=-1)[wall].mean()),
+           "p_stagnation": float(p[stag].mean()),
+           "rho_far": float(Up[..., 0][far].mean())}
+    ok = (got["u_near"] < 0.7 * 33.3 and got["speed_wall"] < 0.5 * 33.3
+          and got["p_stagnation"] > 101300.0
+          and abs(got["rho_far"] - 1.2) < 0.05
+          and wall.any() and stag.any() and far.any())
+    log(f"  physics: mean u {'in the wake' if wake else 'for 0.5 < r < 1'} "
+        f"{got['u_near']:.3f} (< "
+        f"{0.7 * 33.3:.2f}); mean |u| at the wall {got['speed_wall']:.3f} (< "
+        f"{0.5 * 33.3:.2f}); stagnation p {got['p_stagnation']:.1f} (> 101300);"
+        f" far-field rho {got['rho_far']:.4f} (1.2 +- 0.05)")
+    if not ok:
+        raise SystemExit("cylinder deck: a physics check failed")
+    return got
+
+
+def phase_cylinder():
+    """The cylinder deck as shipped through the CLI (f32, CUDA, 200 steps):
+    the face sweep 4 times a step and K1/K2 never, every step a graph
+    replay, the checkpoint and the VTK file written, the checkpoint read
+    back bitwise (h5lite, and the solver's restart read), the physics."""
+    from tps_torch import harness
+    from tps_torch.io import h5lite
+
+    torch.set_default_dtype(torch.float32)
+    tps = harness.Tps()
+    tps.parse_command_line_args(["tps", "--runFile", CYL_DECK])
+    tps.parse_input()
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    s = tps.solver
+    out = s.config.outdir
+    ckpt = os.path.join(out, "restart_output.sol.h5")
+    vtk = os.path.join(out, f"solution_{s.max_iters:08d}.vtk")
+    for path in (ckpt, vtk):
+        if os.path.exists(path):
+            os.remove(path)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_launches()
+    if tps.get_status() != 0 or s.iter != 200:
+        raise SystemExit(f"cylinder deck: status {tps.get_status()}, "
+                         f"{s.iter} steps")
+    log(f"  {type(s._rhs).__name__}, {s.tables_np.ne} elements: {s.iter} "
+        f"steps in {wall:.2f} s (2 checkpoints, a VTK file); launches "
+        f"{counts}; step graph captured in {s._loop.capture_s:.3f} s, pool "
+        f"{s._loop.pool_bytes / 2**20:.1f} MiB")
+    if (counts["face_sweep"] != 4 * s.iter or counts["k1_gradient"]
+            or counts["k2_faces_volume"] or s._loop.graph is None):
+        raise SystemExit("cylinder deck: not 4 face-sweep launches a step "
+                         "through the graph, or K1/K2 launched")
+    U = s.state_global()
+    if not np.all(np.isfinite(U)):
+        raise SystemExit("cylinder deck: non-finite state")
+    f = h5lite.read(ckpt)
+    ne, ndof = U.shape[:2]
+    back = np.stack([f["solution"][n].reshape(ne, ndof) for n in
+                     ("density", "x-mom", "y-mom", "rho-E")], -1)
+    s.read_restart()
+    ok = (int(f.attrs["iteration"]) == 200 and os.path.getsize(vtk) > 0
+          and np.array_equal(back, U.astype(np.float64))
+          and np.array_equal(s.state_global(), U))
+    log(f"  {os.path.relpath(ckpt, REPO)} ({os.path.getsize(ckpt)} B) and "
+        f"{os.path.relpath(vtk, REPO)} ({os.path.getsize(vtk)} B) written; "
+        f"read back bitwise: {ok}")
+    if not ok:
+        raise SystemExit("cylinder deck: checkpoint or VTK file wrong")
+    physics = cylinder_checks(s, wake=True)
+    # the test's own configuration (8x32, 40 steps), its checks verbatim
+    t = deck_solver(annulus_deck(8, 32, 40, "cyl_test"), "cyl_test", "",
+                    torch.float32, torch.device("cuda", 0), perturb=False)
+    t.solve()
+    log(f"  tests/test_farfield_cyl.py's run (8x32, 40 steps):")
+    physics["test_config"] = cylinder_checks(t, wake=False)
+    return counts, physics
+
+
+def annulus_deck(nr, ntheta, iters, name, dt_line=""):
+    """The cylinder deck at nr x ntheta, iters steps, no VTK file, a
+    checkpoint only at the end, in build/<name>; dt_line replaces the CFL
+    line of [time] where given."""
+    with open(CYL_DECK) as f:
+        text = f.read()
+    for old, new in (("nr = 12", f"nr = {nr}"),
+                     ("ntheta = 48", f"ntheta = {ntheta}"),
+                     ("maxIters = 200", f"maxIters = {iters}"),
+                     ("outputFreq = 100", "outputFreq = 100000"),
+                     ("timingFreq = 20", "timingFreq = 100000"),
+                     ("enableParaview = 1", "enableParaview = 0"),
+                     ("outdirBase = output_cyl2d",
+                      f"outdirBase = build/{name}")):
+        if old not in text:
+            raise SystemExit(f"{CYL_DECK}: no '{old}'")
+        text = text.replace(old, new)
+    if dt_line:
+        text = text.replace("cfl = 0.15", dt_line)
+    return text.replace("{", "{{").replace("}", "}}") + "{dt}"
+
+
+FILE_CHANNEL = """
+[solver]
+type = flow
+[flow]
+mesh = {mesh}
+order = 2
+maxIters = {iters}
+timingFreq = 100000
+outputFreq = 100000
+fluid = dry_air
+equation_system = navier-stokes
+[time]
+integrator = rk4
+{{dt}}
+[initialConditions]
+rho = 1.2
+rhoU = 12.0
+rhoV = 0.
+rhoW = 0.
+pressure = 101300
+[boundaryConditions/inlet]
+patch = 1
+type = subsonic
+density = 1.2
+uvw = '10.0 0.0 0.0'
+[boundaryConditions/outlet]
+patch = 2
+type = nonReflectingPressure
+pressure = 101000
+[io]
+outdirBase = build/{name}
+""" + "".join(f"[boundaryConditions/wall{i}]\npatch = {i}\n"
+              f"type = {'viscous_isothermal' if i < 5 else 'slip'}\n"
+              + ("temperature = 300\n" if i < 5 else "")
+              for i in range(3, 7))
+
+
+def file_channel_deck(n, iters, name):
+    """A 3-D channel on the reference-default GLL basis read from an MFEM
+    file that box_3d(n) on [0,2]x[0,0.5]x[0,0.5] is written to: subsonic
+    inlet (x-min), nonReflectingPressure outlet (x-max), isothermal walls
+    (y), slip walls (z).  Returns the deck text and the generator's mesh."""
+    from tps_torch.mesh.generators import box_3d
+    from tps_torch.mesh.mfem_reader import write_mfem_mesh
+
+    mesh = box_3d(*n, bounds=((0.0, 2.0), (0.0, 0.5), (0.0, 0.5)))
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    path = os.path.join(REPO, "build", f"channel_{n[0]}x{n[1]}x{n[2]}.mesh")
+    write_mfem_mesh(path, mesh)
+    return FILE_CHANNEL.format(mesh=path, iters=iters, name=name), mesh, path
+
+
+def phase_annulus_faces(setup, dev):
+    """The face sweep against its plain version on the cylinder O-grid at
+    12x48 (shipped), 24x96 and 96x384, GL and GLL, and on a hex mesh read
+    from an MFEM file (box_3d 32x16x16 on the channel's box, GLL, read back
+    equal to the generator's mesh); f64 and f32 by the rule of TOL.  The
+    f32 kernel is timed (CUDA events and on the device) against the plain
+    version on the GL annulus at 24x96 and 96x384."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+    from tps_torch.dg.discretization import build_tables
+    from tps_torch.mesh.generators import annulus_2d
+    from tps_torch.mesh.mfem_reader import read_mfem_mesh
+
+    cases = [((nr, nth), basis) for nr, nth in ((12, 48), (24, 96), (96, 384))
+             for basis in ("gl", "gll")] + [("hex file 32x16x16", "gll")]
+    failures, timing = [], {}
+    for grid, basis in cases:
+        t0 = time.perf_counter()
+        if grid == "hex file 32x16x16":
+            _, mesh, path = file_channel_deck((32, 16, 16), 1, "faces")
+            back = read_mfem_mesh(path)
+            same = all(np.array_equal(getattr(back, k), getattr(mesh, k))
+                       for k in ("vertices", "elements", "bdr_faces",
+                                 "bdr_attrs")) and np.array_equal(
+                back.attributes(), mesh.attributes())
+            log(f"  {os.path.relpath(path, REPO)} read back equal to "
+                f"box_3d's mesh: {same}")
+            if not same:
+                failures.append("hex file read back")
+            mesh, walls = back, True
+        else:
+            mesh, walls = annulus_2d(*grid, r0=0.5, r1=8.0), True
+        tab_np = build_tables(mesh, 2, **({} if basis == "gl" else GLL))
+        name = f"{grid} p=2 {basis}"
+        ctx = setup.ctx("navier-stokes", mesh.dim, tab_np if walls else None)
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        tab32 = tab_np.to_torch(torch.float32, dev)
+        sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+        X64 = face_input(ctx, tab64, perturbed_U(
+            ctx.mixture, tab_np.xyz_dof, torch.float64, dev))
+        X32 = X64.float()
+        y64, p64 = sw64(X64), sw64.plain(X64)
+        r64 = rel(y64, p64)
+        k32, p32 = sw32(X32), sw32.plain(X32)
+        ref = sw64.plain(X32.double())
+        r32 = rel(k32, p32)
+        dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+        ok = r64 <= TOL[torch.float64] and (r32 <= TOL[torch.float32]
+                                            or dk <= 2 * dp)
+        log(f"  {name} ({tab_np.ne} elements, nqf {tab_np.nqf}, tables "
+            f"{time.perf_counter() - t0:.1f} s): f64 {r64:.3e}; f32 "
+            f"{r32:.3e} (f64 dist: kernel {dk:.3e}, plain {dp:.3e})"
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            failures.append(name)
+        if basis == "gl" and grid in ((24, 96), (96, 384)):
+            ms = [cuda_ms(lambda: sw32.plain(X32), 20), cuda_ms(lambda: sw32(X32), 50),
+                  cuda_ms(lambda: sw32(X32), 50), cuda_ms(lambda: sw32.plain(X32), 20)]
+            b = face_bound(tab_np, "navier-stokes", "gl", curved=True)
+            timing[f"annulus {grid[0]}x{grid[1]}"] = {
+                "ms": (ms[1] + ms[2]) / 2, "plain_ms": (ms[0] + ms[3]) / 2,
+                "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep"),
+                "f64_ms": cuda_ms(lambda: sw64(X64), 50),
+                "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+                "bytes_ms": b[3], "max_abs_err": float(torch.max(
+                    torch.abs(k32 - p32))), "turns": ms}
+            log(f"  timing {name} f32: {timing[f'annulus {grid[0]}x{grid[1]}']}")
+        del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"face sweep parity on curved / file meshes failed: "
+                         f"{failures}")
+    return timing
+
+
+def restart_pair(deck, name, half, dev, reseed):
+    """f64, step graphs: solver A runs `half` steps (its checkpoint copied
+    aside), re-seeds its characteristic ghosts where `reseed` (as a
+    restart read does) and runs `half` more; solver B reads the copy and
+    runs `half`.  Returns max|U_A - U_B| / max|U_A| and the t difference."""
+    import shutil
+
+    a = deck_solver(deck, name, "", torch.float64, dev, perturb=False)
+    a.config.max_iters = half
+    a.solve()  # ends with a checkpoint
+    src = os.path.join(a.config.outdir, "restart_output.sol.h5")
+    copy_dir = a.config.outdir + "_copy"
+    os.makedirs(copy_dir, exist_ok=True)
+    shutil.copy(src, os.path.join(copy_dir, "restart_output.sol.h5"))
+    if reseed:
+        from tps_torch.dg.rhs import init_bc_states
+
+        a._loop.load_bc_states(init_bc_states(a.ctx, a.tables, a._loop.U))
+    a.config.max_iters = 2 * half
+    a.solve()
+    b = deck_solver(deck, name + "_b", "", torch.float64, dev, perturb=False)
+    b.config.outdir = copy_dir
+    b.read_restart()
+    if b.iter != half:
+        raise SystemExit(f"{name}: the restart read iteration {b.iter}")
+    b.config.max_iters = 2 * half
+    b.solve()
+    if a._loop.graph is None or b._loop.graph is None:
+        raise SystemExit(f"{name}: the steps did not go through the graph")
+    return rel(b.U, a.U), abs(float(b.time) - float(a.time)) / float(a.time)
+
+
+def phase_restart(dev):
+    """A checkpoint continued on the card against a straight run (f64,
+    step graphs): the cylinder deck at 12x48, 2 x 10 steps, and the 3-D
+    file-mesh channel (8x4x4) with its nonReflectingPressure outlet, whose
+    ghosts the read re-seeds from the restored state (the straight run
+    re-seeds them at the same step)."""
+    cyl = annulus_deck(12, 48, 20, "restart_cyl")
+    chan, _, _ = file_channel_deck((8, 4, 4), 20, "restart_chan")
+    failures = []
+    for name, deck, reseed in (("cylinder 12x48", cyl, False),
+                               ("file channel 8x4x4", chan, True)):
+        dU, dt = restart_pair(deck, name.split()[0] + "_restart", 10, dev,
+                              reseed)
+        ok = dU <= RESTART_TOL and dt <= RESTART_TOL
+        log(f"  {name}: 10 + checkpoint + 10 vs 20 straight: U {dU:.3e}, "
+            f"t {dt:.3e} (bar {RESTART_TOL})" + ("" if ok else "  FAIL"))
+        if not ok:
+            failures.append(name)
+    if failures:
+        raise SystemExit(f"restart continuation failed: {failures}")
+
+
+def phase_stateful_graph(dev):
+    """The step graph against eager steps through solve() on the 3-D
+    file-mesh channel (8x4x4) with its nonReflectingPressure outlet: f64,
+    20 CFL steps; U, t and the outlet's ghost state."""
+    chan, _, _ = file_channel_deck((8, 4, 4), 20, "graph_chan")
+    out = {}
+    for graphs in (True, False):
+        s = deck_solver(chan, "graph_chan", "", torch.float64, dev)
+        s.cuda_graphs = graphs
+        s.solve()
+        ghost = [g.clone() for g in s._loop.bc_states if g is not None]
+        if len(ghost) != 1 or (s._loop.graph is not None) != graphs:
+            raise SystemExit("stateful channel: no ghost state, or the "
+                             "graph setting was not honoured")
+        out[graphs] = (s.U.clone(), ghost[0], float(s.time))
+    (Ug, gg, tg), (Ue, ge, te) = out[True], out[False]
+    d = (rel(Ug, Ue), rel(gg, ge), abs(tg - te) / abs(te))
+    ok = max(d) <= GRAPH_TOL
+    log(f"  file channel with a nonReflectingPressure outlet, 20 steps: "
+        f"graph vs eager U {d[0]:.3e}, ghost {d[1]:.3e}, t {d[2]:.3e} (bar "
+        f"{GRAPH_TOL})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("step graph vs eager with a stateful outlet failed")
+
+
+def phase_io_timing(s):
+    """Seconds of one checkpoint write and one read of solver s (f32 state,
+    stored in f64), best of three, and the file's bytes."""
+    from tps_torch.io.restart import RestartIO
+
+    io = RestartIO(s.config)
+    w, r = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        io.write(s)
+        w.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        io.read(s)
+        torch.cuda.synchronize()
+        r.append(time.perf_counter() - t0)
+    size = os.path.getsize(io.path())
+    res = {"write_s": min(w), "read_s": min(r), "bytes": size,
+           "write_turns": w, "read_turns": r}
+    log(f"  checkpoint of {s.tables_np.ne} elements p={s.config.order} "
+        f"({size} B): write {res['write_s']:.4f} s, read {res['read_s']:.4f}"
+        f" s (best of 3; turns {w}, {r})")
+    return res
+
+
 def phase_step_timing(cases, steps=32, profiled=16):
     """ms/step through solve() (f32), the step graph against eager steps,
     in turns eager, graph, chain, chain, graph, eager, `steps` steps a
@@ -647,10 +1078,13 @@ def phase_step_timing(cases, steps=32, profiled=16):
     RHS called in a bare loop with Python-float t and dt, as phase 10's
     chains, outside solve()); the device's busy share in a profiled
     chunk of `profiled` steps, graph and eager; the capture's wall time
-    and the graph pool's device memory."""
+    and the graph pool's device memory.  The checkpoints solve() writes
+    (every outputFreq and at its end) are left out: steps, not I/O (phase
+    16 times the I/O)."""
     out = {}
     for name, s in cases.items():
         s.config.timing_freq = 10**9  # no timing print inside the turns
+        s.write_restart = lambda: None
 
         def turn(graphs, n=steps):
             s.cuda_graphs = graphs
@@ -864,17 +1298,19 @@ def _fma_1d(A):
     return int(nz[~copy].sum())
 
 
-def tensor_fma(t, basis):
+def tensor_fma(t, basis, curved=False):
     """(trace, deriv): multiply-adds per channel of one face trace (or its
     transpose, the scatter to the nodes) and of the derivative along one
     axis at the nodes, on tables t of a box on `basis` ("gl" or "gll",
-    nodes and face points of that family)."""
+    nodes and face points of that family); `curved`: quads or hexes of any
+    shape (the trace is a reference-element operator all the same)."""
     from tps_torch.mesh.reference_element import (gauss_legendre_1d,
                                                   gauss_lobatto_1d,
                                                   lagrange_deriv, lagrange_eval)
 
     nor = np.abs(np.asarray(t.nor_slot))  # [ne, nlf, nqf, dim]
-    if np.any(np.count_nonzero(nor > 1e-12 * nor.max(), axis=-1) != 1):
+    if not curved and np.any(
+            np.count_nonzero(nor > 1e-12 * nor.max(), axis=-1) != 1):
         raise SystemExit("bounds: the box is not axis-aligned")
     rule = gauss_legendre_1d if basis == "gl" else gauss_lobatto_1d
     n1, dim = t.order + 1, t.dim
@@ -916,16 +1352,17 @@ def k2_bound(t, basis="gl", size=4):
     return bound(ops, nbytes)
 
 
-def face_bound(t, eq, basis, size=4):
+def face_bound(t, eq, basis, size=4, curved=False):
     """The face sweep on tables t: per interior slot the own traces of X's
     k channels and the scatter of neq, per interior face the flux.  X in,
     the result out, the normals, nbr_row, the mask and Btr_or."""
     ne, nd, nq, nlf, dim = t.ne, t.ndof, t.nqf, t.nlf, t.dim
     neq = dim + 2
     k = neq if eq == "euler" else neq * (1 + dim)
-    trace, _ = tensor_fma(t, basis)
+    trace, _ = tensor_fma(t, basis, curved)
     slots = int(np.count_nonzero(np.asarray(t.interior_mask)))
-    ops = 2 * slots * (k + neq) * trace + slots * nq * FACE_OPS[eq] // 2
+    ops = (2 * slots * (k + neq) * trace
+           + slots * nq * FACE_OPS[eq] * neq // 5 // 2)
     nbytes = (size * (ne * nd * k + ne * nd * neq + nlf * ne * nq * dim
                       + ne * nlf + t.n_combo * nq * nd) + 4 * ne * nlf)
     return bound(ops, nbytes)
@@ -1006,6 +1443,7 @@ def run(dev):
     log_phase("phase 3: face sweep vs plain versions (relative to "
               "max|plain|)")
     face_err, proto = phase_faces(setup, dev)
+    phase_constant_decks(dev)
     log_phase("phase 4: the fused path's CLI (flagship deck with the GL "
               "basis, 16^3 p=2 NS, RK4, f32)")
     counts, _, fused16 = phase_cli(flagship_deck(),
@@ -1023,6 +1461,7 @@ def run(dev):
     log_phase("phase 8: the step graph vs eager steps through solve() (f64)")
     phase_graphs(dev, fixed)
     del fixed
+    phase_stateful_graph(dev)
     log_phase("phase 9: timing K1/K2 (f32, NS, p=2)")
     timing = phase_timing(setup, dev)
     log_phase("phase 10: timing the slot path (f32, NS, 16^3 p=2)")
@@ -1031,13 +1470,41 @@ def run(dev):
               "(f32, NS, p=2, RK4)")
     walled_gl = WALLED_DECK.replace(
         "[flow]\n", "[flow]\nbasisType = 0\nintegrationRule = 0\n", 1)
+    fused32 = deck_solver(SOLVER_DECK, "fused32", CFL, torch.float32, dev)
     steps = phase_step_timing({
         "gll_deck 16^3": gll_deck,
         "walled_gl 16^3": deck_solver(walled_gl, "walled_gl", FIXED_DT,
                                       torch.float32, dev),
         "fused 16^3": fused16,
-        "fused 32^3": deck_solver(SOLVER_DECK, "fused32", CFL, torch.float32,
-                                  dev)})
+        "fused 32^3": fused32})
+    del gll_deck, fused16
+    log_phase("phase 12: the cylinder's CLI (cyl2d_ogrid.ini as shipped: "
+              "curved O-grid 12x48 p=2 GL NS, isothermal wall, far field, "
+              "RK4, f32, 200 steps)")
+    counts_cyl, cyl_physics = phase_cylinder()
+    log_phase("phase 13: face sweep vs plain on the O-grid (12x48, 24x96, "
+              "96x384; GL, GLL) and on a hex mesh read from an MFEM file")
+    annulus = phase_annulus_faces(setup, dev)
+    log_phase("phase 14: a checkpoint continued on the card vs a straight "
+              "run (f64, step graphs)")
+    phase_restart(dev)
+    log_phase("phase 15: ms/step through solve(), step graph vs eager, on "
+              "the cylinder (24x96, 96x384) and the 3-D file-mesh channel "
+              "(32x16x16 GLL, a nonReflectingPressure outlet) (f32, NS, "
+              "p=2, RK4)")
+    chan32, _, _ = file_channel_deck((32, 16, 16), 10**6, "chan32")
+    steps.update(phase_step_timing({
+        "cylinder 24x96": deck_solver(annulus_deck(24, 96, 10**6, "cyl24"),
+                                      "cyl24", "", torch.float32, dev,
+                                      perturb=False),
+        "cylinder 96x384": deck_solver(annulus_deck(96, 384, 10**6, "cyl96"),
+                                       "cyl96", "", torch.float32, dev,
+                                       perturb=False),
+        "file channel 32x16x16": deck_solver(chan32, "chan32", "",
+                                             torch.float32, dev)}))
+    log_phase("phase 16: checkpoint write and read, 32^3 p=2 (f32 state, "
+              "f64 file)")
+    io32 = phase_io_timing(fused32)
 
     t16 = timing[(16, 16, 16)]
     tab16 = setup.tables((16, 16, 16), 2)
@@ -1067,6 +1534,8 @@ def run(dev):
          "source": "tps_torch/csrc/face_sweep.cu",
          "replaces": "tools/pallas_face_prototype.py:102",
          "launches": counts_slot["face_sweep"],
+         "launches_by_path": {"vortex3d_ns.ini": counts_slot["face_sweep"],
+                              "cyl2d_ogrid.ini": counts_cyl["face_sweep"]},
          "max_abs_err": face_err,
          "ms": gll["face_sweep_ms"], "device_ms": gll["face_sweep_device_ms"],
          "plain_ms": gll["face_sweep_plain_ms"],
@@ -1089,6 +1558,12 @@ def run(dev):
         "launches_per_rhs", "profile")}
         for k, v in slot.items()})
     summary["solve() ms/step"] = steps
+    summary["face_sweep on the O-grid (GL, p=2, NS)"] = {
+        k: {kk: v[kk] for kk in ("ms", "device_ms", "plain_ms", "f64_ms",
+                                 "bound_ms", "bound_by", "max_abs_err")}
+        for k, v in annulus.items()}
+    summary["cylinder deck"] = {"launches": counts_cyl, **cyl_physics}
+    summary["checkpoint 32^3 p=2"] = io32
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

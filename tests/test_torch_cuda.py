@@ -1,6 +1,9 @@
 """The CUDA kernels K1/K2 and the face sweep == their plain PyTorch
 versions, on a GPU (K1 on its compressed folds against the dense plain
-gradient); the solver's step graph == its eager steps.
+gradient), with Sutherland and constant transport, on boxes, the curved
+cylinder O-grid and a hex mesh read from an MFEM file; the solver's step
+graph == its eager steps, with a characteristic outlet's ghost state in
+the loop's buffers; a checkpoint read on the card continues the run.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -31,7 +34,7 @@ from tps_torch.dg.rhs import RHSContext, bc_slices  # noqa: E402
 from tps_torch.dg.riemann import Rusanov  # noqa: E402
 from tps_torch.mesh.generators import box_2d, box_3d  # noqa: E402
 from tps_torch.physics.gas import DryAir  # noqa: E402
-from tps_torch.physics.transport import DryAirTransport  # noqa: E402
+from tps_torch.physics.transport import ConstantTransport, DryAirTransport  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -112,8 +115,9 @@ def test_wrapper_rejects_bad_input(device):
 # ---------------------------------------------------------------- face sweep
 
 
-def _face_case(n, order, eq_system, basis, dtype, device):
-    """Slot-mode sweep on a walled box and X = [U | G] from a seeded state."""
+def _face_case(n, order, eq_system, basis, dtype, device, transport=None):
+    """Slot-mode sweep on a walled box and X = [U | G] from a seeded state
+    (Sutherland transport unless `transport`)."""
     dim = len(n)
     kw = {} if basis == "gl" else dict(basis="gauss-lobatto",
                                        quad_rule="gauss-lobatto")
@@ -121,7 +125,7 @@ def _face_case(n, order, eq_system, basis, dtype, device):
             else box_2d(*n, periodic_x=False, periodic_y=False))
     tab_np = build_tables(mesh, order, **kw)
     mix = DryAir(dim=dim, nvel=dim)
-    tr = None if eq_system == "euler" else DryAirTransport(
+    tr = None if eq_system == "euler" else transport or DryAirTransport(
         mix.gas_constant, mix.specific_heat_ratio, bulk_visc_mult=0.3)
     fl = Fluxes(mixture=mix, transport=tr, eq_system=eq_system)
     bcs = bc_slices(tab_np.f_bdr_attr, lambda p: WallBC("inviscid"))
@@ -185,6 +189,72 @@ def test_face_sweep_periodic_edge_grids(device, n, basis, eq_system, dtype):
     X = X.contiguous()
     z = sweep(X)
     torch.cuda.synchronize()
+    assert _rel(z, sweep.plain(X)) <= TOL[dtype]
+
+
+CONSTANT = ConstantTransport(visc=1.8e-5, bulk_visc=2e-6, kappa=0.026)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_constant_transport_kernels_match_plain(device, dtype):
+    """K1+K2 and the face sweep with constant mu, bulk viscosity and kappa
+    (dg_pointwise.cuh::transport) against the plain version."""
+    mix = DryAir(dim=3, nvel=3)
+    fl = Fluxes(mixture=mix, transport=CONSTANT, eq_system="navier-stokes")
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    tab = build_tables(box_3d(5, 6, 7, periodic=(True, True, True)), 2)
+    rhs = build_cuda_fused(tab, ctx, dtype, device)
+    _, U = _setup((5, 6, 7), 2, "navier-stokes", dtype, device)
+    y, _ = rhs(U)
+    y_ref, _ = rhs.plain(U.reshape(rhs.ne, -1))
+    assert _rel(y, y_ref.reshape(U.shape)) <= TOL[dtype]
+    sweep, X = _face_case((3, 4, 5), 2, "navier-stokes", "gll", dtype, device,
+                          transport=CONSTANT)
+    assert _rel(sweep(X), sweep.plain(X)) <= TOL[dtype]
+
+
+def _curved_case(mesh, basis, dtype, device):
+    """Slot-mode NS sweep (Sutherland) on `mesh`, X from a seeded state."""
+    dim = mesh.dim
+    kw = {} if basis == "gl" else dict(basis="gauss-lobatto",
+                                       quad_rule="gauss-lobatto")
+    tab_np = build_tables(mesh, 2, **kw)
+    mix = DryAir(dim=dim, nvel=dim)
+    fl = Fluxes(mixture=mix, eq_system="navier-stokes", transport=DryAirTransport(
+        mix.gas_constant, mix.specific_heat_ratio))
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    rng = np.random.default_rng(2)
+    Up = np.empty(tab_np.xyz_dof.shape[:-1] + (dim + 2,))
+    Up[..., 0] = rng.uniform(1.0, 1.4, Up.shape[:-1])
+    Up[..., 1:1 + dim] = rng.uniform(-15.0, 15.0, Up.shape[:-1] + (dim,))
+    Up[..., dim + 1] = rng.uniform(280.0, 320.0, Up.shape[:-1])
+    tab = tab_np.to_torch(dtype, device)
+    U = mix.conservatives(torch.as_tensor(Up)).to(dtype=dtype, device=device)
+    G = dg_gradient(tab, mix.primitives(U)).reshape(U.shape[0], U.shape[1], -1)
+    return build_face_sweep(tab, ctx), torch.cat([U, G], -1).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("case", ["annulus_gl", "annulus_gll",
+                                  "annulus_geom3", "hex_file"])
+def test_face_sweep_on_curved_and_file_meshes(device, tmp_path, case, dtype):
+    """The cylinder O-grid's curved quads (per-point normals; the face rule
+    grows with the geometry order) and a hex mesh read from an MFEM file."""
+    from tps_torch.mesh.generators import annulus_2d
+    from tps_torch.mesh.mfem_reader import read_mfem_mesh, write_mfem_mesh
+
+    if case == "hex_file":
+        write_mfem_mesh(str(tmp_path / "box.mesh"), box_3d(4, 3, 5))
+        mesh, basis = read_mfem_mesh(str(tmp_path / "box.mesh")), "gll"
+    else:
+        mesh = annulus_2d(6, 24, r0=0.5, r1=8.0,
+                          geom_order=3 if case == "annulus_geom3" else 2)
+        basis = "gll" if case == "annulus_gll" else "gl"
+    sweep, X = _curved_case(mesh, basis, dtype, device)
+    cuda_faces.reset_launches()
+    z = sweep(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
     assert _rel(z, sweep.plain(X)) <= TOL[dtype]
 
 
@@ -328,7 +398,7 @@ density = 1.2
 uvw = '10.0 0.0 0.0'
 [boundaryConditions/outlet]
 patch = 2
-type = subsonicPressure
+type = {outlet}
 pressure = 101000
 [boundaryConditions/bottom]
 patch = 1
@@ -377,12 +447,13 @@ PER_STEP = {
     "fused": {"face_sweep": 0, "k1_gradient": 4, "k2_faces_volume": 4}}
 
 
-def _solver(tmp_path, deck, iters, fixed_dt, graphs):
+def _solver(tmp_path, deck, iters, fixed_dt, graphs, outlet="subsonicPressure",
+            outdir="out"):
     """A solver on the card in f64 from a seeded perturbed state."""
     from tps_torch import harness
 
     text = (CHANNEL_2D if deck == "channel" else FUSED_BOX).format(
-        iters=iters, outdir=tmp_path / "out",
+        iters=iters, outdir=tmp_path / outdir, outlet=outlet,
         dt=f"dt_fixed = {fixed_dt}" if fixed_dt else "")
     path = tmp_path / f"{deck}.ini"
     path.write_text(text)
@@ -457,10 +528,10 @@ def test_capture_with_host_sync_raises(device):
     back, and the capture counts no launch."""
     from tps_torch.solvers.step_graph import StepLoop
 
-    def body(U, t, dt):
+    def body(U, t, dt, bc):
         if float(U.sum()) < 0:  # a host read
             U = -U
-        return 2.0 * U, t + dt, dt, U.amax()
+        return 2.0 * U, t + dt, dt, U.amax(), bc
 
     counter = {"k": 0}
     lp = StepLoop(body, torch.ones(8, device=device), 0.5, counters=(counter,))
@@ -468,3 +539,50 @@ def test_capture_with_host_sync_raises(device):
         lp.run(2)
     assert lp.graph is None and counter == {"k": 0}
     torch.cuda.synchronize()
+
+
+def test_stateful_outlet_graph_matches_eager(device, f64, tmp_path):
+    """A nonReflectingPressure outlet, whose ghost state the step loop keeps
+    in its buffers: 20 steps through solve(), graph replays == eager steps
+    (1e-12 of max|U|), the ghosts too; the ghosts moved."""
+    out = {}
+    for graphs in (True, False):
+        s = _solver(tmp_path, "channel", 20, None, graphs,
+                    outlet="nonReflectingPressure")
+        g0 = [g.clone() for g in s._loop.bc_states if g is not None]
+        s.solve()
+        torch.cuda.synchronize()
+        assert (s._loop.graph is not None) == graphs
+        ghosts = [g.cpu().numpy() for g in s._loop.bc_states if g is not None]
+        assert len(ghosts) == 1 and np.max(np.abs(ghosts[0] - g0[0].cpu().numpy())) > 0
+        out[graphs] = (s.state_global(), ghosts[0], float(s.time))
+    (Ug, gg, tg), (Ue, ge, te) = out[True], out[False]
+    np.testing.assert_allclose(Ug, Ue, rtol=0, atol=1e-12 * np.max(np.abs(Ue)))
+    np.testing.assert_allclose(gg, ge, rtol=0, atol=1e-12 * np.max(np.abs(ge)))
+    np.testing.assert_allclose(tg, te, rtol=1e-12)
+
+
+@pytest.mark.parametrize("outlet", ["subsonicPressure", "nonReflectingPressure"])
+def test_restart_round_trip_on_cuda(device, f64, tmp_path, outlet):
+    """8 steps straight == 4 steps, a checkpoint, a fresh solver reading it
+    and 4 more (step graphs, f64, 1e-12); with a characteristic outlet the
+    straight run re-seeds its ghosts at step 4, as the read does."""
+    from tps_torch.dg.rhs import init_bc_states
+
+    import shutil
+
+    a = _solver(tmp_path, "channel", 8, None, True, outlet, "a")
+    a.config.max_iters = 4
+    a.solve()  # ends with a checkpoint
+    (tmp_path / "b").mkdir()
+    shutil.copy(tmp_path / "a" / "restart_output.sol.h5", tmp_path / "b")
+    a._loop.load_bc_states(init_bc_states(a.ctx, a.tables, a._loop.U))
+    a.config.max_iters = 8
+    a.solve()
+    b = _solver(tmp_path, "channel", 8, None, True, outlet, "b")
+    b.read_restart()
+    assert b.iter == 4
+    b.solve()
+    np.testing.assert_allclose(b.state_global(), a.state_global(), rtol=0,
+                               atol=1e-12 * np.max(np.abs(a.state_global())))
+    np.testing.assert_allclose(float(b.time), float(a.time), rtol=1e-12)

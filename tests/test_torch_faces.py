@@ -151,7 +151,7 @@ def _emulate(sw, X, prototype=None):
     nbr = sw.nbr_row.numpy().astype(np.int64)
     nor = sw.nor.double().numpy().reshape(-1)
     mask = np.ones((ne, nlf)) if sw.mask is None else sw.mask.double().numpy()
-    gamma, R, C1, S0, cp_pr, bulk_mult = list(sw.phys)
+    gamma, R, C1, S0, cp_pr, bulk_mult, const, mu0, bulk0, kap0 = list(sw.phys)
     E = cuda_faces.plan(ndof, nqf, nlf, k, neq, sw.Btr_or.dtype)[0]
     nt = -(-ne // E)
     pad = nt * E - ne  # the ragged last tile's empty slots
@@ -176,13 +176,18 @@ def _emulate(sw, X, prototype=None):
         rho = u[..., 0]
         vel = u[..., 1:1 + dim] / rho[..., None]
         T = (gamma - 1) / R * (u[..., dim + 1] / rho - 0.5 * np.sum(vel**2, -1))
-        mu = C1 * T * np.sqrt(T) / (T + S0)
+        if const:
+            one = np.ones_like(T)
+            mu, kap, bulk = mu0 * one, kap0 * one, (bulk0 - 2.0 / 3.0 * mu0) * one
+        else:
+            mu = C1 * T * np.sqrt(T) / (T + S0)
+            kap, bulk = cp_pr * mu, (bulk_mult - 2.0 / 3.0) * mu
         gv = g[..., 1:1 + dim, :]
         div = np.trace(gv, axis1=-2, axis2=-1)
         tau = (mu[..., None, None] * (gv + np.swapaxes(gv, -1, -2))
-               + ((bulk_mult - 2.0 / 3.0) * mu * div)[..., None, None] * np.eye(dim))
+               + (bulk * div)[..., None, None] * np.eye(dim))
         sn = np.einsum("...id,...d->...i", tau, n)
-        qn = cp_pr * mu * np.einsum("...d,...d->...", g[..., dim + 1, :], n)
+        qn = kap * np.einsum("...d,...d->...", g[..., dim + 1, :], n)
         return sn, np.sum(sn * vel, -1) + qn
 
     s, d = np.arange(nqf), np.arange(dim)
@@ -290,6 +295,38 @@ def test_kernel_algebra_matches_plain(n, order, eq_system, gll, walls):
     assert _rel(_emulate(sweep, X, prototype=True), z_plain) > 1e-6
 
 
+@pytest.mark.parametrize("geom_order,gll,transport", [
+    (2, False, "sutherland"), (2, True, "sutherland"), (3, False, "constant"),
+])
+def test_kernel_algebra_on_curved_annulus(geom_order, gll, transport):
+    """The kernel's algorithm (emulated) against the plain sweep on the
+    cylinder O-grid's curved quads (per-point normals, a face rule that
+    grows with the geometry order), Sutherland and constant transport."""
+    from tps_torch.mesh.generators import annulus_2d
+
+    tab_np = build_tables(annulus_2d(3, 12, r0=0.5, r1=4.0,
+                                     geom_order=geom_order), 2,
+                          **(GLL if gll else {}))
+    ctx = _ctx(2, "navier-stokes")
+    if transport == "constant":
+        fl = Fluxes(mixture=ctx.mixture, eq_system="navier-stokes",
+                    transport=ConstantTransport(1.8e-5, 2e-6, 0.026))
+        ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    assert face_sweep_supported(tab_np, ctx)
+    tab = tab_np.to_torch(torch.float64, "cpu")
+    rng = np.random.default_rng(3)
+    Up = np.empty(tab_np.xyz_dof.shape[:-1] + (4,))
+    Up[..., 0] = rng.uniform(1.0, 1.4, Up.shape[:-1])
+    Up[..., 1:3] = rng.uniform(-15.0, 15.0, Up.shape[:-1] + (2,))
+    Up[..., 3] = rng.uniform(280.0, 320.0, Up.shape[:-1])
+    U = ctx.mixture.conservatives(torch.as_tensor(Up))
+    G = dg_gradient(tab, ctx.mixture.primitives(U))
+    X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1).contiguous()
+    sweep = build_face_sweep(tab, ctx)
+    assert sweep.nqf == 2 + geom_order + gll  # the face rule grows
+    assert _rel(_emulate(sweep, X), sweep(X)) <= TOL
+
+
 def test_permuted_combos_match_plain():
     tab0 = build_tables(box_3d(3, 4, 5, periodic=(False,) * 3), 2, **GLL)
     tab_np = _permuted(tab0)
@@ -343,9 +380,12 @@ def test_gate_and_shared_memory_bound():
     tab = build_tables(box_3d(2, 2, 2, periodic=(False,) * 3), 2, **GLL)
     assert face_sweep_supported(tab, _ctx(3, "navier-stokes"))
     mix = DryAir(dim=3, nvel=3)
+    # constant transport is taken (dg_pointwise.cuh::transport); a gas
+    # with fewer velocities than dimensions is not
     fl = Fluxes(mixture=mix, transport=ConstantTransport(1e-5, 0.0, 0.02),
                 eq_system="navier-stokes")
-    assert not face_sweep_supported(tab, RHSContext(fluxes=fl, riemann=Rusanov(fl)))
+    assert face_sweep_supported(tab, RHSContext(fluxes=fl, riemann=Rusanov(fl)))
+    assert not face_sweep_supported(tab, _ctx(2, "navier-stokes"))
     # p=7 NS in f64 (ndof 512): one element's states need more than a
     # block's 227 KB: refused for CUDA; p=6 still fits, one element a block
     assert cuda_faces.plan(343, 81, 6, 20, 5, torch.float64)[0] == 1

@@ -201,7 +201,7 @@ def _emulate(rhs, U):
     """(G, y, per-element mcs) from the kernels' algorithm in numpy."""
     f = {k: getattr(rhs, k).numpy() for k in ("Vvol", "Btr", "Wscat", "nor")}
     geo = list(rhs.geo)
-    gamma, R, C1, S0, cp_pr, bulk_mult = list(rhs.phys)
+    gamma, R, C1, S0, cp_pr, bulk_mult, const, mu0, bulk0, kap0 = list(rhs.phys)
     U = U.numpy()
     ne = U.shape[0]
     nbr = _neighbors(geo, ne)
@@ -214,8 +214,12 @@ def _emulate(rhs, U):
         return rho, vel, p
 
     def mu_kap(T):
+        """mu, kappa and the bulk coefficient (bulk viscosity - 2/3 mu)."""
+        if const:
+            one = np.ones_like(T)
+            return mu0 * one, kap0 * one, (bulk0 - 2.0 / 3.0 * mu0) * one
         mu = C1 * T * np.sqrt(T) / (T + S0)
-        return mu, cp_pr * mu
+        return mu, cp_pr * mu, (bulk_mult - 2.0 / 3.0) * mu
 
     def tau(g, mu, bulk):
         gv = g[..., 1:4, :]  # [.., i, d]
@@ -252,8 +256,8 @@ def _emulate(rhs, U):
         p[..., None, None] * np.eye(3)
     F[..., 4, :] = vel * (Ut[..., 4] + p)[..., None]
     if Gp is not None:
-        mu, kap = mu_kap(p / rho / R)
-        t = tau(Gp, mu, (bulk_mult - 2.0 / 3.0) * mu)
+        mu, kap, bulk = mu_kap(p / rho / R)
+        t = tau(Gp, mu, bulk)
         F[..., 1:4, :] -= t
         F[..., 4, :] -= np.einsum("...id,...i->...d", t, vel) + \
             kap[..., None] * Gp[..., 4, :]
@@ -283,8 +287,8 @@ def _emulate(rhs, U):
                           (tn, np.einsum("sk,ekcd->escd", bn, G[nbrp[lf]][:, sn]))):
                 r, v, _ = prims(tr)
                 T = (gamma - 1) / R * (tr[..., 4] / r - 0.5 * np.sum(v**2, -1))
-                mu, kap = mu_kap(T)
-                t = tau(g, mu, (bulk_mult - 2.0 / 3.0) * mu)
+                mu, kap, bulk = mu_kap(T)
+                t = tau(g, mu, bulk)
                 taun = np.einsum("esid,sd->esi", t, n)
                 qn = kap * np.einsum("esd,sd->es", g[..., 4, :], n)
                 flux[..., 1:4] -= 0.5 * taun
@@ -317,6 +321,23 @@ def test_kernel_algebra_matches_plain(n, order, eq_system):
         G_plain = rhs.gradient(U).numpy()
         np.testing.assert_allclose(G, G_plain, rtol=TOL,
                                    atol=TOL * np.max(np.abs(G_plain)))
+
+
+def test_kernel_algebra_constant_transport():
+    """K1+K2's algorithm (emulated) with constant transport (the
+    transport switch of dg_pointwise.cuh) against the plain version."""
+    from tps_torch.physics.transport import ConstantTransport
+
+    tab, ctx, U = _port_setup((3, 4, 5), 2, "navier-stokes")
+    fl = Fluxes(mixture=ctx.mixture, eq_system="navier-stokes",
+                transport=ConstantTransport(1.8e-5, 2e-6, 0.026))
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    assert cuda_fusable(tab, ctx)
+    rhs = build_cuda_fused(tab, ctx, torch.float64, "cpu")
+    G, y, _mcs = _emulate(rhs, U)
+    y_plain, _ = rhs.faces_volume(U, rhs.gradient(U))
+    scale = float(torch.max(torch.abs(y_plain)))
+    np.testing.assert_allclose(y, y_plain.numpy(), atol=TOL * scale, rtol=TOL)
 
 
 def test_kernel_folds_shapes_and_gate():

@@ -83,14 +83,18 @@ def test_run_configuration_equal():
 
 
 def test_import_without_jax():
-    """The port imports with jax unavailable, and initializes no CUDA and
-    builds no kernel at import time."""
+    """The port imports with jax and h5py unavailable, and initializes no
+    CUDA and builds no kernel at import time."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['h5py'] = None\n"
         "import tps_torch, tps_torch.harness, tps_torch.dg.cuda_fused\n"
         "import tps_torch.solvers.compressible, tps_torch.dg.cuda_faces\n"
         "import tps_torch.dg.rhs, tps_torch.tools.face_prototype\n"
+        "import tps_torch.dg.bc, tps_torch.io.h5lite, tps_torch.io.restart\n"
+        "import tps_torch.io.visualization, tps_torch.mesh.mfem_reader\n"
+        "import tps_torch.mesh.refine\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"
@@ -101,3 +105,27 @@ def test_import_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_no_module_imports_jax_h5py_or_the_jax_package():
+    """No module of tps_torch, nor chip_smoke.py, imports jax, h5py or
+    anything of tps_tpu (read from their import statements)."""
+    import ast
+
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(os.path.join(REPO, "tps_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    bad = []
+    for path in paths:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(os.path.relpath(path, REPO), n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "h5py", "tps_tpu")]
+    assert len(paths) > 30 and not bad, bad

@@ -1,5 +1,6 @@
 // Pointwise DG physics shared by the Hopper kernels (fused_rhs.cu,
-// face_sweep.cu): DryAir primitives, Sutherland transport, the convective
+// face_sweep.cu): DryAir primitives, Sutherland or constant transport, the
+// convective
 // and one-sided viscous normal fluxes, and the Rusanov flux in its two
 // wave-speed forms.  Each is the device counterpart of the plain PyTorch
 // code its kernel is checked against (physics/gas.py, physics/transport.py,
@@ -18,9 +19,13 @@ struct Phys {
   double gamma, rgas;     // gas
   double c1, s0, cp_pr;   // Sutherland C1 * visc_mult, S0, cp / Pr
   double bulk_mult;       // bulk viscosity multiplier
+  bool constant;          // constant transport: the three values below
+  double mu0, bulk0, kap0;  // mu, bulk viscosity (before -2/3 mu), kappa
 };
 
-// `phys` holds gamma, R, C1*visc_mult, S0, cp/Pr, bulk_mult.
+// `phys` holds gamma, R, C1*visc_mult, S0, cp/Pr, bulk_mult, then the
+// transport switch (0 Sutherland, 1 constant) and the constant mu, bulk
+// viscosity and kappa (physics/transport.py::ConstantTransport).
 inline Phys make_phys(const double* p) {
   Phys ph;
   ph.gamma = p[0];
@@ -29,6 +34,10 @@ inline Phys make_phys(const double* p) {
   ph.s0 = p[3];
   ph.cp_pr = p[4];
   ph.bulk_mult = p[5];
+  ph.constant = p[6] != 0.0;
+  ph.mu0 = p[7];
+  ph.bulk0 = p[8];
+  ph.kap0 = p[9];
   return ph;
 }
 
@@ -38,12 +47,21 @@ __device__ __forceinline__ T nan_max(T a, T b) {
   return (b > a || b != b) ? b : a;
 }
 
-// Sutherland viscosity and conductivity.
+// Viscosity, conductivity and the Stokes-corrected bulk coefficient
+// (bulk viscosity - 2/3 mu) at temperature temp: Sutherland's law, or the
+// constant values.
 template <typename T>
-__device__ __forceinline__ void mu_kappa(T temp, const Phys& ph, T& mu,
-                                         T& kap) {
-  mu = T(ph.c1) * temp * sqrt(temp) / (temp + T(ph.s0));
-  kap = T(ph.cp_pr) * mu;
+__device__ __forceinline__ void transport(T temp, const Phys& ph, T& mu,
+                                          T& kap, T& bulk) {
+  if (ph.constant) {
+    mu = T(ph.mu0);
+    kap = T(ph.kap0);
+    bulk = T(ph.bulk0) - T(2) / T(3) * mu;
+  } else {
+    mu = T(ph.c1) * temp * sqrt(temp) / (temp + T(ph.s0));
+    kap = T(ph.cp_pr) * mu;
+    bulk = (T(ph.bulk_mult) - T(2) / T(3)) * mu;
+  }
 }
 
 // Convective flux of a conserved state along the (scaled) normal n, with
@@ -136,9 +154,8 @@ __device__ __forceinline__ void visc_dot_n(const T* u, const T* gt,
     v2 += vel[d] * vel[d];
   }
   const T temp = (T(ph.gamma) - T(1)) / T(ph.rgas) * (u[IE] / rho - T(0.5) * v2);
-  T mu, kap;
-  mu_kappa(temp, ph, mu, kap);
-  const T bulk = (T(ph.bulk_mult) - T(2) / T(3)) * mu;
+  T mu, kap, bulk;
+  transport(temp, ph, mu, kap, bulk);
   T div = T(0);
   for (int d = 0; d < DIM; ++d) div += gt[(1 + d) * DIM + d];
   T e = T(0);

@@ -452,9 +452,8 @@ k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
     }
     if constexpr (VISCOUS) {
       const T* g = sG + (size_t)i * NG;
-      T mu, kap;
-      mu_kappa(pr * inv / T(ph.rgas), ph, mu, kap);
-      const T bulk = (T(ph.bulk_mult) - T(2) / T(3)) * mu;
+      T mu, kap, bulk;
+      transport(pr * inv / T(ph.rgas), ph, mu, kap, bulk);
       const T div = g[1 * DIM + 0] + g[2 * DIM + 1] + g[3 * DIM + 2];
       for (int d = 0; d < 3; ++d) {
         T fe = T(0);
@@ -640,8 +639,8 @@ int dispatch_k2(const T* U, const T* G, const T* V, const T* B, const T* W,
 }  // namespace
 
 // Plain C interface for ctypes.  `geo` holds nz, ny, nx, then axis[6],
-// step[6], opp[6]; `phys` holds gamma, R, C1*visc_mult, S0, cp/Pr,
-// bulk_mult.  Each returns the cudaError_t of its launch.
+// step[6], opp[6]; `phys` as in dg_pointwise.cuh::make_phys.  Each
+// returns the cudaError_t of its launch.
 extern "C" {
 
 // K1: rows [ngroup][nrow], cols [ngroup][ncol], vals [ngroup][ncol][nrow]

@@ -44,7 +44,8 @@ import numpy as np
 import torch
 
 from .cuda_fused import (SHARED_LIMIT, _al4, _Library, build_kernels,
-                         kernel_phys, row_slot, support_values, tile_plan)
+                         kernel_phys, kernel_transport, row_slot,
+                         support_values, tile_plan)
 from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version)
 
 # kernel launches since the last reset_launches()
@@ -59,7 +60,8 @@ def reset_launches():
 def face_sweep_supported(tab_np, ctx) -> bool:
     """Preconditions of the kernel in slot mode: neighbor-slot tables,
     2-D or 3-D, DryAir with one velocity per dimension, Rusanov, Euler or
-    Navier-Stokes with Sutherland transport, planar, single device."""
+    Navier-Stokes with Sutherland or constant transport, planar, single
+    device."""
     t = tab_np
     if t.nbr_row is None or t.dim not in (2, 3):
         return False
@@ -75,7 +77,7 @@ def face_sweep_supported(tab_np, ctx) -> bool:
         return False
     if fl.eq_system not in ("euler", "navier-stokes"):
         return False
-    return fl.eq_system == "euler" or type(fl.transport).__name__ == "DryAirTransport"
+    return fl.eq_system == "euler" or kernel_transport(fl.transport)
 
 
 def plan(ndof, nqf, nlf, k, neq, dtype):
@@ -190,7 +192,7 @@ class CudaFaceSweep:
     nor_lf: int
     nor_e: int
     sign: float
-    phys: object  # ctypes double[6]
+    phys: object  # ctypes doubles: cuda_fused.kernel_phys
 
     @property
     def neq(self):
@@ -274,7 +276,7 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         ne=ne, ndof=tab.ndof, nqf=nqf, nlf=nlf, n_combo=tab.n_combo, dim=dim,
         viscous=viscous, prototype=False,
         nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0,
-        phys=(ctypes.c_double * 6)(*phys),
+        phys=(ctypes.c_double * len(phys))(*phys),
     )
 
 
@@ -302,5 +304,6 @@ def build_prototype_sweep(tab_np, dtype, device, gamma=1.4) -> CudaFaceSweep:
         nor=(wts[..., None] * nor).contiguous(), mask=None,
         ne=t.ne, ndof=t.ndof, nqf=t.nqf, nlf=t.nlf, n_combo=t.n_combo, dim=3,
         viscous=False, prototype=True, nor_lf=t.nqf * 3, nor_e=0, sign=1.0,
-        phys=(ctypes.c_double * 6)(gamma, 1.0, 0.0, 1.0, 0.0, 0.0),
+        phys=(ctypes.c_double * 10)(gamma, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0,
+                                    0.0, 0.0),
     )

@@ -39,7 +39,7 @@ PyTorch's current stream.  Nothing is built or loaded at import time.
 Preconditions (`cuda_fusable`): the fused-path preconditions (periodic
 roll topology, collocated GL basis, uniform affine elements, no BCs) plus
 3-D hexes, DryAir with 3 velocities, Rusanov, Euler or Navier-Stokes with
-Sutherland transport, and no forcings.  Any grid extents; ndof generic
+Sutherland or constant transport, and no forcings.  Any grid extents; ndof generic
 up to the shared memory of a block (dynamic, up to 227 KB): K1 follows
 `k1_plan`, K2 `k2_plan`, each with its folds or operators read through
 the cache where they do not fit beside one element.  build_cuda_fused
@@ -195,8 +195,7 @@ def cuda_fusable(tab_np, ctx) -> bool:
     eq = ctx.fluxes.eq_system
     if eq not in ("euler", "navier-stokes"):
         return False
-    tr = ctx.fluxes.transport
-    return eq == "euler" or type(tr).__name__ == "DryAirTransport"
+    return eq == "euler" or kernel_transport(ctx.fluxes.transport)
 
 
 def _al4(n):
@@ -275,17 +274,28 @@ def k2_plan(ndof, nqf, viscous, dtype):
     return tile_plan(nbytes)
 
 
+def kernel_transport(tr) -> bool:
+    """The transport models the kernels compute: Sutherland's law
+    (DryAirTransport) and constant coefficients (ConstantTransport)."""
+    return type(tr).__name__ in ("DryAirTransport", "ConstantTransport")
+
+
 def kernel_phys(ctx):
     """The kernels' physical constants (dg_pointwise.cuh::make_phys):
-    gamma, R, C1*visc_mult, S0, cp/Pr, bulk_mult (Euler: no transport)."""
+    gamma, R, C1*visc_mult, S0, cp/Pr, bulk_mult, then the transport switch
+    (1: constant) and the constant mu, bulk viscosity and kappa (Euler: no
+    transport)."""
     mix = ctx.mixture
     gamma, rgas = float(mix.specific_heat_ratio), float(mix.gas_constant)
     if ctx.fluxes.eq_system == "euler":
-        return [gamma, rgas, 0.0, 1.0, 0.0, 0.0]
+        return [gamma, rgas, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
     tr = ctx.fluxes.transport
+    if type(tr).__name__ == "ConstantTransport":
+        return [gamma, rgas, 0.0, 1.0, 0.0, 0.0, 1.0, float(tr.visc),
+                float(tr.bulk_visc), float(tr.kappa + tr.kappa_e)]
     return [gamma, rgas, float(tr.C1 * tr.visc_mult), float(tr.S0),
             gamma * rgas / (gamma - 1.0) / float(tr.Pr),
-            float(tr.bulk_visc_mult)]
+            float(tr.bulk_visc_mult), 0.0, 0.0, 0.0, 0.0]
 
 
 def kernel_folds(t):
@@ -399,7 +409,7 @@ class CudaFusedRHS:
     Wscat: torch.Tensor  # [nlf, ndof, nqf]
     nor: torch.Tensor  # [nlf, nqf, dim]
     geo: object  # ctypes int[21]: nz, ny, nx, axis[6], step[6], opp[6]
-    phys: object  # ctypes double[6]: gamma, R, C1*visc_mult, S0, cp/Pr, bulk
+    phys: object  # ctypes doubles: kernel_phys
 
     @property
     def ne(self):

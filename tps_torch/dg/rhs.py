@@ -13,9 +13,11 @@ dg/operators.py's `face_sweep_plain`, for CPU tensors; the boundary slots' BC
 fluxes, the gradient, the volume term and the inverse mass are plain
 PyTorch, as the JAX package leaves them to XLA.
 
+The characteristic BCs' ghost states (init_bc_states, advance_bc_states)
+are the JAX package's; the solver holds them in its step loop's buffers.
 Not ported here: forcings (ROADMAP A5), the sharded RHS and the legacy
-point-permutation branch (A8), boundary states in the gradient
-(useBCinGrad, A5) and the time-integrated characteristic BC states (A5).
+point-permutation branch (A8) and boundary states in the gradient
+(useBCinGrad, A5).
 """
 
 from __future__ import annotations
@@ -105,20 +107,13 @@ def _bc_runs(bcs, bc_states):
     return runs
 
 
-def boundary_face_sweep(ctx, tab, X, t=0.0, bc_states=None):
-    """The boundary slots' part of the face sweep (rhs.py:180-250 of the
-    JAX package): sum over boundary slots of Btr_lf^T (BC flux x weights),
-    [ne, ndof*neq], with the same sign as the interior sum (before the
-    face term's negation)."""
-    mix = ctx.mixture
-    neq, dim = mix.num_equations, tab.dim
+def _boundary_traces(tab, X):
+    """The own traces of X [ne, ndof, kx] at the boundary rows, in the
+    boundary-face order: ([nfb, nqf, kx], per local face (elements, rows)
+    or None)."""
     ne, ndof, kx = X.shape
-    nfi, nfb, nqf = tab.nfi, tab.nfb, tab.nqf
-    viscous = ctx.fluxes.eq_system != "euler"
     X2 = X.reshape(ne, ndof * kx)
-
-    # own traces of the boundary rows only, in the boundary-face order
-    own_b = torch.zeros((nfb, nqf * kx), dtype=X.dtype, device=X.device)
+    own_b = torch.zeros((tab.nfb, tab.nqf * kx), dtype=X.dtype, device=X.device)
     idx = []
     for lf in range(tab.nlf):
         if not tab.bdr_by_lf[lf][0]:
@@ -127,7 +122,20 @@ def boundary_face_sweep(ctx, tab, X, t=0.0, bc_states=None):
         els, rows = _bdr_index(tab, lf, X.device)
         own_b[rows] = X2[els] @ _trace_kron(tab, lf, kx, X)
         idx.append((els, rows))
-    own_b = own_b.reshape(nfb, nqf, kx)
+    return own_b.reshape(tab.nfb, tab.nqf, kx), idx
+
+
+def boundary_face_sweep(ctx, tab, X, t=0.0, bc_states=None):
+    """The boundary slots' part of the face sweep (rhs.py:180-250 of the
+    JAX package): sum over boundary slots of Btr_lf^T (BC flux x weights),
+    [ne, ndof*neq], with the same sign as the interior sum (before the
+    face term's negation)."""
+    mix = ctx.mixture
+    neq, dim = mix.num_equations, tab.dim
+    ne, ndof = X.shape[0], X.shape[1]
+    nfi, nfb, nqf = tab.nfi, tab.nfb, tab.nqf
+    viscous = ctx.fluxes.eq_system != "euler"
+    own_b, idx = _boundary_traces(tab, X)
     ULb = _clip_species(mix, own_b[..., :neq])
     gLb = (own_b[..., neq:].reshape(nfb, nqf, neq, dim) if viscous else None)
     UpLb = mix.primitives(ULb)
@@ -161,7 +169,8 @@ def compute_rhs(ctx: RHSContext, tab, U, t=0.0, fields=None, bc_states=None,
     """Return (dU/dt [ne, ndof, neq], aux) with aux["max_char_speed"].
 
     tab: the torch tables (DGTables.to_torch).  bc_states: tuple aligned
-    with ctx.bcs (None entries: every ported BC is stateless).  sweep: the
+    with ctx.bcs (None for a stateless BC, the ghost state of a
+    characteristic one).  sweep: the
     interior face sweep (dg/cuda_faces.py::CudaFaceSweep); None builds it
     from the tables, which raises for a CUDA tensor outside the kernel's
     preconditions."""
@@ -212,7 +221,8 @@ def compute_rhs(ctx: RHSContext, tab, U, t=0.0, fields=None, bc_states=None,
 @dataclass(eq=False)
 class SlotRHS:
     """The solver's right-hand side on the general (slot) path:
-    (U [ne, ndof, neq], t) -> (dU/dt, aux), carrying the per-BC state."""
+    (U [ne, ndof, neq], t) -> (dU/dt, aux).  bc_states: the per-BC states
+    it reads (the solver's step-loop buffers, updated in place)."""
 
     ctx: RHSContext
     tab: object  # torch tables
@@ -232,25 +242,61 @@ class SlotRHS:
 
 
 # ---------------------------------------------------------------------------
-# Persistent BC state (time-integrated characteristic ghosts, ROADMAP A5)
+# Persistent BC state (time-integrated characteristic ghosts)
 # ---------------------------------------------------------------------------
 
 def has_stateful_bcs(ctx: RHSContext) -> bool:
     return any(getattr(s.bc, "has_state", False) for s in ctx.bcs)
 
 
+def _boundary_interior_data(ctx: RHSContext, tab, U, need_grad):
+    """Interior traces at the boundary-face points (the JAX package's
+    rhs.py::_boundary_interior_data): (ULb [nfb, nqf, neq], UpLb, gLb
+    [nfb, nqf, neq, dim] or None, normals, weights x |n|)."""
+    mix = ctx.mixture
+    neq, dim = mix.num_equations, tab.dim
+    ne, ndof = U.shape[0], U.shape[1]
+    X = U
+    if need_grad:
+        grad = dg_gradient(tab, mix.primitives(_clip_species(mix, U)))
+        X = torch.cat([U, grad.reshape(ne, ndof, neq * dim)], dim=-1)
+    own_b, _ = _boundary_traces(tab, X.contiguous())
+    ULb = _clip_species(mix, own_b[..., :neq])
+    gLb = (own_b[..., neq:].reshape(tab.nfb, tab.nqf, neq, dim)
+           if need_grad else None)
+    norb = tab.f_nor[tab.nfi:]
+    wmagb = tab.f_wts[tab.nfi:] * torch.linalg.norm(norb, dim=-1)
+    return ULb, mix.primitives(ULb), gLb, norb, wmagb
+
+
 def init_bc_states(ctx: RHSContext, tab, U):
-    """Initial per-BC state tuple: None for each (stateless) BC."""
+    """The per-BC state tuple: None for a stateless BC, the interior trace
+    for a characteristic one (the ghost starts there)."""
     if not ctx.bcs:
         return ()
-    if has_stateful_bcs(ctx):
-        raise _not_ported("time-integrated characteristic BCs", "A5")
-    return tuple(None for _ in ctx.bcs)
+    if not has_stateful_bcs(ctx):
+        return tuple(None for _ in ctx.bcs)
+    ULb = _boundary_interior_data(ctx, tab, U, need_grad=False)[0]
+    return tuple(s.bc.init_state(ctx.mixture, ULb[s.start:s.stop]).clone()
+                 if getattr(s.bc, "has_state", False) else None
+                 for s in ctx.bcs)
 
 
 def advance_bc_states(ctx: RHSContext, tab, U, bc_states, dt):
-    """One step of every stateful BC's ghost state; stateless BCs keep
+    """One step of every stateful BC's ghost state from the state U after
+    the step (reference: the boundaryU integration inside computeBdrFlux,
+    src/outletBC.cpp:739+ / src/inletBC.cpp:756+); stateless BCs keep
     theirs."""
     if bc_states is None or not has_stateful_bcs(ctx):
         return bc_states
-    raise _not_ported("time-integrated characteristic BCs", "A5")
+    ULb, UpLb, gLb, norb, wmagb = _boundary_interior_data(ctx, tab, U,
+                                                          need_grad=True)
+    out = []
+    for i, s in enumerate(ctx.bcs):
+        if getattr(s.bc, "has_state", False):
+            sl = slice(s.start, s.stop)
+            out.append(s.bc.advance(ctx, bc_states[i], ULb[sl], UpLb[sl],
+                                    gLb[sl], norb[sl], wmagb[sl], dt))
+        else:
+            out.append(bc_states[i])
+    return tuple(out)

@@ -137,9 +137,11 @@ def main(argv=None):
     tps.choose_solver()
     tps.initialize()
     if tps._visual:
-        # visualization mode converts a checkpoint to VTK (reference:
-        # tps --visual, src/M2ulPhyS.cpp:4073): needs checkpoint I/O
+        # visualization mode: the checkpoint as a VTK file, no solve
+        # (reference: tps --visual, src/M2ulPhyS.cpp:4073)
         tps.solver.read_restart()
+        tps.solver.visualization()
+        return 0
     tps.solve()
     return tps.get_status()
 

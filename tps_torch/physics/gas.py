@@ -60,6 +60,16 @@ class DryAir:
     def temperature(self, U):
         return self.pressure(U) / (self.gas_constant * U[..., 0])
 
+    def sound_speed_from_T(self, T):
+        return torch.sqrt(self.specific_heat_ratio * self.gas_constant * T)
+
+    def pressure_derivative(self, dUp_dn, U):
+        """Directional pressure derivative from primitive gradients along
+        some direction (reference: DryAir::ComputePressureDerivative):
+        dp/dn = R (T drho/dn + rho dT/dn)."""
+        return self.gas_constant * (self.temperature(U) * dUp_dn[..., 0]
+                                    + U[..., 0] * dUp_dn[..., self.i_th])
+
     def modify_energy_for_pressure(self, U, p):
         """U with rhoE set so that its pressure is p (reference:
         DryAir::modifyEnergyForPressure, src/equation_of_state.cpp)."""

@@ -1,15 +1,18 @@
 """Compressible Navier-Stokes DG solver (the M2ulPhyS analog), PyTorch.
 
-This slice carries single-device runs on generated boxes (mesh
-generators), DryAir with Sutherland or constant transport, Rusanov,
-explicit RK, and two right-hand sides:
+This slice carries single-device runs on generated boxes and O-grids
+(mesh generators) and on MFEM / Gmsh mesh files (mesh/mfem_reader.py,
+with uniform refinement, [periodicity] and refLength scaling), DryAir with
+Sutherland or constant transport, Rusanov, explicit RK, and two
+right-hand sides:
 
 - the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
   CUDA device the two hand-written kernels of dg/cuda_fused.py, on the
   CPU their plain PyTorch version (dg/fused.py, also the 2-D case);
 - the general (slot) path, dg/rhs.py::SlotRHS, for everything else:
-  walls, inlets and outlets (dg/bc.py), and the reference-default
-  Gauss-Lobatto basis.  Its interior face sweep is the hand-written
+  walls, inlets, outlets and the far field (dg/bc.py, the characteristic
+  BCs' ghost states in the step loop's buffers), curved elements, and
+  the reference-default Gauss-Lobatto basis.  Its interior face sweep is the hand-written
   CUDA kernel of dg/cuda_faces.py on a CUDA device, the plain version on
   the CPU.
 
@@ -27,6 +30,11 @@ captured CUDA graph.  The NaN guard (reference: src/M2ulPhyS.cpp:
 2463-2525) checks every step's max characteristic speed, read from a
 device ring after each chunk, `time/mcsLagSteps` steps late, and all of
 it at a DIE file and at the end.
+
+Checkpoints (io/restart.py, the JAX package's layout through io/h5lite.py)
+are written every outputFreq, at a DIE file, before an auto-restart exit
+and at the end, and read at start-up with enableRestart / restartCycle;
+enableParaview writes a legacy VTK file at the end (io/visualization.py).
 """
 
 from __future__ import annotations
@@ -38,7 +46,7 @@ import torch
 
 from ..config.run_config import RunConfiguration
 from ..dg import cuda_faces, cuda_fused
-from ..dg.bc import InletBC, OutletBC, WallBC
+from ..dg import bc as bcs
 from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
@@ -47,6 +55,7 @@ from ..dg.fused import maybe_build_fused
 from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
                       init_bc_states)
 from ..dg.riemann import Rusanov
+from ..io.restart import RestartIO
 from ..mesh import generators
 from ..physics.gas import DryAir
 from ..physics.transport import ConstantTransport, DryAirTransport
@@ -56,6 +65,7 @@ from .base import SOLVER_REGISTRY, PlasmaSolver
 from .step_graph import RING, StepLoop
 
 STATUS_EARLY_EXIT = 10  # status of a run ended by a DIE file
+STATUS_JOB_RESTART = 20  # status of a run ended for a resubmission
 
 
 def _not_ported(what, item):
@@ -68,12 +78,20 @@ def _flag(gen, key):
 
 
 def _build_mesh(rc: RunConfiguration):
-    """Mesh from the [mesh] generator section (box2d / box3d)."""
+    """Mesh from the [mesh] generator section or a mesh file ([flow]/mesh,
+    with _apply_mesh_options and refLength scaling, as in the JAX
+    package's solvers/compressible.py:35-130)."""
     gen = rc.mesh_generator
     if not gen:
-        if rc.mesh:
-            raise _not_ported("reading mesh files ([flow]/mesh)", "A5")
-        raise ValueError("no mesh specified ([flow]/mesh or [mesh] generator)")
+        if not rc.mesh:
+            raise ValueError(
+                "no mesh specified ([flow]/mesh or [mesh] generator)")
+        from ..mesh.mfem_reader import read_mfem_mesh
+
+        mesh = _apply_mesh_options(read_mfem_mesh(rc.mesh), rc.raw)
+        if rc.ref_length != 1.0:
+            mesh = mesh.scaled(1.0 / rc.ref_length)
+        return mesh
     kind = gen.get("generator", "box2d")
     if kind == "box2d":
         return generators.box_2d(
@@ -99,20 +117,50 @@ def _build_mesh(rc: RunConfiguration):
             periodic=(_flag(gen, "periodic_x"), _flag(gen, "periodic_y"),
                       _flag(gen, "periodic_z")),
         )
-    if kind in ("box2d_tri", "annulus2d", "annulus"):
-        raise _not_ported(f"the '{kind}' mesh generator", "A5")
+    if kind in ("annulus2d", "annulus"):
+        # the curved O-grid around a cylinder (inner circle attribute 4,
+        # outer circle 2)
+        return generators.annulus_2d(
+            nr=int(gen.get("nr", 8)),
+            ntheta=int(gen.get("ntheta", 32)),
+            r0=float(gen.get("r0", 0.5)),
+            r1=float(gen.get("r1", 10.0)),
+            geom_order=int(gen.get("geom_order", 2)),
+        )
+    if kind == "box2d_tri":
+        raise _not_ported("triangles (the 'box2d_tri' mesh generator)",
+                          "A5.5")
     raise ValueError(f"unknown mesh generator '{kind}'")
+
+
+def _apply_mesh_options(mesh, raw):
+    """Uniform refinement and ini-driven periodicity for file meshes
+    (reference: [flow]/refinement_levels src/M2ulPhyS.cpp:350-357,2685
+    and [periodicity] :296-312,3806-3811); refinement before gluing."""
+    if raw is None:
+        return mesh
+    ref_levels = int(raw.get("flow/refinement_levels", 0) or 0)
+    if ref_levels > 0:
+        from ..mesh.refine import refine_uniform
+
+        mesh = refine_uniform(mesh, levels=ref_levels)
+    if raw.get("periodicity/enablePeriodic", 0):
+        from ..mesh.mesh import make_periodic
+
+        trans = []
+        for ax, key in enumerate(("xTrans", "yTrans", "zTrans")[: mesh.dim]):
+            vec = np.zeros(mesh.dim)
+            vec[ax] = float(raw.get(f"periodicity/{key}", 1.0e12))
+            trans.append(vec)
+        mesh = make_periodic(mesh, trans)
+    return mesh
 
 
 # input keys outside this slice: (ini key, what it enables, ROADMAP item)
 _UNPORTED_KEYS = (
-    ("io/enableRestart", "restart read", "A4.1"),
-    ("io/restartCycle", "restart read", "A4.1"),
     ("io/restartFromLTE", "LTE restart conversion", "A6"),
-    ("jobManagement/enableAutoRestart", "auto-restart checkpoints", "A4.1"),
     ("mesh/partitions", "domain decomposition", "A8"),
     ("io/enableHistory", "the history file", "A12"),
-    ("io/enableParaview", "ParaView output", "A12"),
     ("planeDump/isEnabled", "plane dumps", "A12"),
     ("flow/computeDistance", "wall distance", "A5"),
     ("flow/useMixingLength", "the mixing-length closure", "A5"),
@@ -125,10 +173,17 @@ _UNPORTED_KEYS = (
 )
 
 
-# boundary-condition types of this slice (dg/bc.py); the rest is A5
-_WALL_KINDS = ("inviscid", "slip", "viscous_adiabatic", "viscous_isothermal")
-_INLET_KINDS = ("subsonic",)
-_OUTLET_KINDS = ("subsonicPressure",)
+# boundary-condition types of this slice (dg/bc.py), as the JAX package's
+# solver names them (its _make_bc and _INLET_KINDS / _OUTLET_KINDS); the
+# interpolated inlet is A5
+_WALL_KINDS = ("inviscid", "slip", "viscous_adiabatic", "viscous_isothermal",
+               "viscous_general")
+_INLET_KINDS = ("subsonic", "subsonicFaceBasedX", "subsonicFaceBasedY",
+                "subsonicFaceBasedZ", "nonreflecting",
+                "nonreflectingConstEntropy")
+_OUTLET_KINDS = ("subsonicPressure", "nonReflectingPressure",
+                 "nonreflectingPressure", "nonReflectingMassFlow",
+                 "nonReflectingPointBasedMassFlow", "farfield")
 _BC_KINDS = _WALL_KINDS + _INLET_KINDS + _OUTLET_KINDS
 
 
@@ -145,8 +200,12 @@ def check_slice(rc: RunConfiguration):
     if rc.sgs_model != "none":
         raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5")
     for spec in rc.bcs:
+        if spec.kind == "interpolate":
+            raise _not_ported("the interpolated inlet (needs "
+                              "interop/ext_data.py)", "A5")
         if spec.kind not in _BC_KINDS:
-            raise _not_ported(f"boundary condition type '{spec.kind}'", "A5")
+            raise NotImplementedError(
+                f"boundary condition type '{spec.kind}'")
     if rc.avg_enabled:
         raise _not_ported("running statistics ([averaging])", "A12")
     raw = rc.raw
@@ -208,9 +267,15 @@ class CompressibleSolver(PlasmaSolver):
         self._report_bc_patches()
         self.ctx = RHSContext(fluxes=self.fluxes, riemann=self.riemann,
                               bcs=tuple(self.bc_slices))
-        print("flow: tps_torch writes no checkpoints yet (ROADMAP A4.1); "
-              "[flow] outputFreq is ignored", flush=True)
         self._initialize_state_and_loop()
+        # checkpoints are written every outputFreq whatever the keys, as
+        # in the reference (src/M2ulPhyS.cpp:1988,2041); enableRestart /
+        # restartCycle only read one at start-up (:1930-1946)
+        self._io = RestartIO(rc)
+        if rc.enable_restart or rc.restart_cycle:
+            self.read_restart()
+        self._enable_paraview = bool(
+            rc.raw.get("io/enableParaview", 0) if rc.raw is not None else 0)
 
     # ------------------------------------------------------------------
     def _build_physics(self, dim, nvel):
@@ -262,24 +327,62 @@ class CompressibleSolver(PlasmaSolver):
             lambda p: self._make_bc(specs[p]) if p in specs else None))
 
     def _make_bc(self, spec):
+        """The BC of a [boundaryConditions/...] section, in the order of
+        the JAX package's solvers/compressible.py:951-1104."""
         kind = spec.kind
         p = spec.params
+        nvel = self.mixture.nvel
 
         def fget(key, default=None):
             if key in p:
                 return float(str(p[key]).strip("'\""))
             return default
 
-        if kind in _WALL_KINDS:
-            return WallBC(kind=kind, wall_temp=fget("temperature", 300.0))
+        def uvw():
+            return [float(x) for x in
+                    str(p.get("uvw", "0 0 0")).strip().strip("'\"").split()]
+
+        if kind in ("inviscid", "slip", "viscous_adiabatic",
+                    "viscous_isothermal"):
+            return bcs.WallBC(kind=kind, wall_temp=fget("temperature", 300.0))
+        if kind == "viscous_general":
+            Th = fget("temperature", 300.0)
+            return bcs.GeneralWallBC(
+                heavy=str(p.get("heavy_thermal_condition", "isothermal")),
+                electron=str(p.get("electron_thermal_condition",
+                                   "isothermal")),
+                wall_temp=Th, wall_temp_e=fget("electron_temperature", Th))
         if kind == "subsonic":
-            rho = fget("density")
-            uvw = [float(x) for x in
-                   str(p.get("uvw", "0 0 0")).strip().strip("'\"").split()]
-            return InletBC(input_state=(rho, *uvw[: self.mixture.nvel]))
+            return bcs.InletBC(input_state=(fget("density"), *uvw()[:nvel]))
+        if kind in ("subsonicFaceBasedX", "subsonicFaceBasedY",
+                    "subsonicFaceBasedZ"):
+            return bcs.FaceInletBC(
+                input_state=(fget("density", 1.0), *uvw()[:2]),
+                tangent_axis={"X": 0, "Y": 1, "Z": 2}[kind[-1]])
+        if kind in ("nonreflecting", "nonreflectingConstEntropy"):
+            # time-integrated characteristic inlet (reference:
+            # SUB_DENS_VEL_NR / SUB_VEL_CONST_ENT, src/inletBC.cpp:756+)
+            return bcs.CharacteristicInletBC(
+                input_state=(fget("density", 1.0), *uvw()[:nvel]),
+                ref_length=self.config.ref_length,
+                const_entropy=(kind == "nonreflectingConstEntropy"))
+        if kind == "farfield":
+            return bcs.FarFieldBC(input_state=(
+                fget("density", 1.0), *uvw()[:nvel],
+                fget("pressure", 101325.0)))
         if kind == "subsonicPressure":
-            return OutletBC(pressure=fget("pressure"))
-        raise _not_ported(f"boundary condition type '{kind}'", "A5")
+            return bcs.OutletBC(pressure=fget("pressure"))
+        if kind in ("nonReflectingPressure", "nonreflectingPressure"):
+            return bcs.CharacteristicOutletBC(
+                kind="nonReflectingPressure", pressure=fget("pressure"),
+                ref_length=self.config.ref_length)
+        if kind in ("nonReflectingMassFlow",
+                    "nonReflectingPointBasedMassFlow"):
+            return bcs.CharacteristicOutletBC(
+                kind=kind, mass_flow=fget("massFlow"),
+                area=fget("area", self._patch_area(spec)),
+                ref_length=self.config.ref_length)
+        raise NotImplementedError(f"boundary condition type '{kind}'")
 
     def _report_bc_patches(self):
         """Per-patch surface area / face-count report at BC init, matching
@@ -316,8 +419,7 @@ class CompressibleSolver(PlasmaSolver):
         self._integrator = get_integrator(rc.integrator)
         self._cfl_mode = not (rc.constant_dt or rc.dt_fixed > 0)
         self._rhs = self._build_rhs()
-        if self.ctx.bcs:
-            self._rhs.bc_states = init_bc_states(self.ctx, self.tables, U)
+        bc_states = init_bc_states(self.ctx, self.tables, U)
 
         # initial dt (reference: M2ulPhyS::initialTimeStep)
         if rc.dt_fixed > 0:
@@ -326,10 +428,13 @@ class CompressibleSolver(PlasmaSolver):
             mcs0 = float(torch.amax(self.mixture.max_char_speed(U)))
             dt = rc.cfl * self.hmin / mcs0 / dim
 
-        # U, time and dt are the step loop's buffers from here on
-        self._loop = StepLoop(self._step_body, U, dt,
+        # U, time, dt and the BC ghost states are the step loop's buffers
+        # from here on; the RHS reads the ghost states there
+        self._loop = StepLoop(self._step_body, U, dt, bc_states,
                               counters=(cuda_fused.launches,
                                         cuda_faces.launches))
+        if self.ctx.bcs:
+            self._rhs.bc_states = self._loop.bc_states
         self.U, self.time, self.dt = self._loop.U, self._loop.t, self._loop.dt
         # (iteration of a chunk's last step, its max char speeds on the
         # host, the event that says they have arrived), oldest first
@@ -351,28 +456,25 @@ class CompressibleSolver(PlasmaSolver):
         return mix.conservatives(Up).to(self.dtype)
 
     # ------------------------------------------------------------------
-    def _step_body(self, U, t, dt):
+    def _step_body(self, U, t, dt, bc_states):
         """One step, the body of the JAX chunk's scan (tps_tpu
         solvers/compressible.py:709-717): the integrator's stages on the
-        RHS's own layout, t + dt, and in CFL mode the next dt from this
-        step's max char speed.  Returns (U, t, dt, mcs), all on the
-        device; captured as the step graph on CUDA, so no host sync."""
+        RHS's own layout (which read the ghost states bc_states), the
+        ghosts advanced once from the new state (:674-676), t + dt, and
+        in CFL mode the next dt from this step's max char speed.  Returns
+        (U, t, dt, mcs, bc_states), all on the device; captured as the
+        step graph on CUDA, so no host sync."""
         r = self._rhs
         U2, aux = self._integrator(r, r.to_fused(U), t, dt)
         U2 = r.from_fused(U2)
-        if self.ctx.bcs:
-            # the BC ghost states advance once per step, after the stages
-            # (tps_tpu solvers/compressible.py:674-676); every ported BC
-            # is stateless, so this keeps the tuple of None
-            r.bc_states = advance_bc_states(self.ctx, self.tables, U2,
-                                            r.bc_states, dt)
+        bc2 = advance_bc_states(self.ctx, self.tables, U2, bc_states, dt)
         mcs = aux["max_char_speed"]
         if self._cfl_mode:
             rc = self.config
             dt2 = rc.cfl * self.hmin / mcs / self.mesh.dim
         else:
             dt2 = dt
-        return U2, t + dt, dt2, mcs
+        return U2, t + dt, dt2, mcs, bc2
 
     def solve_step(self):
         """One time step + dt update + guards (reference: solveStep :2004)."""
@@ -380,12 +482,12 @@ class CompressibleSolver(PlasmaSolver):
 
     def _chunk_size(self):
         """Steps to run before the next service boundary (timing print,
-        exit check, the end): a power of two up to 64, as in the JAX
-        solver (tps_tpu solvers/compressible.py:1271-1298), where
-        `outputFreq` binds only once restart I/O exists (ROADMAP A4.1)."""
+        checkpoint, exit check, the end): a power of two up to 64, as in
+        the JAX solver (tps_tpu solvers/compressible.py:1271-1298)."""
         rc = self.config
         bounds = [self.max_iters - self.iter]
-        for freq in (rc.timing_freq, max(rc.exit_check_freq, 1)):
+        for freq in (rc.timing_freq, rc.output_freq,
+                     max(rc.exit_check_freq, 1)):
             bounds.append(freq - self.iter % freq)
         n = min(min(bounds), RING)
         chunk = 1
@@ -424,7 +526,7 @@ class CompressibleSolver(PlasmaSolver):
                     f"{self.iter}, t={float(self.time):.6e})")
 
     def _post_chunk_services(self):
-        """NaN guard, timing print, job management (reference:
+        """NaN guard, timing print, checkpoint, job management (reference:
         src/M2ulPhyS.cpp:2004-2177); the CFL dt was updated in the step."""
         rc = self.config
         self._drain_mcs_queue(int(rc.mcs_lag))
@@ -436,17 +538,32 @@ class CompressibleSolver(PlasmaSolver):
                 flush=True,
             )
             self._wall0 = _time.perf_counter()
+        if self.iter % rc.output_freq == 0:
+            # the NaN guard first: a checkpoint never stores a NaN state
+            self._drain_mcs_queue(0)
+            with self.timers.section("io/restart"):
+                self.write_restart()
         if self.iter % max(rc.exit_check_freq, 1) == 0:
             self._job_management()
 
     def _job_management(self):
-        from ..utils.job_management import check_die_file
+        """A DIE file: checkpoint and exit early; the walltime threshold
+        with enableAutoRestart: checkpoint and exit for a resubmission
+        (reference: src/M2ulPhyS.cpp:2160-2177)."""
+        from ..utils.job_management import check_die_file, job_almost_done
 
-        if check_die_file(self.config.outdir):
-            print("DIE file detected: exiting early (no checkpoint: "
-                  "ROADMAP A4.1)", flush=True)
+        rc = self.config
+        if check_die_file(rc.outdir):
+            print("DIE file detected: exiting early", flush=True)
             self._drain_mcs_queue(0)
+            self.write_restart()
             self.status = STATUS_EARLY_EXIT
+        elif rc.enable_auto_restart and job_almost_done(rc.rm_threshold):
+            print("walltime threshold reached: checkpoint + resubmit",
+                  flush=True)
+            self._drain_mcs_queue(0)
+            self.write_restart()
+            self.status = STATUS_JOB_RESTART
 
     def solve(self):
         """Chunked step loop (reference: M2ulPhyS::solve, the while loop at
@@ -459,8 +576,45 @@ class CompressibleSolver(PlasmaSolver):
 
     def solve_end(self):
         self._drain_mcs_queue(0)
+        self.write_restart()
+        if self._enable_paraview:
+            self.visualization()
         if self.timers._acc:
             self.timers.summarize()
+
+    # ------------------------------------------------------------------
+    def write_restart(self):
+        self._io.write(self)
+
+    def read_restart(self):
+        """The checkpoint's state, t and dt into the step loop's buffers,
+        and the characteristic ghosts re-seeded from the restored state,
+        as the JAX solver does (tps_tpu solvers/compressible.py:1694-1702)."""
+        self._io.read(self)
+        if any(b is not None for b in self._loop.bc_states):
+            self._loop.load_bc_states(
+                init_bc_states(self.ctx, self.tables, self._loop.U))
+
+    def visualization(self):
+        """The state as a ParaView-readable VTK file (the reference's
+        paraviewColl->Save() and `tps --visual`); returns its path."""
+        import os
+
+        from ..io.visualization import write_vtk_dg
+
+        if self.config.postprocess is not None:
+            raise _not_ported("the --visual snapshot series "
+                              "([post-process/visualization])", "A12")
+        mix = self.mixture
+        Up = mix.primitives(self.U).cpu().numpy()
+        fields = {"density": Up[..., 0],
+                  "velocity": Up[..., 1 : 1 + mix.nvel],
+                  "temperature": Up[..., mix.i_th],
+                  "pressure": mix.pressure(self.U).cpu().numpy()}
+        path = os.path.join(self.config.outdir,
+                            f"solution_{self.iter:08d}.vtk")
+        write_vtk_dg(path, self.tables_np, fields)
+        return path
 
     # ------------------------------------------------------------------
     def check_nan(self, verbose=False) -> int:
@@ -472,8 +626,9 @@ class CompressibleSolver(PlasmaSolver):
             print(f"found {bad} non-finite state entries; first: {el.tolist()}")
         return bad
 
-    def read_restart(self):
-        raise _not_ported("restart read", "A4.1")
+    @property
+    def ne_global(self):
+        return self.tables_np.ne
 
     def state_global(self):
         """Conserved state [ne, ndof, neq] as numpy."""
@@ -485,6 +640,12 @@ class CompressibleSolver(PlasmaSolver):
         self._loop.U.copy_(torch.as_tensor(np.ascontiguousarray(Ug),
                                            dtype=self.dtype))
         self.U = self._loop.U
+
+    def set_time(self, t, dt):
+        """Copy t and dt into the step loop's buffers."""
+        self._loop.t.fill_(float(t))
+        self._loop.dt.fill_(float(dt))
+        self.time, self.dt = self._loop.t, self._loop.dt
 
 
 def _flow_solver_factory(config, tps=None):

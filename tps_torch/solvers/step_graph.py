@@ -7,9 +7,11 @@ host launches one graph per step instead of the ~250 operations of a
 slot-path RHS times the RK stages.  One graph of one step, replayed n
 times, serves every chunk length with one memory pool.
 
-`StepLoop` keeps the step's state in static buffers (U, t, dt and a ring
-of the last RING steps' max characteristic speed) and runs
-`body(U, t, dt) -> (U', t', dt', mcs)` on them in place:
+`StepLoop` keeps the step's state in static buffers (U, t, dt, the
+boundary conditions' ghost states and a ring of the last RING steps' max
+characteristic speed) and runs
+`body(U, t, dt, bc) -> (U', t', dt', mcs, bc')` on them in place (bc: a
+tuple with a tensor for each stateful BC, None for the others):
 
 - on the CPU, and on CUDA when the caller turns graphs off, the body
   runs eagerly;
@@ -30,8 +32,9 @@ capture added back off and adds it again at every replay: the counts stay
 launches.
 
 Whatever the body changes between steps must live in these buffers: a
-graph replays the capture's addresses, never a Python rebinding.  The
-stateful BCs (ROADMAP A5) will add their ghost states here.
+graph replays the capture's addresses, never a Python rebinding.  So the
+BC ghost states are buffers too: the RHS reads `bc_states` (the same
+tensors), the body returns the new states and the step copies them in.
 """
 
 from __future__ import annotations
@@ -44,14 +47,17 @@ RING = 64  # the longest chunk (the JAX solver's, _chunk_size)
 
 
 class StepLoop:
-    """Static buffers U, t, dt, ring; `run(n)` advances them n steps."""
+    """Static buffers U, t, dt, BC states, ring; `run(n)` advances them n
+    steps."""
 
-    def __init__(self, body, U, dt, counters=()):
+    def __init__(self, body, U, dt, bc_states=(), counters=()):
         self.body = body
         self.U = U.detach().clone().contiguous()
         kw = {"dtype": self.U.dtype, "device": self.U.device}
         self.t = torch.zeros((), **kw)
         self.dt = torch.full((), float(dt), **kw)
+        self.bc_states = tuple(None if b is None else b.detach().clone()
+                               for b in bc_states)
         self.ring = torch.zeros(RING, **kw)
         self.counters = counters
         self.graph = None
@@ -70,8 +76,15 @@ class StepLoop:
             else:
                 buf.fill_(float(v))
 
+    def load_bc_states(self, bc_states):
+        """Copy new BC ghost states into the buffers (set-up, restart)."""
+        for buf, v in zip(self.bc_states, bc_states):
+            if buf is not None:
+                buf.copy_(v)
+
     def _step(self):
-        U, t, dt, mcs = self.body(self.U, self.t, self.dt)
+        U, t, dt, mcs, bcs = self.body(self.U, self.t, self.dt, self.bc_states)
+        self.load_bc_states(bcs)
         self.U.copy_(U)
         self.t.copy_(t)
         if dt is not self.dt:
