@@ -16,7 +16,11 @@ launch counts set to 0 just before it and read just after:
     reference-default Gauss-Lobatto basis), the face sweep;
   - the cylinder: examples/cases/cyl2d_ogrid.ini as shipped (curved
     O-grid, isothermal wall, far field, checkpoint every 100 steps,
-    ParaView output), the face sweep on curved elements.
+    ParaView output), the face sweep on curved elements;
+  - the argon plasma: examples/cases/argon_plasma_2d.ini as shipped (2-D
+    periodic 6x6 p=1 GLL, the two-temperature ambipolar Ar/Ar+/e mixture
+    with collision-integral transport and chemistry), the face sweep on
+    the mixture.
 Each runs solve()'s chunked loop, each step a replay of the solver's
 captured CUDA graph (tps_torch/solvers/step_graph.py); each kernel of a
 path must count 4 launches a step (RK4), those of the other path none.
@@ -47,6 +51,9 @@ from tps_torch.tools.face_prototype import cuda_ms
 REPO = os.path.dirname(os.path.abspath(__file__))
 DECK = os.path.join(REPO, "examples", "cases", "vortex3d_ns.ini")
 CYL_DECK = os.path.join(REPO, "examples", "cases", "cyl2d_ogrid.ini")
+ARGON_DECK = os.path.join(REPO, "examples", "cases", "argon_plasma_2d.ini")
+ARGON_GOLDEN = os.path.join(REPO, "tests", "ref_solns",
+                            "argon_minimal.4iters.h5")
 
 # kernel vs plain version, relative to max|plain|: the two sum the same
 # products in another order.  In f64 that is rounding (1e-11).  In f32 the
@@ -68,6 +75,12 @@ SOLVER_TOL = 1e-10  # f64, 20 fixed-dt steps, kernels vs plain RK4 loop
 GRAPH_TOL = 1e-12
 RESTART_TOL = 1e-12
 PROTO_TOL = 1e-5  # the face-sweep prototype's own bar (f32)
+# the argon deck's checkpoint after 4 steps against the committed golden:
+# tests/test_statistics_restart.py:183-186's soln_differ flags (absolute
+# on rho and the momenta, relative on rho-E and the species)
+GOLDEN_TOL = {"density": (2e-10, False), "x-mom": (2e-8, False),
+              "y-mom": (2e-8, False), "rho-E": (1e-11, True),
+              "rho-Y_Ar.+1": (1e-9, True)}
 GLL = dict(basis="gauss-lobatto", quad_rule="gauss-lobatto")
 
 # the least time the card could take (bound_ms): NVIDIA H100 SXM peaks
@@ -79,6 +92,14 @@ PEAK_BYTES = 3.35e12
 # (Rusanov of both sides, plus for NS the two one-sided viscous fluxes),
 # K2's volume flux, K1's primitives
 FACE_OPS = {"euler": 105, "navier-stokes": 280}
+# the argon plasma's face flux per point in 2-D, counted the same way from
+# csrc/dg_mixture.cuh (a comparison, pow, log and log1p one operation
+# each): per side the convective flux with |u| + c (67) and the viscous
+# flux with the collision-integral transport (563: state 37, the
+# third-order electron conductivity 200, the ambipolar diffusion
+# velocities 136), per point the Rusanov combination and the viscous mean
+# (55)
+MIX_FACE_OPS = 2 * (67 + 563) + 55
 # 2-D: the same counts scaled by the equations (4 of 5), an estimate
 VOLUME_OPS = 125
 PRIM_OPS = 12
@@ -518,7 +539,10 @@ def phase_timing(setup, dev):
 # shows up), p=3, and 2-D
 FACE_GRIDS = (((16, 16, 16), 2, "gll", False), ((16, 16, 16), 2, "gl", True),
               ((16, 16, 16), 2, "gll", True), ((8, 12, 16), 2, "gll", True),
-              ((12, 12, 12), 3, "gll", False), ((32, 32), 3, "gll", True))
+              ((12, 12, 12), 3, "gll", False), ((32, 32), 3, "gll", True),
+              # p=1 (4 or 8 nodes an element), GL and GLL
+              ((16, 16, 16), 1, "gl", True), ((16, 16, 16), 1, "gll", False),
+              ((32, 32), 1, "gll", True), ((32, 32), 1, "gl", False))
 
 
 def face_input(ctx, tab, U):
@@ -1124,6 +1148,7 @@ def phase_step_timing(cases, steps=32, profiled=16):
                "device_ms_per_step": (None if dev_ms is None
                                       else dev_ms / profiled),
                "capture_s": lp.capture_s, "pool_MiB": lp.pool_bytes / 2**20,
+               "finite": bool(torch.isfinite(s.U).all()),
                "launches_per_step": lp.per_replay,
                "profile": {k: {kk: v[kk] for kk in ("wall_ms", "device_ms",
                                                     "busy_share")
@@ -1209,6 +1234,275 @@ def phase_slot_timing(setup, dev):
                      "parts_ms": parts, "launches_per_rhs": per_rhs,
                      "profile": busy, "tab": tab_np}
     return out
+
+
+# ---------------------------------------------------------------- argon
+
+
+def argon_ctx():
+    """The shipped argon deck's plasma (physics/plasma_config.py) as a slot
+    RHS context, 2-D."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.dg.fluxes import Fluxes
+    from tps_torch.dg.rhs import RHSContext
+    from tps_torch.dg.riemann import Rusanov
+    from tps_torch.physics.plasma_config import build_plasma
+
+    pl = build_plasma(IniInput.read(ARGON_DECK), 2, 2)
+    fl = Fluxes(mixture=pl.mixture, transport=pl.transport)
+    return RHSContext(fluxes=fl, riemann=Rusanov(fl))
+
+
+def argon_U(mix, xyz, dtype, device):
+    """A perturbed argon state on the deck's 0.01 m box: the deck's rho
+    1.6 and u 10 with a wave, Th ~1,800 K, Te ~9,000 K and the ion
+    fraction raised to ~1e-3 (the deck's 1e-7 leaves the diffusion and
+    the electron terms negligible)."""
+    k = 2 * np.pi / 0.01
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    Up = np.zeros(xyz.shape[:-1] + (mix.num_equations,))
+    Up[..., 0] = 1.6 * (1 + 0.05 * wave)
+    Up[..., 1], Up[..., 2] = 10.0 + 3.0 * wave, -2.0 * wave
+    Up[..., 3] = 1800.0 * (1 + 0.05 * wave)
+    Up[..., 4] = 1e-3 * 1.6 / mix.mw[0] * (1 + 0.2 * wave)
+    Up[..., 5] = 9000.0 * (1 - 0.1 * wave)
+    U = mix.conservatives(torch.as_tensor(Up, dtype=torch.float64))
+    return U.to(dtype=dtype, device=device).contiguous()
+
+
+ARGON_FACE_GRIDS = (((6, 6), 1, "gll"), ((32, 32), 2, "gl"),
+                    ((32, 32), 2, "gll"), ((128, 128), 2, "gl"))
+
+
+def argon_tables(n, order, basis):
+    from tps_torch.dg.discretization import build_tables
+    from tps_torch.mesh.generators import box_2d
+
+    mesh = box_2d(*n, x1=0.01, y1=0.01, periodic_x=True, periodic_y=True)
+    return build_tables(mesh, order, **({} if basis == "gl" else GLL))
+
+
+def phase_argon_faces(dev):
+    """The face sweep on the argon plasma against its plain version: the
+    shipped 6x6 p=1 GLL mesh, 32x32 p=2 GL and GLL, 128x128 p=2 GL.  f64
+    within 1e-11 of max|plain|; f32 by the rule of TOL (within 5e-5 of
+    the plain f32 version, or no farther than twice its distance from the
+    f64 plain result: the third-order electron conductivity cancels digits
+    in float in either order).  Either failing on any grid fails the
+    phase.  The f32 kernel timed on the GL grids (CUDA events and on the
+    device) against the plain version, with the mixture's bound."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+
+    ctx = argon_ctx()
+    failures, timing, max_err = [], {}, 0.0
+    for n, order, basis in ARGON_FACE_GRIDS:
+        t0 = time.perf_counter()
+        tab_np = argon_tables(n, order, basis)
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        tab32 = tab_np.to_torch(torch.float32, dev)
+        sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+        X64 = face_input(ctx, tab64, argon_U(ctx.mixture, tab_np.xyz_dof,
+                                             torch.float64, dev))
+        X32 = X64.float()
+        y64, p64 = sw64(X64), sw64.plain(X64)
+        r64 = rel(y64, p64)
+        k32, p32 = sw32(X32), sw32.plain(X32)
+        ref = sw64.plain(X32.double())
+        r32 = rel(k32, p32)
+        dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+        name = f"{n[0]}x{n[1]} p={order} {basis}"
+        ok = (r64 <= TOL[torch.float64] and sw64.physics == "argon"
+              and (r32 <= TOL[torch.float32] or dk <= 2 * dp))
+        log(f"  {name} ({tab_np.ne} elements, nqf {tab_np.nqf}, k "
+            f"{sw64.k}, tables {time.perf_counter() - t0:.1f} s): f64 "
+            f"{r64:.3e} (bar {TOL[torch.float64]}); f32 {r32:.3e} (bar "
+            f"{TOL[torch.float32]}, or f64 dist: kernel {dk:.3e} <= 2 x "
+            f"plain {dp:.3e})" + ("" if ok else "  FAIL"))
+        max_err = max(max_err, r64)
+        if not ok:
+            failures.append(name)
+        if basis == "gl" and order == 2:
+            ms = [cuda_ms(lambda: sw32.plain(X32), 5), cuda_ms(lambda: sw32(X32), 50),
+                  cuda_ms(lambda: sw32(X32), 50), cuda_ms(lambda: sw32.plain(X32), 5)]
+            b = face_bound(tab_np, "navier-stokes", "gl", argon=True)
+            timing[f"argon {n[0]}x{n[1]}"] = {
+                "ms": (ms[1] + ms[2]) / 2, "plain_ms": (ms[0] + ms[3]) / 2,
+                "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep"),
+                "f64_ms": cuda_ms(lambda: sw64(X64), 50),
+                "f64_device_ms": kernel_ms(lambda: sw64(X64), "face_sweep"),
+                "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+                "bytes_ms": b[3], "max_abs_err": float(torch.max(
+                    torch.abs(k32 - p32))), "f32_rel": r32,
+                "f32_f64_dist": dk, "plain_f32_f64_dist": dp, "turns": ms}
+            log(f"  timing {name} f32: {timing[f'argon {n[0]}x{n[1]}']}")
+        del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"face sweep parity on the argon plasma failed: "
+                         f"{failures}")
+    return timing, max_err
+
+
+def argon_cli(dtype, outdir):
+    """The shipped argon deck through the harness (as `python -m tps_torch
+    --runFile examples/cases/argon_plasma_2d.ini`), in dtype, its output
+    in build/<outdir> (the deck names /tmp)."""
+    from tps_torch import harness
+
+    torch.set_default_dtype(dtype)
+    tps = harness.Tps()
+    tps.parse_command_line_args(["tps", "--runFile", ARGON_DECK])
+    tps.parse_input()
+    tps.config.outdir = os.path.join(REPO, "build", outdir)
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    return tps
+
+
+def golden_diffs(ckpt):
+    """The checkpoint against ARGON_GOLDEN by GOLDEN_TOL (read with
+    io/h5lite.py): {dataset: (worst difference, tolerance)}."""
+    from tps_torch.io import h5lite
+
+    a, b = h5lite.read(ckpt)["solution"], h5lite.read(ARGON_GOLDEN)["solution"]
+    out = {}
+    for name, (tol, relative) in GOLDEN_TOL.items():
+        x, y = np.asarray(a[name]), np.asarray(b[name])
+        d = np.abs(x - y)
+        if relative:
+            d = np.where(np.abs(x) > 0, d / np.where(x != 0, np.abs(x), 1), d)
+        out[name] = (float(d.max()), tol)
+    return out
+
+
+def phase_argon_cli():
+    """The shipped argon deck through the CLI on the card, as shipped (f32,
+    4 RK4 steps): 16 face-sweep launches and none of K1/K2, every step a
+    graph replay; finite, the ion density >= 0, p near its 101,300 Pa.
+    Then the same deck in f64 through the API: its checkpoint against the
+    committed golden at test_golden_argon_regression's tolerances."""
+    tps = argon_cli(torch.float32, "argon_cli")
+    s = tps.solver
+    U0 = s.state_global().copy()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = all_launches()
+    U = s.state_global()
+    p = s.mixture.pressure(s.U).double().cpu().numpy()
+    dp = float(np.max(np.abs(p / 101300.0 - 1.0)))
+    log(f"  {type(s._rhs).__name__}, {s.tables_np.ne} elements, k "
+        f"{s._rhs.sweep.k}: {s.iter} steps in {wall:.2f} s; launches "
+        f"{counts}; step graph captured in {s._loop.capture_s:.3f} s; "
+        f"max|p/101300 - 1| {dp:.3e}; min rho Y_Ar+ "
+        f"{float(U[..., 4].min()):.3e}; moved {rel(s.U, torch.as_tensor(U0, device=s.U.device)):.3e}")
+    if (tps.get_status() != 0 or s.iter != 4 or counts["face_sweep"] != 16
+            or counts["k1_gradient"] or counts["k2_faces_volume"]
+            or s._loop.graph is None):
+        raise SystemExit("argon deck: not 16 face-sweep launches through the "
+                         "graph, or K1/K2 launched")
+    if not (np.all(np.isfinite(U)) and U[..., 4].min() >= 0 and dp < 1e-4):
+        raise SystemExit("argon deck: non-finite, negative species or p off")
+    tps64 = argon_cli(torch.float64, "argon_f64")
+    tps64.solve()
+    diffs = golden_diffs(os.path.join(tps64.solver.config.outdir,
+                                      "restart_output.sol.h5"))
+    ok = all(d <= tol for d, tol in diffs.values())
+    log(f"  f64 checkpoint vs {os.path.relpath(ARGON_GOLDEN, REPO)}: "
+        + ", ".join(f"{k} {d:.3e} (bar {t})" for k, (d, t) in diffs.items())
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("argon deck: f64 checkpoint off the golden")
+    return counts, {"dp_rel": dp, "golden": diffs}
+
+
+def argon_big_deck(n, cfl, iters, name, dt_fixed=None):
+    """bench.py::bench_argon_big's deck (bench.py:450-461: the shipped deck
+    at n x n p=2, GL, cfl 0.02) at n, cfl and iters steps, output in
+    build/<name>, with a fixed dt where given."""
+    with open(ARGON_DECK) as f:
+        text = f.read()
+    text = text.replace("nx = 6", f"nx = {n}").replace("ny = 6", f"ny = {n}")
+    text = text.replace("order = 1", "order = 2")
+    text = text.replace("outputFreq = 100",
+                        "outputFreq = 100000\ntimingFreq = 100000\n"
+                        "basisType = 0\nintegrationRule = 0")
+    text = text.replace("cfl = 0.1", f"cfl = {cfl}")
+    text = text.replace("maxIters = 4", f"maxIters = {iters}")
+    if dt_fixed:
+        text = text.replace("[time]\n", f"[time]\ndt_fixed = {dt_fixed}\n")
+    text = text.replace("outdirBase = /tmp/tps_tpu_argon_output",
+                        f"outdirBase = {os.path.join(REPO, 'build', name)}")
+    path = os.path.join(REPO, "build", name + ".ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def argon_solver(path, dtype, perturb):
+    from tps_torch import harness
+
+    torch.set_default_dtype(dtype)
+    tps = harness.Tps()
+    tps.parse_command_line_args(["tps", "--runFile", path])
+    tps.parse_input()
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    s = tps.solver
+    if perturb:
+        s.set_state_global(argon_U(s.mixture, s.tables_np.xyz_dof,
+                                   torch.float64, "cpu").numpy())
+    return s
+
+
+def phase_argon_solver(dev):
+    """bench_argon_big's deck (32x32 p=2 GL) in f64 from the perturbed
+    state: the solver (face-sweep kernel, step graph) against a plain RK4
+    loop over compute_rhs with the plain face sweep and the species clip,
+    20 fixed-dt steps; then the step graph against eager steps in CFL
+    mode, 20 steps."""
+    from tps_torch.dg.cuda_faces import face_sweep_plain
+    from tps_torch.dg.operators import _clip_species
+    from tps_torch.dg.rhs import compute_rhs
+    from tps_torch.time.integrators import rk4
+
+    dt = 9.0e-9  # about the deck's CFL dt (cfl 0.02)
+    s = argon_solver(argon_big_deck(32, 0.02, 20, "argon_fixed", dt),
+                     torch.float64, True)
+    U0 = s.U.clone()
+    reset_all_launches()
+    s.solve()
+    counts = all_launches()
+    U_solver = s.U.clone()
+    plain = functools.partial(face_sweep_plain, s.ctx, s.tables)
+
+    def rhs(U, t):
+        return compute_rhs(s.ctx, s.tables, U, t, sweep=plain)
+
+    U, t = U0, 0.0
+    for _ in range(20):
+        U = _clip_species(s.mixture, rk4(rhs, U, t, dt)[0])
+        t += dt
+    err, moved = rel(U_solver, U), rel(U_solver, U0)
+    log(f"  20 steps: max|U_kernel - U_plain|/max|U_plain| = {err:.3e} "
+        f"(bar {SOLVER_TOL}); moved {moved:.3e}; launches {counts}")
+    if not err <= SOLVER_TOL or not moved > 0 or counts["face_sweep"] != 80:
+        raise SystemExit("argon solver vs plain RK4 loop failed")
+    cfl = argon_solver(argon_big_deck(32, 0.02, 20, "argon_cfl"),
+                       torch.float64, True)
+    diffs = graph_vs_eager(cfl, cfl.U.clone(), float(cfl.dt))
+    ok = max(diffs) <= GRAPH_TOL
+    log(f"  CFL: graph vs eager, {cfl.iter} steps: U {diffs[0]:.3e}, t "
+        f"{diffs[1]:.3e}, dt {diffs[2]:.3e} (bar {GRAPH_TOL})"
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("argon step graph vs eager failed")
+    return {"solver_vs_plain": err, "graph_vs_eager": diffs}
 
 
 def kernel_ms(fn, name, n=50):
@@ -1352,17 +1646,19 @@ def k2_bound(t, basis="gl", size=4):
     return bound(ops, nbytes)
 
 
-def face_bound(t, eq, basis, size=4, curved=False):
+def face_bound(t, eq, basis, size=4, curved=False, argon=False):
     """The face sweep on tables t: per interior slot the own traces of X's
     k channels and the scatter of neq, per interior face the flux.  X in,
-    the result out, the normals, nbr_row, the mask and Btr_or."""
+    the result out, the normals, nbr_row, the mask and Btr_or.  `argon`:
+    the plasma's 6 equations (k = 18) and MIX_FACE_OPS (2-D, NS)."""
     ne, nd, nq, nlf, dim = t.ne, t.ndof, t.nqf, t.nlf, t.dim
-    neq = dim + 2
+    neq = dim + 4 if argon else dim + 2
     k = neq if eq == "euler" else neq * (1 + dim)
     trace, _ = tensor_fma(t, basis, curved)
     slots = int(np.count_nonzero(np.asarray(t.interior_mask)))
-    ops = (2 * slots * (k + neq) * trace
-           + slots * nq * FACE_OPS[eq] * neq // 5 // 2)
+    flux = (slots * nq * MIX_FACE_OPS // 2 if argon
+            else slots * nq * FACE_OPS[eq] * neq // 5 // 2)
+    ops = 2 * slots * (k + neq) * trace + flux
     nbytes = (size * (ne * nd * k + ne * nd * neq + nlf * ne * nq * dim
                       + ne * nlf + t.n_combo * nq * nd) + 4 * ne * nlf)
     return bound(ops, nbytes)
@@ -1505,6 +1801,37 @@ def run(dev):
     log_phase("phase 16: checkpoint write and read, 32^3 p=2 (f32 state, "
               "f64 file)")
     io32 = phase_io_timing(fused32)
+    del fused32
+    log_phase("phase 17: face sweep vs plain on the argon plasma (6x6 p=1 "
+              "GLL, 32x32 p=2 GL and GLL, 128x128 p=2 GL; f64, f32)")
+    argon_faces, argon_err = phase_argon_faces(dev)
+    log_phase("phase 18: the argon deck's CLI (argon_plasma_2d.ini as "
+              "shipped: 6x6 p=1 GLL, 2-T ambipolar Ar/Ar+/e, RK4, f32, 4 "
+              "steps), then f64 against the golden checkpoint")
+    counts_argon, argon_cli_checks = phase_argon_cli()
+    log_phase("phase 19: bench_argon_big's deck (32x32 p=2 GL, f64): solver "
+              "vs plain RK4 loop, step graph vs eager")
+    argon_solver_checks = phase_argon_solver(dev)
+    log_phase("phase 20: ms/step through solve() on the argon plasma, step "
+              "graph vs eager (32x32 p=2 GL cfl 0.01, 128x128 cfl 0.0025; "
+              "f32, RK4)")
+    # bench_argon_big's cfl 0.02 is above the electron-energy diffusion
+    # limit at 32x32 p=2: T_e noise grows ~4x a step, in the JAX package
+    # as in this one (the same digits on the CPU in f64, 1e-6 noise), and
+    # decays at 0.01.  These turns run ~230 steps, so at half of it, and
+    # at a quarter of that at 128x128 (h/4, dt ~ h^2); 16 steps a turn
+    # (eager steps take 70-90 ms here)
+    argon_steps = phase_step_timing({
+        "argon 32x32": argon_solver(argon_big_deck(32, 0.01, 10**6,
+                                                   "argon32"),
+                                    torch.float32, False),
+        "argon 128x128": argon_solver(argon_big_deck(128, 0.0025, 10**6,
+                                                     "argon128"),
+                                      torch.float32, False)}, steps=16)
+    for name, res in argon_steps.items():
+        if not res["finite"]:
+            raise SystemExit(f"{name}: the f32 state left the finite range")
+    steps.update(argon_steps)
 
     t16 = timing[(16, 16, 16)]
     tab16 = setup.tables((16, 16, 16), 2)
@@ -1535,11 +1862,16 @@ def run(dev):
          "replaces": "tools/pallas_face_prototype.py:102",
          "launches": counts_slot["face_sweep"],
          "launches_by_path": {"vortex3d_ns.ini": counts_slot["face_sweep"],
-                              "cyl2d_ogrid.ini": counts_cyl["face_sweep"]},
+                              "cyl2d_ogrid.ini": counts_cyl["face_sweep"],
+                              "argon_plasma_2d.ini":
+                                  counts_argon["face_sweep"]},
          "max_abs_err": face_err,
          "ms": gll["face_sweep_ms"], "device_ms": gll["face_sweep_device_ms"],
          "plain_ms": gll["face_sweep_plain_ms"],
-         "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None},
+         "bound_ms": fb[0], "bound_by": fb[1], "library_ms": None,
+         "argon_32x32": {k: argon_faces["argon 32x32"][k] for k in (
+             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
+         "argon_f64_max_rel_err": argon_err},
     ]
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
@@ -1564,6 +1896,9 @@ def run(dev):
         for k, v in annulus.items()}
     summary["cylinder deck"] = {"launches": counts_cyl, **cyl_physics}
     summary["checkpoint 32^3 p=2"] = io32
+    summary["face_sweep on the argon plasma (p=2 GL, NS)"] = argon_faces
+    summary["argon deck"] = {"launches": counts_argon, **argon_cli_checks,
+                             **argon_solver_checks}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

@@ -17,6 +17,8 @@ step graph against eager steps: 1e-12 of max|U| in f64 (the same kernels
 on the same inputs).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -287,7 +289,11 @@ def test_shared_memory_plans_match_the_kernels(device):
                 assert tile.value == E
         for ndof, nqf, nlf, k, neq in ((27, 25, 6, 20, 5), (27, 16, 6, 5, 5),
                                        (64, 36, 6, 20, 5), (512, 100, 6, 20, 5),
-                                       (16, 5, 4, 12, 4), (9, 4, 4, 4, 4)):
+                                       (16, 5, 4, 12, 4), (9, 4, 4, 4, 4),
+                                       # the argon plasma: neq 6, k 18 (2-D);
+                                       # then a 3-D plan of 7 equations
+                                       (4, 2, 4, 18, 6), (9, 3, 4, 18, 6),
+                                       (9, 4, 4, 18, 6), (27, 16, 6, 28, 7)):
             E, _res, smem = cuda_faces.plan(ndof, nqf, nlf, k, neq, dtype)
             assert lib.tps_face_sweep_smem(ndof, nqf, nlf, k, neq, size,
                                            ctypes.byref(tile)) == smem
@@ -586,3 +592,98 @@ def test_restart_round_trip_on_cuda(device, f64, tmp_path, outlet):
     np.testing.assert_allclose(b.state_global(), a.state_global(), rtol=0,
                                atol=1e-12 * np.max(np.abs(a.state_global())))
     np.testing.assert_allclose(float(b.time), float(a.time), rtol=1e-12)
+
+
+# ---------------------------------------------------------------- argon plasma
+
+ARGON_DECK = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "inputs", "argon_minimal.ini")
+
+
+def _argon_case(n, order, basis, dtype, device):
+    """The face sweep on the argon deck's mixture, periodic box of the
+    deck's extent, a perturbed state (Te != Th, ion fraction ~1e-3) and
+    its DG gradient."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.physics.plasma_config import build_plasma
+
+    pl = build_plasma(IniInput.read(ARGON_DECK), 2, 2)
+    mix = pl.mixture
+    fl = Fluxes(mixture=mix, transport=pl.transport)
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    kw = {} if basis == "gl" else dict(basis="gauss-lobatto",
+                                       quad_rule="gauss-lobatto")
+    tab_np = build_tables(box_2d(*n, x1=0.01, y1=0.01, periodic_x=True,
+                                 periodic_y=True), order, **kw)
+    xyz = tab_np.xyz_dof
+    k = 2 * np.pi / 0.01
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    Up = np.zeros(xyz.shape[:-1] + (6,))
+    Up[..., 0] = 1.6 * (1 + 0.05 * wave)
+    Up[..., 1], Up[..., 2] = 10.0 + 3.0 * wave, -2.0 * wave
+    Up[..., 3] = 1800.0 * (1 + 0.05 * wave)
+    Up[..., 4] = 1e-3 * 1.6 / mix.mw[0] * (1 + 0.2 * wave)
+    Up[..., 5] = 9000.0 * (1 - 0.1 * wave)
+    tab = tab_np.to_torch(torch.float64, device)
+    U = mix.conservatives(torch.as_tensor(Up, device=device))
+    G = dg_gradient(tab, mix.primitives(U))
+    X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    tab = tab_np.to_torch(dtype, device)
+    return build_face_sweep(tab, ctx), X.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n,order,basis", [((6, 6), 1, "gll"),
+                                           ((32, 32), 2, "gl"),
+                                           ((32, 32), 2, "gll")])
+def test_face_sweep_matches_plain_on_argon(device, n, order, basis, dtype):
+    """f64: 1e-11 of max|plain|.  f32: the kernel no farther from the f64
+    plain result than twice the f32 plain version (the third-order
+    electron conductivity cancels digits in either order)."""
+    sw, X = _argon_case(n, order, basis, dtype, device)
+    assert sw.physics == "argon" and sw.k == 18
+    cuda_faces.reset_launches()
+    z = sw(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    plain = sw.plain(X)
+    if dtype == torch.float64:
+        assert _rel(z, plain) <= TOL[dtype]
+    else:
+        sw64, _ = _argon_case(n, order, basis, torch.float64, device)
+        ref = sw64.plain(X.double())
+        assert (_rel(z, plain) <= TOL[dtype]
+                or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
+
+
+def test_argon_deck_graph_matches_eager(device, f64, tmp_path):
+    """The shipped argon deck (4 RK4 steps, CFL dt) through solve() on the
+    card: graph replays == eager steps (f64, 1e-12 of max|U|), 16
+    face-sweep launches and none of K1/K2 each way."""
+    from tps_torch import harness
+
+    out = {}
+    for graphs in (True, False):
+        text = open(ARGON_DECK).read().replace(
+            "outdirBase = /tmp/tps_tpu_argon_output",
+            f"outdirBase = {tmp_path / str(graphs)}")
+        path = tmp_path / "argon.ini"
+        path.write_text(text)
+        tps = harness.Tps()
+        tps.parse_command_line_args(["tps", "--runFile", str(path)])
+        tps.parse_input()
+        tps.choose_devices()
+        tps.choose_solver()
+        tps.initialize()
+        s = tps.solver
+        s.cuda_graphs = graphs
+        cuda_fused.reset_launches()
+        cuda_faces.reset_launches()
+        s.solve()
+        torch.cuda.synchronize()
+        assert _counts() == {"face_sweep": 16, "k1_gradient": 0,
+                             "k2_faces_volume": 0}
+        out[graphs] = (s.state_global(), float(s.time), float(s.dt))
+    (Ug, tg, dtg), (Ue, te, dte) = out[True], out[False]
+    np.testing.assert_allclose(Ug, Ue, rtol=0, atol=1e-12 * np.max(np.abs(Ue)))
+    np.testing.assert_allclose([tg, dtg], [te, dte], rtol=1e-12)

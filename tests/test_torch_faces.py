@@ -282,6 +282,11 @@ def _slot_case(n, order, eq_system, gll, walls, seed):
     # neighbours one element) in one ragged tile; 10 elements in two
     ((1, 2, 3), 2, "navier-stokes", True, False),
     ((2, 1, 5), 2, "euler", False, False),
+    # p=1 (4 or 8 nodes an element), GL and GLL
+    ((3, 4, 5), 1, "navier-stokes", True, True),
+    ((3, 4, 5), 1, "navier-stokes", False, False),
+    ((6, 6), 1, "navier-stokes", True, False),
+    ((5, 4), 1, "euler", False, True),
 ])
 def test_kernel_algebra_matches_plain(n, order, eq_system, gll, walls):
     tab_np, tab, ctx, X = _slot_case(n, order, eq_system, gll, walls, seed=11)

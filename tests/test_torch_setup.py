@@ -94,7 +94,11 @@ def test_import_without_jax():
         "import tps_torch.dg.rhs, tps_torch.tools.face_prototype\n"
         "import tps_torch.dg.bc, tps_torch.io.h5lite, tps_torch.io.restart\n"
         "import tps_torch.io.visualization, tps_torch.mesh.mfem_reader\n"
-        "import tps_torch.mesh.refine\n"
+        "import tps_torch.mesh.refine, tps_torch.dg.source_term\n"
+        "import tps_torch.physics.collision_integrals\n"
+        "import tps_torch.physics.perfect_mixture\n"
+        "import tps_torch.physics.gas_transport, tps_torch.physics.chemistry\n"
+        "import tps_torch.physics.plasma_config\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"

@@ -356,19 +356,21 @@ __device__ __forceinline__ T other_lane(T v) {  // the pair partner's value
 
 // The face flux at every point of the tile: F = m * (Rusanov of the two
 // traces minus, for Navier-Stokes, the mean of the two one-sided viscous
-// normal fluxes) into Fl[el*fs + s*NEQ + q].  m[el] == 0 (a boundary slot
-// or no element) writes 0.  Normal of (el, s): nor[(e0+el)*nor_e + s*DIM].
-// Where the tile has at most half as many points as the block threads, a
-// lane pair takes a point, each lane one side's convective and viscous
-// fluxes, exchanged by shuffles; the result is the same arithmetic.
-template <typename T, int DIM, bool VISCOUS, bool PROTO, int K>
+// normal fluxes) into Fl[el*fs + s*NEQ + q], with the physics of policy P
+// (dg_pointwise.cuh::DryAirPhysics, dg_mixture.cuh::ArgonMixture).
+// m[el] == 0 (a boundary slot or no element) writes 0.  Normal of (el,
+// s): nor[(e0+el)*nor_e + s*DIM].  Where the tile has at most half as
+// many points as the block threads, a lane pair takes a point, each lane
+// one side's convective and viscous fluxes, exchanged by shuffles; the
+// result is the same arithmetic.
+template <typename T, class P, bool VISCOUS, bool PROTO, int K>
 __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
                                            const T* Tn, const T* nor,
                                            long long nor_e, int e0,
-                                           const double* m, const Phys& ph,
+                                           const double* m,
+                                           const typename P::Params& ph,
                                            T* Fl, int fs) {
-  constexpr int NEQ = DIM + 2;
-  const T gam = T(ph.gamma);
+  constexpr int DIM = P::DIM, NEQ = P::NEQ, NW = P::NW;
   if (2 * E * nqf <= (int)blockDim.x) {
     const int i = threadIdx.x >> 1, side = threadIdx.x & 1;
     const bool act = i < E * nqf;
@@ -381,21 +383,21 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     const T* u1 = To + (size_t)(el * nqf + s) * K;
     const T* u2 = Tn + (size_t)(el * nqf + s) * K;
     const T* u = side ? u2 : u1;
-    T f[NEQ], sn, vm, un, v[NEQ];
-    conv_dot_n<T, DIM>(u, n, gam, f, sn, vm, un);
-    if constexpr (VISCOUS) visc_dot_n<T, DIM>(u, u + NEQ, n, ph, v);
-    T fo[NEQ], vo[NEQ];
+    T f[NEQ], w[NW], v[NEQ];
+    P::conv(u, n, ph, f, w);
+    if constexpr (VISCOUS) P::visc(u, u + NEQ, n, ph, v);
+    T fo[NEQ], wo[NW], vo[NEQ];
 #pragma unroll
     for (int q = 0; q < NEQ; ++q) fo[q] = other_lane(f[q]);
     if constexpr (VISCOUS) {
 #pragma unroll
       for (int q = 1; q < NEQ; ++q) vo[q] = other_lane(v[q]);
     }
-    const T so = other_lane(sn), vmo = other_lane(vm), uno = other_lane(un);
+#pragma unroll
+    for (int j = 0; j < NW; ++j) wo[j] = other_lane(w[j]);
     if (!act || side) return;
     T fl[NEQ];
-    rusanov_combine<T, DIM, PROTO>(u1, u2, n, f, fo, sn, vm, un, so, vmo, uno,
-                                   fl);
+    P::template combine<T, PROTO>(u1, u2, n, f, fo, w, wo, fl);
     if constexpr (VISCOUS) {
 #pragma unroll
       for (int q = 1; q < NEQ; ++q) fl[q] -= T(0.5) * (v[q] + vo[q]);
@@ -420,15 +422,14 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     for (int d = 0; d < DIM; ++d) n[d] = __ldg(np + d);
     const T* u1 = To + (size_t)(el * nqf + s) * K;
     const T* u2 = Tn + (size_t)(el * nqf + s) * K;
-    T fl[NEQ];
-    if constexpr (PROTO)
-      rusanov_prototype<T, DIM>(u1, u2, n, gam, fl);
-    else
-      rusanov<T, DIM>(u1, u2, n, gam, fl);
+    T f1[NEQ], f2[NEQ], w1[NW], w2[NW], fl[NEQ];
+    P::conv(u1, n, ph, f1, w1);
+    P::conv(u2, n, ph, f2, w2);
+    P::template combine<T, PROTO>(u1, u2, n, f1, f2, w1, w2, fl);
     if constexpr (VISCOUS) {
       T v1[NEQ], v2[NEQ];
-      visc_dot_n<T, DIM>(u1, u1 + NEQ, n, ph, v1);
-      visc_dot_n<T, DIM>(u2, u2 + NEQ, n, ph, v2);
+      P::visc(u1, u1 + NEQ, n, ph, v1);
+      P::visc(u2, u2 + NEQ, n, ph, v2);
 #pragma unroll
       for (int q = 1; q < NEQ; ++q) fl[q] -= T(0.5) * (v1[q] + v2[q]);
     }

@@ -1,8 +1,8 @@
 // Pointwise DG physics shared by the Hopper kernels (fused_rhs.cu,
 // face_sweep.cu): DryAir primitives, Sutherland or constant transport, the
-// convective
-// and one-sided viscous normal fluxes, and the Rusanov flux in its two
-// wave-speed forms.  Each is the device counterpart of the plain PyTorch
+// convective and one-sided viscous normal fluxes, and the Rusanov flux in
+// its two wave-speed forms; `DryAirPhysics`, the face stage's physics
+// policy for DryAir (dg_mixture.cuh has the argon plasma's).  Each is the device counterpart of the plain PyTorch
 // code its kernel is checked against (physics/gas.py, physics/transport.py,
 // dg/fluxes.py, dg/riemann.py; the prototype form: dg/cuda_faces.py).
 //
@@ -114,30 +114,6 @@ __device__ __forceinline__ void rusanov_combine(const T* u1, const T* u2,
     f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (u2[q] - u1[q]);
 }
 
-// Rusanov flux, the package form (dg/riemann.py).
-template <typename T, int DIM>
-__device__ __forceinline__ void rusanov(const T* u1, const T* u2, const T* n,
-                                        T gam, T* f) {
-  constexpr int NEQ = DIM + 2;
-  T f1[NEQ], f2[NEQ], s1, s2, v1, v2, un1, un2;
-  conv_dot_n<T, DIM>(u1, n, gam, f1, s1, v1, un1);
-  conv_dot_n<T, DIM>(u2, n, gam, f2, s2, v2, un2);
-  rusanov_combine<T, DIM, false>(u1, u2, n, f1, f2, s1, v1, un1, s2, v2, un2,
-                                 f);
-}
-
-// Rusanov flux, the face-sweep prototype's form.
-template <typename T, int DIM>
-__device__ __forceinline__ void rusanov_prototype(const T* u1, const T* u2,
-                                                  const T* n, T gam, T* f) {
-  constexpr int NEQ = DIM + 2;
-  T f1[NEQ], f2[NEQ], s1, s2, v1, v2, un1, un2;
-  conv_dot_n<T, DIM>(u1, n, gam, f1, s1, v1, un1);
-  conv_dot_n<T, DIM>(u2, n, gam, f2, s2, v2, un2);
-  rusanov_combine<T, DIM, true>(u1, u2, n, f1, f2, s1, v1, un1, s2, v2, un2,
-                                f);
-}
-
 // One-sided viscous normal flux of a traced state (T from the traced
 // conserved variables, not a traced T) and its traced gradient gt[eq][d].
 // fv[0] is not written (the continuity equation has no viscous flux).
@@ -173,5 +149,43 @@ __device__ __forceinline__ void visc_dot_n(const T* u, const T* gt,
   for (int d = 0; d < DIM; ++d) qn += gt[IE * DIM + d] * n[d];
   fv[IE] = e + kap * qn;
 }
+
+// The face stage's physics policy (dg_face_stage.cuh::flux_stage) for
+// DryAir: NEQ, the packed constants, per side the convective normal flux
+// with its wave data (sound speed, |u|, u.n), the Rusanov combination of
+// two sides (PROTO: the prototype's form) and the one-sided viscous normal
+// flux.  The same functions as before the policy existed, so K2 and the
+// face sweep compute what they did.
+template <int DIM_>
+struct DryAirPhysics {
+  static constexpr int DIM = DIM_;
+  static constexpr int NEQ = DIM + 2;
+  static constexpr int NW = 3;
+  using Params = Phys;
+
+  static Params make(const double* p) { return make_phys(p); }
+
+  template <typename T>
+  static __device__ __forceinline__ void conv(const T* u, const T* n,
+                                              const Params& ph, T* f, T* w) {
+    conv_dot_n<T, DIM>(u, n, T(ph.gamma), f, w[0], w[1], w[2]);
+  }
+
+  template <typename T, bool PROTO>
+  static __device__ __forceinline__ void combine(const T* u1, const T* u2,
+                                                 const T* n, const T* f1,
+                                                 const T* f2, const T* w1,
+                                                 const T* w2, T* f) {
+    rusanov_combine<T, DIM, PROTO>(u1, u2, n, f1, f2, w1[0], w1[1], w1[2],
+                                   w2[0], w2[1], w2[2], f);
+  }
+
+  template <typename T>
+  static __device__ __forceinline__ void visc(const T* u, const T* gt,
+                                              const T* n, const Params& ph,
+                                              T* fv) {
+    visc_dot_n<T, DIM>(u, gt, n, ph, fv);
+  }
+};
 
 }  // namespace tps_dg

@@ -542,9 +542,9 @@ k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
         },
         sTo, sTn);
     __syncthreads();
-    flux_stage<T, DIM, VISCOUS, false, K>(E, nqf, sTo, sTn,
-                                          Nor + (size_t)lf * nqf * DIM, 0, e0,
-                                          s_m + lf * E, ph, sF, fs);
+    flux_stage<T, DryAirPhysics<DIM>, VISCOUS, false, K>(
+        E, nqf, sTo, sTn, Nor + (size_t)lf * nqf * DIM, 0, e0, s_m + lf * E,
+        ph, sF, fs);
     __syncthreads();
   }
   scatter(NLF - 1);

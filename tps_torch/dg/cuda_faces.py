@@ -19,7 +19,10 @@ csrc/face_sweep.cu::face_plan).  Two modes:
 - slot (`build_face_sweep`): the package Rusanov minus the mean one-sided
   viscous normal flux, normals nor_wpf, mask interior_mask, sign -1; its
   plain version is dg/operators.py's `face_sweep_plain`.  The solver's slot
-  path runs it on every right-hand side.
+  path runs it on every right-hand side.  Its pointwise physics is DryAir
+  (`kernel_phys`, csrc/face_sweep.cu) or the two-temperature ambipolar
+  argon plasma (`mixture_phys`, csrc/dg_mixture.cuh in
+  csrc/face_sweep_argon.cu).
 - prototype (`build_prototype_sweep`): Euler, the prototype's own
   Rusanov (per side |u.n| + c|n|), the uniform normals wts*nor shared by
   every element, mask 1, sign +1; its plain version is
@@ -43,6 +46,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..constants import AVOGADRO_NUMBER, PI, UNIVERSAL_GAS_CONSTANT
+from ..physics import collision_integrals as ci
+from ..physics import gas_transport as gt
+from ..physics import perfect_mixture as pm
 from .cuda_fused import (SHARED_LIMIT, _al4, _Library, build_kernels,
                          kernel_phys, kernel_transport, row_slot,
                          support_values, tile_plan)
@@ -50,6 +57,8 @@ from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version
 
 # kernel launches since the last reset_launches()
 launches = {"face_sweep": 0}
+# the kernel's pointwise physics (csrc/face_sweep.cu's PHYSICS_*)
+PHYSICS_ID = {"dry_air": 0, "argon": 1}
 
 
 def reset_launches():
@@ -59,9 +68,10 @@ def reset_launches():
 
 def face_sweep_supported(tab_np, ctx) -> bool:
     """Preconditions of the kernel in slot mode: neighbor-slot tables,
-    2-D or 3-D, DryAir with one velocity per dimension, Rusanov, Euler or
-    Navier-Stokes with Sutherland or constant transport, planar, single
-    device."""
+    2-D or 3-D, one velocity per dimension, Rusanov, planar, single
+    device, and one of its two physics: DryAir, Euler or Navier-Stokes
+    with Sutherland or constant transport; or the argon plasma in 2-D
+    (`argon_supported`)."""
     t = tab_np
     if t.nbr_row is None or t.dim not in (2, 3):
         return False
@@ -70,14 +80,70 @@ def face_sweep_supported(tab_np, ctx) -> bool:
     fl = ctx.fluxes
     if fl.axisymmetric or fl.sgs_model is not None or fl.visc_sponge is not None:
         return False
-    mix = ctx.mixture
-    if type(mix).__name__ != "DryAir" or mix.nvel != t.dim or mix.n_passive:
-        return False
     if type(ctx.riemann).__name__ != "Rusanov":
         return False
     if fl.eq_system not in ("euler", "navier-stokes"):
         return False
+    mix = ctx.mixture
+    if mix.nvel != t.dim:
+        return False
+    if type(mix).__name__ == "PerfectMixture":
+        return t.dim == 2 and argon_supported(ctx)
+    if type(mix).__name__ != "DryAir" or mix.n_passive:
+        return False
     return fl.eq_system == "euler" or kernel_transport(fl.transport)
+
+
+def argon_supported(ctx) -> bool:
+    """The argon plasma the kernel computes (csrc/dg_mixture.cuh): the
+    ternary [Ar+, e, Ar] perfect mixture, ambipolar, two temperatures,
+    Navier-Stokes with argon_minimal transport (csrc/face_sweep_argon.cu
+    builds it for 2-D only)."""
+    mix, fl = ctx.mixture, ctx.fluxes
+    return (fl.eq_system == "navier-stokes"
+            and type(fl.transport).__name__ == "ArgonMinimalTransport"
+            and mix.num_species == 3 and mix.ambipolar
+            and mix.two_temperature)
+
+
+def mixture_phys(ctx):
+    """The argon plasma's constants in the order of
+    csrc/dg_mixture.cuh::MixPhys, every mass combination formed here in
+    double (a product of two per-molecule masses is below float's range)."""
+    mix, tr = ctx.mixture, ctx.fluxes.transport
+    R = UNIVERSAL_GAS_CONSTANT
+    m = tr.masses()
+    cv = [c * R for c in mix.molar_cv_over_R]
+    sqrt = np.sqrt
+    vf, koe, dfac = (gt.VISCOSITY_FACTOR, gt.K_OVER_ETA_FACTOR,
+                     gt.DIFFUSIVITY_FACTOR)
+    screened = [ci.SCREENED[k] for k in ("rep22", "rep23", "rep24", "att11",
+                                         "att12", "att13", "att14", "att15")]
+    vals = [*mix.mw, *mix.charges, *cv, *[c + R for c in cv],
+            mix.formation_energy[0], R,
+            float(mix.ambipolar), float(mix.two_temperature),
+            gt._DEBYE_FACTOR / AVOGADRO_NUMBER, 4.0 * PI * gt._DEBYE_FACTOR,
+            PI, gt._XEPS, pm._TINY,
+            vf * sqrt(m[0]), vf * sqrt(m[2]), koe / m[0], koe / m[2],
+            vf * koe * sqrt(2.0 / m[1]), vf * koe * sqrt(1.0 / m[1]),
+            dfac / sqrt(tr.muw(1, 2)), dfac / sqrt(tr.muw(2, 0)),
+            dfac / sqrt(tr.muw(0, 1)),
+            gt._QE_OVER_KB,
+            tr.visc_mult, tr.kappa_mult, tr.kappa_e_mult, tr.diff_mult,
+            tr.mobil_mult,
+            float(tr.third_order_electron_thermal_conductivity),
+            *[v for q in screened for v in q],
+            *ci.POWER_FITS["ArAr22"], *ci.POWER_FITS["ArAr1P11"],
+            *ci.EAR_COEFFS.reshape(-1)]
+    return [float(v) for v in vals]
+
+
+def face_physics(ctx):
+    """(physics, packed constants) of the kernel for ctx: "dry_air"
+    (cuda_fused.kernel_phys) or "argon" (`mixture_phys`)."""
+    if type(ctx.mixture).__name__ == "PerfectMixture":
+        return "argon", mixture_phys(ctx)
+    return "dry_air", kernel_phys(ctx)
 
 
 def plan(ndof, nqf, nlf, k, neq, dtype):
@@ -187,16 +253,14 @@ class CudaFaceSweep:
     nlf: int
     n_combo: int
     dim: int
+    neq: int
     viscous: bool
     prototype: bool
     nor_lf: int
     nor_e: int
     sign: float
-    phys: object  # ctypes doubles: cuda_fused.kernel_phys
-
-    @property
-    def neq(self):
-        return self.dim + 2
+    physics: str  # "dry_air" or "argon" (`face_physics`)
+    phys: object  # ctypes doubles: kernel_phys or mixture_phys
 
     @property
     def k(self):
@@ -227,17 +291,19 @@ class CudaFaceSweep:
                      Y.data_ptr(), self.ne, self.ndof, self.nqf, self.nlf,
                      self.n_combo, self.nor_lf, self.nor_e, self.sign,
                      self.dim, int(self.viscous), int(self.prototype),
-                     self.phys, stream)
+                     PHYSICS_ID[self.physics], self.phys, stream)
         if err:
             raise RuntimeError(f"face_sweep launch failed: CUDA error {err}")
         launches["face_sweep"] += 1
         return Y
 
 
-def _check_cuda(tab, viscous, dtype, device):
+def _check_cuda(tab, viscous, dtype, device, neq=None):
+    """Raise for CUDA tables whose element does not fit a block (neq:
+    DryAir's dim + 2 where not given)."""
     if torch.device(device).type != "cuda":
         return
-    neq = tab.dim + 2
+    neq = tab.dim + 2 if neq is None else neq
     k = neq * (1 + tab.dim) if viscous else neq
     tile, _res, smem = plan(tab.ndof, tab.nqf, tab.nlf, k, neq, dtype)
     if not tile:
@@ -257,14 +323,18 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
     device).  Raises for CUDA tables outside `face_sweep_supported`."""
     device, dtype = tab.Btr_or.device, tab.Btr_or.dtype
     viscous = ctx.fluxes.eq_system != "euler"
+    neq = ctx.mixture.num_equations
+    supported = face_sweep_supported(tab, ctx)
     if device.type == "cuda":
-        if not face_sweep_supported(tab, ctx):
+        if not supported:
             raise NotImplementedError(
                 "the face-sweep kernel's preconditions do not hold (see "
                 "dg/cuda_faces.py::face_sweep_supported); this configuration "
                 "runs with --device cpu")
-        _check_cuda(tab, viscous, dtype, device)
-    phys = kernel_phys(ctx)
+        _check_cuda(tab, viscous, dtype, device, neq)
+    # outside the preconditions (the CPU only) the plain version runs and
+    # the kernel's constants are not needed
+    physics, phys = face_physics(ctx) if supported else ("none", [])
     nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
     cface, cperm = _combo_tensors(tab.Btr_or.cpu().numpy(), nlf, nqf, device)
     return CudaFaceSweep(
@@ -274,8 +344,8 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         nor=tab.nor_wpf.contiguous(),
         mask=tab.interior_mask.contiguous(),
         ne=ne, ndof=tab.ndof, nqf=nqf, nlf=nlf, n_combo=tab.n_combo, dim=dim,
-        viscous=viscous, prototype=False,
-        nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0,
+        neq=neq, viscous=viscous, prototype=False,
+        nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0, physics=physics,
         phys=(ctypes.c_double * len(phys))(*phys),
     )
 
@@ -303,7 +373,8 @@ def build_prototype_sweep(tab_np, dtype, device, gamma=1.4) -> CudaFaceSweep:
         nbr_row=dev(t.nbr_row, torch.int32),
         nor=(wts[..., None] * nor).contiguous(), mask=None,
         ne=t.ne, ndof=t.ndof, nqf=t.nqf, nlf=t.nlf, n_combo=t.n_combo, dim=3,
-        viscous=False, prototype=True, nor_lf=t.nqf * 3, nor_e=0, sign=1.0,
+        neq=5, viscous=False, prototype=True, nor_lf=t.nqf * 3, nor_e=0,
+        sign=1.0, physics="dry_air",
         phys=(ctypes.c_double * 10)(gamma, 1.0, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0,
                                     0.0, 0.0),
     )

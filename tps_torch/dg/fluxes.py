@@ -1,11 +1,14 @@
 """Pointwise convective and viscous flux evaluation on torch tensors.
 
-Mirrors the behavior of reference Fluxes (src/fluxes.cpp:131-336) for the
-branch this slice carries: a single-species gas (DryAir), planar geometry,
-no SGS model and no viscous sponge.  Every other branch raises
-NotImplementedError naming the ROADMAP item that ports it.  Everything
-here operates on tensors with an arbitrary batch prefix; the equation
-index is the second-to-last axis of flux tensors (F[..., eq, d]).
+Mirrors the behavior of reference Fluxes (src/fluxes.cpp:131-336), the
+JAX package's dg/fluxes.py, for the branches this port carries: a
+single-species gas (DryAir) or a species mixture (PerfectMixture: species
+convection, the electron-energy flux, the electron heat flux, species
+diffusion with its enthalpy fluxes), planar geometry, no SGS model and
+no viscous sponge.  Every other branch raises NotImplementedError naming
+the ROADMAP item that ports it.  Everything here operates on tensors with
+an arbitrary batch prefix; the equation index is the second-to-last axis
+of flux tensors (F[..., eq, d]).
 """
 
 from __future__ import annotations
@@ -37,12 +40,10 @@ class Fluxes:
         if self.eq_system not in ("euler", "navier-stokes"):
             raise NotImplementedError(
                 f"equation system '{self.eq_system}' is not ported yet "
-                "(ROADMAP A6)")
-        if (self.mixture.two_temperature
-                or self.mixture.num_equations != self.mixture.nvel + 2):
+                "(ROADMAP A6.2)")
+        if getattr(self.mixture, "n_passive", 0):
             raise NotImplementedError(
-                "species and two-temperature fluxes are not ported yet "
-                "(ROADMAP A6)")
+                "passive scalars are not ported yet (ROADMAP A6.2)")
 
     @property
     def dim(self):
@@ -61,7 +62,7 @@ class Fluxes:
     def convective(self, U):
         """F_conv[..., neq, dim] (reference: src/fluxes.cpp:135-171)."""
         mix = self.mixture
-        dim, nvel = self.dim, self.nvel
+        dim, nvel, neq = self.dim, self.nvel, self.neq
         p = mix.pressure(U)
         rho = U[..., 0]
         mom = U[..., 1 : 1 + nvel]  # [..., nvel]
@@ -71,7 +72,18 @@ class Fluxes:
         Fm = mom[..., :, None] * vel_d[..., None, :] + p[..., None, None] * eye
         # energy: u_d * (rhoE + p)
         Fe = vel_d * (U[..., mix.i_th] + p)[..., None]
-        return torch.cat([mom[..., None, :dim], Fm, Fe[..., None, :]], dim=-2)
+        parts = [mom[..., None, :dim], Fm, Fe[..., None, :]]
+        # active species: rhoY * u_d
+        nact = mix.num_active_species
+        if nact > 0:
+            rhoY = U[..., nvel + 2 : nvel + 2 + nact]
+            parts.append(rhoY[..., :, None] * vel_d[..., None, :])
+        if mix.two_temperature:
+            # electron energy: (rho e_e + p_e) / rho * rho u_d
+            pe = mix.electron_pressure(U)
+            he = (U[..., neq - 1] + pe) / rho
+            parts.append((he[..., None] * mom[..., :dim])[..., None, :])
+        return torch.cat(parts, dim=-2)
 
     # -- viscous -----------------------------------------------------------
 
@@ -82,7 +94,7 @@ class Fluxes:
         flux is defined so the total flux is F_conv - F_visc.
         """
         mix = self.mixture
-        dim, neq = self.dim, self.neq
+        dim, nvel, neq = self.dim, self.nvel, self.neq
         if self.eq_system == "euler":
             return torch.zeros(U.shape[:-1] + (neq, dim), dtype=U.dtype,
                                device=U.device)
@@ -100,14 +112,42 @@ class Fluxes:
                   * (grad_vel + torch.transpose(grad_vel, -1, -2))
                   + (bulk * div_v)[..., None, None] * eye)
 
-        # energy flux: tau . u + kappa grad(T)
+        # energy flux: tau . u + kappa grad(T) (+ electron heat flux)
         vel = Up[..., 1 : 1 + dim]
         tau_u = torch.einsum("...ij,...j->...i", stress, vel)
         gradT = grad_up[..., mix.i_th, :]
-        Fe = tau_u + (kappa + kappa_e)[..., None] * gradT
-        zero = torch.zeros_like(Fe)
-        return torch.cat([zero[..., None, :], stress, Fe[..., None, :]],
-                         dim=-2)
+        zero = torch.zeros_like(tau_u)
+        parts = [zero[..., None, :], stress]
+        nact = mix.num_active_species
+        dv = props.get("diff_vel")
+        if mix.two_temperature:
+            qe = kappa_e[..., None] * grad_up[..., neq - 1, :]
+            Fe = tau_u + kappa[..., None] * gradT + qe
+        else:
+            Fe = tau_u + (kappa + kappa_e)[..., None] * gradT
+        if dv is None:
+            parts.append(Fe[..., None, :])
+            if nact:
+                parts.append(torch.zeros(U.shape[:-1] + (nact, dim),
+                                         dtype=U.dtype, device=U.device))
+            if mix.two_temperature:
+                parts.append(qe[..., None, :])
+            return torch.cat(parts, dim=-2)
+
+        # species diffusion fluxes: -rhoY_s * V_s, and the enthalpy they
+        # carry
+        rhoY = U[..., nvel + 2 : nvel + 2 + nact]
+        h_sp = mix.species_enthalpies(U)
+        Fe = Fe - torch.einsum("...s,...sd->...d", h_sp, dv[..., :dim])
+        parts += [Fe[..., None, :], -rhoY[..., None] * dv[..., :nact, :dim]]
+        if mix.two_temperature:
+            # the electron-energy equation also transports electron
+            # enthalpy with the electron diffusion velocity (reference:
+            # src/fluxes.cpp:250-252; the JAX package's round-5 fix)
+            ie = mix.i_electron
+            parts.append((qe - h_sp[..., ie, None] * dv[..., ie, :dim])
+                         [..., None, :])
+        return torch.cat(parts, dim=-2)
 
     def total_at_dofs(self, U, Up, grad_up, xyz, delta, distance=None):
         """F_conv - F_visc at solution nodes (reference: rhs_operator.cpp:532-541)."""

@@ -15,9 +15,11 @@ PyTorch, as the JAX package leaves them to XLA.
 
 The characteristic BCs' ghost states (init_bc_states, advance_bc_states)
 are the JAX package's; the solver holds them in its step loop's buffers.
-Not ported here: forcings (ROADMAP A5), the sharded RHS and the legacy
-point-permutation branch (A8) and boundary states in the gradient
-(useBCinGrad, A5).
+Pointwise forcings are added to dU/dt after the inverse mass, as the JAX
+package adds them; this port carries one, the plasma source term
+(dg/source_term.py).  Not ported here: the other forcings (ROADMAP A5),
+the sharded RHS and the legacy point-permutation branch (A8) and boundary
+states in the gradient (useBCinGrad, A5).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from .cuda_faces import build_face_sweep
 from .operators import _clip_species, _not_ported, _scatter_kron, _trace_kron
 from .operators import apply_minv2, dg_gradient, volume_weak_div
+from .source_term import SourceTerm
 
 
 @dataclass(frozen=True)
@@ -176,8 +179,8 @@ def compute_rhs(ctx: RHSContext, tab, U, t=0.0, fields=None, bc_states=None,
     preconditions."""
     if ctx.axis_name is not None:
         raise _not_ported("the sharded right-hand side", "A8")
-    if ctx.forcings:
-        raise _not_ported("forcings on the general (slot) path", "A5")
+    if any(not isinstance(f, SourceTerm) for f in ctx.forcings):
+        raise _not_ported("forcings other than the plasma source term", "A5")
     if tab.nbr_row is None:
         raise _not_ported("the legacy (sharded-table) face sweep", "A8")
     mix = ctx.mixture
@@ -213,9 +216,14 @@ def compute_rhs(ctx: RHSContext, tab, U, t=0.0, fields=None, bc_states=None,
         Uv, Up, grad_up, tab.xyz_dof, tab.delta[:, None], distance=tab.distance)
     z2_vol = volume_weak_div(tab, Fdof, fused_out=True)
 
-    y2 = apply_minv2(tab, z2_vol + z2_face, neq, radial=True)
+    y = apply_minv2(tab, z2_vol + z2_face, neq, radial=True).reshape(
+        ne, ndof, neq)
+
+    # ---- forcings, added to dU/dt (reference rhs_operator.cpp:452-461)
+    for f in ctx.forcings:
+        y = y + f(t, tab, U, Up, grad_up, fields)
     aux = {"max_char_speed": torch.amax(mix.max_char_speed(U))}
-    return y2.reshape(ne, ndof, neq), aux
+    return y, aux
 
 
 @dataclass(eq=False)

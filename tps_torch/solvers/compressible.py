@@ -3,8 +3,11 @@
 This slice carries single-device runs on generated boxes and O-grids
 (mesh generators) and on MFEM / Gmsh mesh files (mesh/mfem_reader.py,
 with uniform refinement, [periodicity] and refLength scaling), DryAir with
-Sutherland or constant transport, Rusanov, explicit RK, and two
-right-hand sides:
+Sutherland or constant transport, the two-temperature argon plasma
+(`fluid = user_defined`: physics/plasma_config.py's perfect mixture with
+argon_minimal transport and mass-action chemistry, its source term
+dg/source_term.py a forcing of the RHS, the species undershoot clip
+inside the step), Rusanov, explicit RK, and two right-hand sides:
 
 - the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
   CUDA device the two hand-written kernels of dg/cuda_fused.py, on the
@@ -45,6 +48,7 @@ import numpy as np
 import torch
 
 from ..config.run_config import RunConfiguration
+from ..constants import UNIVERSAL_GAS_CONSTANT
 from ..dg import cuda_faces, cuda_fused
 from ..dg import bc as bcs
 from ..dg.cuda_faces import build_face_sweep
@@ -52,12 +56,15 @@ from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
 from ..dg.fluxes import Fluxes
 from ..dg.fused import maybe_build_fused
+from ..dg.operators import _clip_species
 from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
                       init_bc_states)
 from ..dg.riemann import Rusanov
+from ..dg.source_term import SourceTerm
 from ..io.restart import RestartIO
 from ..mesh import generators
 from ..physics.gas import DryAir
+from ..physics.plasma_config import build_plasma
 from ..physics.transport import ConstantTransport, DryAirTransport
 from ..time.integrators import get_integrator
 from ..utils.cases import isentropic_vortex, taylor_green_2d, uniform_state
@@ -158,7 +165,7 @@ def _apply_mesh_options(mesh, raw):
 
 # input keys outside this slice: (ini key, what it enables, ROADMAP item)
 _UNPORTED_KEYS = (
-    ("io/restartFromLTE", "LTE restart conversion", "A6"),
+    ("io/restartFromLTE", "LTE restart conversion", "A6.4"),
     ("mesh/partitions", "domain decomposition", "A8"),
     ("io/enableHistory", "the history file", "A12"),
     ("planeDump/isEnabled", "plane dumps", "A12"),
@@ -168,7 +175,7 @@ _UNPORTED_KEYS = (
     ("flow/enablePressureForcing", "pressure forcing", "A5"),
     ("heatSource/numHeatSources", "heat sources", "A5"),
     ("spongezone/numSpongeZones", "sponge zones", "A5"),
-    ("passiveScalars/numScalars", "passive scalars", "A6"),
+    ("passiveScalars/numScalars", "passive scalars", "A6.2"),
     ("mms/isEnabled", "manufactured solutions", "A5"),
 )
 
@@ -187,12 +194,41 @@ _OUTLET_KINDS = ("subsonicPressure", "nonReflectingPressure",
 _BC_KINDS = _WALL_KINDS + _INLET_KINDS + _OUTLET_KINDS
 
 
+def _check_plasma(rc: RunConfiguration):
+    """The plasma this slice runs: a perfect mixture with argon_minimal
+    transport, no boundaries (the mixture BCs are A6.2)."""
+    raw = rc.raw
+    gas = str(raw.get("plasma_models/gas_model", "perfect_mixture"))
+    if gas != "perfect_mixture":
+        raise _not_ported(f"the '{gas}' gas model", "A6.3")
+    tmodel = str(raw.get("plasma_models/transport_model", "argon_minimal"))
+    if tmodel == "constant":
+        raise _not_ported("constant transport of a species mixture "
+                          "(ConstantPlasmaTransport)", "A6.2")
+    if tmodel != "argon_minimal":
+        raise _not_ported(f"the '{tmodel}' transport model", "A6.3")
+    if rc.bcs:
+        raise _not_ported("boundary conditions of a species mixture", "A6.2")
+    if rc.equation_system == "euler":
+        # the face-sweep kernel's mixture policy is Navier-Stokes only
+        raise _not_ported("Euler on a species mixture", "A6.2")
+
+
 def check_slice(rc: RunConfiguration):
     """Raise NotImplementedError for any input this slice does not run."""
-    if rc.fluid != "dry_air":
-        raise _not_ported(f"fluid '{rc.fluid}'", "A6")
+    if rc.fluid == "user_defined":
+        if rc.raw is None:
+            raise ValueError("fluid 'user_defined' is read from the input "
+                             "file's [plasma_models] and [species]")
+        _check_plasma(rc)
+    elif rc.fluid == "lte_table":
+        raise _not_ported("the LTE-table fluid (physics/lte.py)", "A9")
+    elif rc.fluid != "dry_air":
+        # neither package has another fluid (the JAX package raises too)
+        raise ValueError(f"fluid '{rc.fluid}': the fluids are dry_air, "
+                         f"user_defined and lte_table")
     if rc.equation_system not in ("euler", "navier-stokes"):
-        raise _not_ported(f"equation system '{rc.equation_system}'", "A6")
+        raise _not_ported(f"equation system '{rc.equation_system}'", "A6.2")
     if rc.use_roe:
         raise _not_ported("the Roe flux", "A1")
     if rc.axisymmetric:
@@ -261,12 +297,13 @@ class CompressibleSolver(PlasmaSolver):
         self.tables = self.tables_np.to_torch(self.dtype, self.device)
 
         dim = self.mesh.dim
-        self._build_physics(dim, dim)
+        forcings = self._build_physics(dim, dim)
         # boundary conditions: per-attr static slices over sorted bdr faces
         self.bc_slices = self._build_bcs()
         self._report_bc_patches()
         self.ctx = RHSContext(fluxes=self.fluxes, riemann=self.riemann,
-                              bcs=tuple(self.bc_slices))
+                              bcs=tuple(self.bc_slices),
+                              forcings=tuple(forcings))
         self._initialize_state_and_loop()
         # checkpoints are written every outputFreq whatever the keys, as
         # in the reference (src/M2ulPhyS.cpp:1988,2041); enableRestart /
@@ -279,8 +316,27 @@ class CompressibleSolver(PlasmaSolver):
 
     # ------------------------------------------------------------------
     def _build_physics(self, dim, nvel):
-        """Mixture, transport, fluxes and Riemann solver."""
+        """Mixture, transport, fluxes and Riemann solver; returns the
+        forcings (the plasma's source term)."""
         rc = self.config
+        self.plasma = None
+        forcings = []
+        if rc.fluid == "user_defined":
+            # the plasma (tps_tpu solvers/compressible.py:271-288).  Its
+            # Joule heating contributes zero without EM fields
+            # (tps_tpu dg/forcing.py:283-288) and is left out until the EM
+            # and coupling slices supply them (ROADMAP A10/A11)
+            self.plasma = build_plasma(rc.raw, dim, nvel)
+            self.mixture = self.plasma.mixture
+            transport = (None if rc.equation_system == "euler"
+                         else self.plasma.transport)
+            forcings.append(SourceTerm(mixture=self.mixture,
+                                       transport=self.plasma.transport,
+                                       chemistry=self.plasma.chemistry))
+            self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
+                                 eq_system=rc.equation_system)
+            self.riemann = Rusanov(self.fluxes)
+            return forcings
         self.mixture = DryAir(dim=dim, nvel=nvel)
         if rc.equation_system == "euler":
             transport = None
@@ -301,6 +357,7 @@ class CompressibleSolver(PlasmaSolver):
         self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
                              eq_system=rc.equation_system)
         self.riemann = Rusanov(self.fluxes)
+        return forcings
 
     def _build_rhs(self):
         """K1+K2 where their preconditions hold; the plain fused RHS for
@@ -453,6 +510,23 @@ class CompressibleSolver(PlasmaSolver):
         vel = [rc.ic.rhoU / rho, rc.ic.rhoV / rho, rc.ic.rhoW / rho]
         T = rc.ic.pressure / (mix.gas_constant * rho)
         Up = uniform_state(xyz, mix, rho, vel, T)
+        if self.plasma is not None:
+            # species initial mass fractions -> number densities (mixture
+            # order), then T (and Te) from the total pressure p = sum n_s
+            # R T (tps_tpu solvers/compressible.py:1183-1198)
+            Y = self.plasma.initial_mass_fractions
+            lo, na = mix.nvel + 2, mix.num_active_species
+            n_act = [torch.full_like(Up[..., 0], Y[s] * rho / mix.mw[s])
+                     for s in range(na)]
+            Up = torch.cat([Up[..., :lo], torch.stack(n_act, -1),
+                            Up[..., lo + na:]], -1)
+            n_sp = mix._n_sp_from_primitives(Up)
+            T_adj = rc.ic.pressure / (UNIVERSAL_GAS_CONSTANT
+                                      * torch.sum(n_sp, dim=-1))
+            Up = Up.clone()
+            Up[..., mix.i_th] = T_adj
+            if mix.two_temperature:
+                Up[..., mix.i_te] = T_adj
         return mix.conservatives(Up).to(self.dtype)
 
     # ------------------------------------------------------------------
@@ -467,6 +541,9 @@ class CompressibleSolver(PlasmaSolver):
         r = self._rhs
         U2, aux = self._integrator(r, r.to_fused(U), t, dt)
         U2 = r.from_fused(U2)
+        # species-density undershoots clipped on the stored state
+        # (reference: M2ulPhyS::Check_Undershoot; tps_tpu :665-673)
+        U2 = _clip_species(self.mixture, U2)
         bc2 = advance_bc_states(self.ctx, self.tables, U2, bc_states, dt)
         mcs = aux["max_char_speed"]
         if self._cfl_mode:
