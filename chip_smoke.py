@@ -1,8 +1,8 @@
 """GPU smoke test of tps_torch: builds the CUDA kernels, checks each against
-its plain PyTorch version, drives the solver's CLI on three decks, checks
-the solver against plain RK4 loops, its step graph against eager steps
-and its checkpoints against straight runs, and times kernels, right-hand
-sides, steps through solve() and checkpoint I/O.
+its plain PyTorch version, drives the solvers' CLI on the compressible and
+low-Mach decks, checks the solver against plain RK4 loops, its step graph
+against eager steps and its checkpoints against straight runs, and times
+kernels, right-hand sides, steps through solve() and checkpoint I/O.
 
     python3 chip_smoke.py
 
@@ -24,6 +24,13 @@ launch counts set to 0 just before it and read just after:
 Each runs solve()'s chunked loop, each step a replay of the solver's
 captured CUDA graph (tps_torch/solvers/step_graph.py); each kernel of a
 path must count 4 launches a step (RK4), those of the other path none.
+The low-Mach path (phases 21-24; no hand-written kernel: its H1 operators,
+CG and dense Cholesky are plain PyTorch on the card, as the JAX package's
+are XLA): the H1 operators and CG against the CPU, the shipped decks
+tests/inputs/lomach_tgv2d.ini and examples/cases/channel_rans.ini through
+the CLI (each constant-order step replayed as CUDA graphs, its CG solves
+in blocks, tps_torch/solvers/lomach/step_graph.py) and against the CPU in
+f64, graph against eager steps, and ms/step.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -1555,8 +1562,11 @@ def device_share(fn, n=8):
     if dev <= 0:
         return {"not measured": "no kernel recorded"}
     top = sorted(by_name.items(), key=lambda kv: kv[1], reverse=True)[:6]
+    launches = sum(1 for e in prof.events()
+                   if e.device_type == DeviceType.CUDA) / n
     return {"wall_ms": wall, "device_ms": dev, "busy_share": dev / wall,
-            "kernels": len(by_name), "top_ms": {k[:60]: v for k, v in top}}
+            "kernels": len(by_name), "launches": launches,
+            "top_ms": {k[:60]: v for k, v in top}}
 
 
 # ---------------------------------------------------------------- bounds
@@ -1712,6 +1722,625 @@ def rate_line(name, fma, ms, device_ms, b):
             + ("not measured" if device_ms is None else part(device_ms)))
 
 
+# ---------------------------------------------------------------- low-Mach
+
+TGV_DECK = os.path.join(REPO, "tests", "inputs", "lomach_tgv2d.ini")
+CHANNEL_DECK = os.path.join(REPO, "examples", "cases", "channel_rans.ini")
+# f64, card against the CPU: the same operations, summed in another order
+# by the card's libraries (1e-16..1e-15 expected); CG to the relative
+# tolerance 1e-12 on both, so its solver noise, not rounding, sets 1e-10
+H1_OP_TOL = 1e-12
+H1_CG_TOL = 1e-10
+# f64, a deck's final state on the card against the port's CPU run of the
+# same deck, relative to max|u| (each field to its own max): every solve
+# runs to 1e-12, so solver noise sets the bound
+LOMACH_CPU_TOL = 1e-9
+# the 3-D heated channel of phases 23-24 (24x12x12 p=2, p-multigrid)
+HEATED_CHANNEL = os.path.join(REPO, "tps_torch", "tools",
+                              "heated_channel3d.ini")
+
+
+def lrel(a, b):
+    """max|a - b| / max|b|, or max|a - b| where b is all zeros (the
+    shipped channel deck's fluid stays at rest)."""
+    a, b = a.double().cpu(), b.double().cpu()
+    d, m = float((a - b).abs().max()), float(b.abs().max())
+    return d / m if m > 0 else d
+
+
+def lomach_tps(deck, dtype, outdir, device="cuda", iters=None, keys=None):
+    """A low-Mach deck through the harness, as `python -m tps_torch
+    --runFile deck [--device cpu]` does, in dtype, its output in
+    build/<outdir>; `iters` and `keys` change ini values."""
+    from tps_torch import harness
+
+    torch.set_default_dtype(dtype)
+    tps = harness.Tps()
+    tps.parse_command_line_args(
+        ["tps", "--runFile", deck] + ([] if device == "cuda"
+                                      else ["--device", "cpu"]))
+    tps.parse_input()
+    tps.config.outdir = os.path.join(REPO, "build", outdir)
+    raw = tps.config.raw
+    if iters is not None:
+        raw.values["loMach/maxIters"] = str(iters)
+    for k, v in (keys or {}).items():
+        raw.values[k] = v
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    return tps
+
+
+def h1_case(kind, dev):
+    """2-D 16x16 p=3 or 3-D 8^3 p=2 boxes: (mesh, numpy tables, card
+    tables, CPU tables), f64."""
+    from tps_torch.fem import h1
+    from tps_torch.mesh.generators import box_2d, box_3d
+
+    mesh, order = (box_2d(16, 16), 3) if kind == "2d" else (box_3d(8, 8, 8), 2)
+    tab = h1.build_h1(mesh, order)
+    return (mesh, tab, tab.to_torch(torch.float64, dev),
+            tab.to_torch(torch.float64, "cpu"))
+
+
+def h1_inputs(tab, seed, dev):
+    rng = np.random.default_rng(seed)
+    nd, ne, nq, dim = tab.ndofs, tab.ne, tab.nq, tab.dim
+    x = {"u": rng.standard_normal(nd), "V": rng.standard_normal((nd, dim)),
+         "c": 1.0 + rng.random(nd), "cq": 1.0 + rng.random((ne, nq)),
+         "re": rng.standard_normal((ne, tab.ndof_el, 2)),
+         "mc": rng.random((dim, ne, nq)), "dc": rng.random((dim, ne, nq)),
+         "Kq": rng.random((ne, nq, dim, dim))}
+    return {k: torch.as_tensor(v, dtype=torch.float64, device=dev)
+            for k, v in x.items()}
+
+
+def h1_operators():
+    """Module 2 of fem/h1.py: name -> f(tab, inputs)."""
+    from tps_torch.fem import h1
+
+    return {
+        "gather": lambda t, x: h1.gather(t, x["V"]),
+        "scatter_add": lambda t, x: h1.scatter_add(t, x["re"]),
+        "to_quad": lambda t, x: h1.to_quad(t, x["u"]),
+        "weak_grad": lambda t, x: h1.weak_grad(t, x["u"], x["c"]),
+        "mass_apply": lambda t, x: h1.mass_apply(t, x["u"], x["cq"]),
+        "mass_apply (k=dim)": lambda t, x: h1.mass_apply(t, x["V"], x["c"]),
+        "diffusion_apply": lambda t, x: h1.diffusion_apply(t, x["u"], x["c"]),
+        "diffusion_apply (k=dim)":
+            lambda t, x: h1.diffusion_apply(t, x["V"], x["cq"]),
+        "mass_lumped_diag": lambda t, x: h1.mass_lumped_diag(t, x["c"]),
+        "mass_diag": lambda t, x: h1.mass_diag(t, x["cq"]),
+        "stiffness_diag": lambda t, x: h1.stiffness_diag(t, x["c"]),
+        "convection_apply":
+            lambda t, x: h1.convection_apply(t, x["u"], x["V"]),
+        "weak_divergence": lambda t, x: h1.weak_divergence(t, x["V"], x["c"]),
+        "grad_at_dofs": lambda t, x: h1.grad_at_dofs(t, x["u"]),
+        "divergence_at_dofs": lambda t, x: h1.divergence_at_dofs(t, x["V"]),
+        "integrate": lambda t, x: h1.integrate(t, x["c"]),
+        "surface_normal_form":
+            lambda t, x: h1.surface_normal_form(t, x["V"]),
+        "helmholtz_apply_multi": lambda t, x: h1.helmholtz_apply_multi(
+            t, x["V"], 3.0, x["mc"], x["dc"]),
+        "diffusion_apply_tensor":
+            lambda t, x: h1.diffusion_apply_tensor(t, x["u"], x["Kq"]),
+        "grid_scale_q": lambda t, x: h1.grid_scale_q(t, t.order),
+    }
+
+
+def h1_solves(mesh, tab_np, tab, x):
+    """The masked Helmholtz system (v, u) + (grad v, c grad u), Dirichlet
+    on the whole boundary, b random, under each preconditioner, and the
+    consistent-mass projection: name -> (x, iterations)."""
+    from tps_torch.fem import h1
+
+    dt, dev = tab.wq.dtype, tab.wq.device
+    mask = torch.ones(tab.ndofs, dtype=dt, device=dev)
+    mask[torch.as_tensor(h1.boundary_dofs(tab_np).astype(np.int64),
+                         device=dev)] = 0.0
+    c, b = x["c"], x["u"] * mask
+
+    def apply(v):
+        return h1.diffusion_apply(tab, v, c) + h1.mass_apply(tab, v)
+
+    def app_m(v):
+        return apply(v * mask) * mask + v * (1.0 - mask)
+
+    diag = (h1.stiffness_diag(tab, c) + h1.mass_lumped_diag(tab)) * mask \
+        + (1.0 - mask)
+    tab_c_np = h1.build_h1(mesh, 1)
+    tab_c = tab_c_np.to_torch(dt, dev)
+    P = h1.PInterp.from_numpy(*h1.build_p_interp(tab_np, tab_c_np, mesh),
+                              tab_c_np.ndofs, dt, dev)
+    cc, mc = c[P.c2f], mask[P.c2f]
+
+    def app_c(v):
+        out = h1.diffusion_apply(tab_c, v * mc, cc) \
+            + h1.mass_apply(tab_c, v * mc)
+        return out * mc + v * (1.0 - mc)
+
+    diag_c = (h1.stiffness_diag(tab_c, cc) + h1.mass_lumped_diag(tab_c)) \
+        * mc + (1.0 - mc)
+    K = h1.assemble_dense(tab, h1.element_stiffness(tab, c)
+                          + h1.element_mass(tab))
+    L = h1.dense_cholesky(h1.dense_constrain(K, mask=mask))
+    preconds = {
+        "jacobi": None,
+        "chebyshev": h1.chebyshev_precond(app_m, diag, degree=3),
+        "p-multigrid": h1.pmg_precond(app_m, diag, app_c, diag_c, P),
+        "dense direct": h1.direct_precond(L),
+    }
+    out = {}
+    for name, M in preconds.items():
+        xs, it, _res = h1.cg_solve(apply, b, diag=diag, dirichlet_mask=mask,
+                                   M=M, tol=1e-12, maxiter=1000,
+                                   return_info=True)
+        out[name] = (xs, int(it))
+    xs, it, _res = h1.cg_solve(
+        lambda v: h1.mass_apply(tab, v, c), h1.mass_apply(tab, x["u"]),
+        diag=h1.mass_diag(tab, c), tol=1e-12, maxiter=60, return_info=True)
+    out["l2_project (Jacobi)"] = (xs, int(it))
+    return out
+
+
+def phase_h1(dev):
+    """Phase 21: every operator of fem/h1.py's module 2 on the card against
+    the same function on the CPU (f64, to 1e-12 of max|y|), twice on the
+    card with equal bits; CG under each preconditioner (to 1e-10, equal
+    iteration counts), twice on the card with equal bits."""
+    worst = {}
+    for kind in ("2d", "3d"):
+        mesh, tab_np, tcard, tcpu = h1_case(kind, dev)
+        xg, xc = h1_inputs(tab_np, 5, dev), h1_inputs(tab_np, 5, "cpu")
+        bad = []
+        for name, f in h1_operators().items():
+            y1, y2, yc = f(tcard, xg), f(tcard, xg), f(tcpu, xc)
+            e = lrel(y1.cpu(), yc)
+            worst[name] = max(worst.get(name, 0.0), e)
+            if not (torch.equal(y1, y2) and e <= H1_OP_TOL):
+                bad.append((name, e, torch.equal(y1, y2)))
+        card, card2 = h1_solves(mesh, tab_np, tcard, xg), \
+            h1_solves(mesh, tab_np, tcard, xg)
+        cpu = h1_solves(mesh, tab_np, tcpu, xc)
+        its = {}
+        for name in card:
+            (xs, it), (xs2, it2), (xr, itr) = card[name], card2[name], \
+                cpu[name]
+            e = lrel(xs.cpu(), xr)
+            its[name] = (it, itr)
+            worst[f"cg {name}"] = max(worst.get(f"cg {name}", 0.0), e)
+            if not (e <= H1_CG_TOL and it == itr and it2 == it
+                    and torch.equal(xs, xs2)):
+                bad.append((f"cg {name}", e, it, itr))
+        log(f"  {kind} {tab_np.ndofs} dofs p={tab_np.order}: CG iterations "
+            f"card/CPU {its}")
+        if bad:
+            raise SystemExit(f"phase 21: the card's H1 path differs: {bad}")
+    log("  worst card vs CPU (relative to max|y|; CG to max|x|), every "
+        "operator and solve bitwise repeatable on the card: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in worst.items()))
+    return worst
+
+
+def tgv_energy(s):
+    from tps_torch.fem import h1
+
+    return float(h1.integrate(s.tab, torch.sum(s.flow.u ** 2, -1)))
+
+
+def zeta_checks(z, y):
+    """test_zeta_model.py's checks on zeta-f fields (walls at y = 0 and
+    1): positive, realizable, f = 0 at the walls; returns (passed, nu_t/k
+    near the walls over nu_t/k in the core)."""
+    k, eps, v2, f = (a.double().cpu().numpy() for a in (z.k, z.eps, z.v2,
+                                                        z.f))
+    nut = z.eddy_viscosity().double().cpu().numpy()
+    wall = (y < 1e-12) | (y > 1.0 - 1e-12)
+    near, core = (y < 0.15) & ~wall, (y > 0.2) & (y < 0.8)
+    ok = ((k > 0).all() and (eps > 0).all() and (v2 > 0).all()
+          and (v2 <= (2.0 / 3.0) * k * (1 + 1e-6) + 1e-14).all()
+          and np.abs(f[wall]).max() == 0.0 and np.isfinite(nut).all())
+    return ok, float((nut[near] / k[near]).mean()
+                     / (nut[core] / k[core]).mean())
+
+
+def sheared_zeta(dev, steps=60):
+    """test_zeta_model.py's test_zeta_channel_growth_and_wall_damping on
+    the card (f64): a periodic channel under a frozen parabolic profile,
+    60 steps; nu_t/k near the walls below half its core value."""
+    from tps_torch.fem import h1
+    from tps_torch.mesh.generators import box_2d
+    from tps_torch.solvers.lomach.base import (ConstantPropertyThermoChem,
+                                               TemporalCoefficients)
+    from tps_torch.solvers.lomach.zeta_model import ZetaModel
+
+    tab_np = h1.build_h1(box_2d(12, 4, x1=1.0, y1=1.0, periodic_x=True), 2)
+    tab = tab_np.to_torch(torch.float64, dev)
+    y = tab.xyz[:, 1]
+
+    class Frozen:
+        def velocity(self):
+            return torch.stack([40.0 * y * (1.0 - y), torch.zeros_like(y)], -1)
+
+    zm = ZetaModel(tab, Frozen(), ConstantPropertyThermoChem(tab, 1.0, 1e-3),
+                   wall_attrs=(1, 3), tke_ic=1e-2, tdr_ic=1e-2)
+    for i in range(steps):
+        zm.step(TemporalCoefficients.bdf(min(i + 1, 2)), 5e-3)
+    return zeta_checks(zm, tab_np.xyz[:, 1])
+
+
+def phase_lomach_decks(dev):
+    """Phase 22: tests/inputs/lomach_tgv2d.ini (40 steps) and
+    examples/cases/channel_rans.ini (200 steps) as shipped through the
+    CLI on the card (f32), each constant-order step a graph replay: the
+    TGV's energy decays as exp(-4 nu t) (test_lomach.py's bar), the
+    channel's zeta-f fields stay positive and realizable with f = 0 at
+    the walls, its checkpoint (every outputFreq 50) reads back through
+    h5lite; then both decks through the API in f64, on the card and on
+    the CPU: the final states within LOMACH_CPU_TOL."""
+    from tps_torch.io import h5lite
+
+    out = {}
+    tps = lomach_tps(TGV_DECK, torch.float32, "lomach_tgv")
+    s = tps.solver
+    ke0 = tgv_energy(s)
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    decay = abs(np.sqrt(tgv_energy(s) / ke0) - np.exp(-2 * 0.01 * s.time))
+    g = list(s._graphs.values())
+    log(f"  TGV f32: {s.iter} steps in {wall:.2f} s, {len(g)} step graph "
+        f"({g[0].graphs if g else 0} graphs: segments and CG blocks), host "
+        f"reads {s.loops.reads + s.info_reads}; |sqrt(KE/KE0) - "
+        f"exp(-2 nu t)| = {decay:.2e} (bar 2e-3); last solves "
+        f"{s.info_log[-1]}")
+    if tps.get_status() != 0 or s.iter != 40 or not g or decay >= 2e-3:
+        raise SystemExit("TGV deck: not 40 steps through the step graph, "
+                         "or the decay is off")
+    out["tgv f32"] = {"decay_err": decay, "wall_s": wall}
+
+    tps = lomach_tps(CHANNEL_DECK, torch.float32, "lomach_channel")
+    s = tps.solver
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ok, ratio = zeta_checks(s.turb, s.tab_np.xyz[:, 1])
+    ck = h5lite.read(os.path.join(s.outdir, "restart_lomach.sol.h5"))
+    layout = (sorted(ck["solution"]) == ["eddy_viscosity", "pressure",
+                                          "velocity"]
+              and int(ck.attrs["iteration"]) == 200
+              and ck["solution"]["velocity"].shape == (s.tab.ndofs, 2))
+    log(f"  channel f32: {s.iter} steps in {wall:.2f} s, host reads "
+        f"{s.loops.reads + s.info_reads}; zeta-f fields positive, "
+        f"realizable, f = 0 at the walls: {ok}; nu_t/k near the walls / "
+        f"core {ratio:.3f} (at rest: no shear); checkpoint layout {layout}; "
+        f"last solves {s.info_log[-1]}")
+    if tps.get_status() != 0 or s.iter != 200 or not (ok and layout
+                                                     and ratio < 1.0):
+        raise SystemExit("channel deck: zeta-f checks or checkpoint failed")
+    ok, ratio = sheared_zeta(dev)
+    log(f"  zeta-f under shear (test_zeta_model.py's case, f64, 60 steps): "
+        f"checks {ok}, nu_t/k near the walls / core {ratio:.3f} (bar 0.5)")
+    if not (ok and ratio < 0.5):
+        raise SystemExit("zeta-f under shear: wall damping failed")
+    out["channel f32"] = {"wall_s": wall, "damping": ratio}
+
+    for name, deck in (("tgv", TGV_DECK), ("channel", CHANNEL_DECK)):
+        states = []
+        for device in ("cuda", "cpu"):
+            tps = lomach_tps(deck, torch.float64, f"lomach_{name}_{device}",
+                             device=device)
+            tps.solve()
+            s = tps.solver
+            st = {"u": s.flow.u, "p": s.flow.p,
+                  "nu_t": s.turb.eddy_viscosity()}
+            if name == "channel":
+                st.update(k=s.turb.k, eps=s.turb.eps, v2=s.turb.v2)
+            states.append({k: v.double().cpu() for k, v in st.items()})
+        card, cpu = states
+        umax = float(cpu["u"].abs().max())
+        dists = {"u": float((card["u"] - cpu["u"]).abs().max())
+                 / max(umax, 1e-300)}
+        dists.update({k: lrel(card[k], cpu[k]) for k in card if k != "u"})
+        ok = all(v <= LOMACH_CPU_TOL for v in dists.values()) \
+            if umax > 0 else (float(card["u"].abs().max()) == 0.0
+                              and all(v <= LOMACH_CPU_TOL for k, v in
+                                      dists.items() if k != "u"))
+        log(f"  {name} f64, card vs the port's CPU run (each field to its "
+            f"max; max|u| {umax:.3e}): "
+            + ", ".join(f"{k} {v:.2e}" for k, v in dists.items())
+            + f" (bar {LOMACH_CPU_TOL})" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{name} deck: card and CPU differ")
+        out[f"{name} f64 card vs cpu"] = dists
+    return out
+
+
+def lomach_cases(dtype):
+    """Phase 24's cases (and phase 23's above the dense cutoff): the shipped
+    channel deck, the TGV deck at 64x64 p=3, the 3-D heated channel."""
+    return {
+        "channel_rans.ini": lambda: lomach_tps(CHANNEL_DECK, dtype,
+                                               "lomach_t_channel"),
+        "TGV 64x64 p=3": lambda: lomach_tps(
+            TGV_DECK, dtype, "lomach_t_tgv",
+            keys={"mesh/nx": "64", "mesh/ny": "64"}),
+        "3-D channel 24x12x12 p=2": lambda: lomach_tps(
+            HEATED_CHANNEL, dtype, "lomach_t_3d"),
+    }
+
+
+def lomach_state(s):
+    out = {"u": s.flow.u, "p": s.flow.p, "nu_t": s.turb.eddy_viscosity()}
+    for name in ("T", "Qt"):
+        if hasattr(s.thermo, name):
+            out[name] = getattr(s.thermo, name)
+    for name in ("k", "eps", "v2", "f"):
+        if hasattr(s.turb, name):
+            out[name] = getattr(s.turb, name)
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def phase_lomach_graphs(steps=20):
+    """Phase 23: graph against eager steps through solve(), f64: 20
+    constant-order steps after the BDF ramp, on the TGV 64x64 p=3 and the
+    3-D channel (p-multigrid, above the dense cutoff) and on the shipped
+    channel deck, whose dense factors are refreshed between two replays
+    (at step 16): every field bitwise or within GRAPH_TOL, the same CG
+    iterations per solve and step; then a capture that meets a dead
+    solver's graphs (dead_solver_capture)."""
+    out = {}
+    for name, make in lomach_cases(torch.float64).items():
+        runs = []
+        for graphs in (True, False):
+            tps = make()
+            s = tps.solver
+            s.cuda_graphs = graphs
+            s.max_iters_cfg = s.max_bdf_order - 1 + steps
+            s.output_freq = 10**9
+            s.write_restart = lambda: None
+            tps.solve()
+            runs.append((lomach_state(s), s.info_log, s))
+        (a, ia, sa), (b, ib, _) = runs
+        diffs = {k: lrel(a[k], b[k]) for k in a}
+        bitwise = all(torch.equal(a[k], b[k]) for k in a)
+        its = [k for k in ia[0] if k.endswith("_iters")]
+        same_its = [[r[k] for k in its] for r in ia] == \
+            [[r[k] for k in its] for r in ib]
+        # the shipped deck's factors: refreshed at steps 0 and 16, the
+        # second between two replays
+        refreshed = sa.flow.refreshes
+        ok = same_its and all(v <= GRAPH_TOL for v in diffs.values()) \
+            and (sa.flow._direct is None or refreshed >= 2)
+        log(f"  {name}: {sa.iter} steps, graph vs eager bitwise {bitwise}, "
+            f"max diff {max(diffs.values()):.3e} (bar {GRAPH_TOL}); the same "
+            f"CG iterations every step {same_its}; dense refreshes "
+            f"{refreshed}; iterations of the last step "
+            f"{ {k: ia[-1][k] for k in its} }" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{name}: graph and eager steps differ")
+        out[name] = {"bitwise": bitwise, "max_diff": max(diffs.values())}
+    out["dead solver's graphs collected around a capture"] = \
+        dead_solver_capture()
+    return out
+
+
+def dead_solver_capture():
+    """A solver dropped in a reference cycle with its step graphs, and a
+    collection forced inside the next solver's capture, at each CG solve's
+    split: a graph destroyed inside a capture ends the capture ("operation
+    failed due to a previous error during capture"), so the capture must
+    collect before it begins (solvers/step_graph.py, collector_paused)."""
+    import gc
+
+    from tps_torch.solvers.lomach.step_graph import StepGraph
+
+    split = StepGraph.split
+
+    def collecting(self, *args):
+        gc.collect()
+        return split(self, *args)
+
+    enabled = gc.isenabled()
+    gc.disable()  # the dead solver lives until a collection
+    StepGraph.split = collecting
+    try:
+        old = lomach_tps(TGV_DECK, torch.float64, "lomach_dead_a", iters=4)
+        old.solve()
+        graphs = len(old.solver._graphs)
+        old.solver.cycle = old.solver
+        del old
+        tps = lomach_tps(TGV_DECK, torch.float64, "lomach_dead_b", iters=4)
+        tps.solve()
+    finally:
+        StepGraph.split = split
+        if enabled:
+            gc.enable()
+    s = tps.solver
+    ok = graphs > 0 and bool(s._graphs) and s.iter == 4 \
+        and tps.get_status() == 0
+    log(f"  a capture with a dead solver's {graphs} step graph collected "
+        f"inside it at every CG split: captured {len(s._graphs)}, "
+        f"{s.iter} steps" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("a capture after a dead solver failed")
+    return ok
+
+
+def cg_breakdown(s, n=20):
+    """One pressure CG iteration of the TGV case (p-multigrid, pure
+    Neumann) in parts, device ms under torch.profiler: the operator apply,
+    the preconditioner apply, the vector work (reductions and updates);
+    with the bytes each must move at least (inputs read once, outputs
+    written once) and the time those take at the card's memory rate."""
+    from tps_torch.fem import h1
+
+    fl, tab = s.flow, s.tab
+    es = torch.finfo(s.dtype).bits // 8
+    inv_rho = 1.0 / s.thermo.density()
+    tab_c, P = fl._pmg["tab_c"], fl._pmg["P"]
+    inv_rho_c = inv_rho[P.c2f]
+
+    def lap(v):
+        return h1.diffusion_apply(tab, v, inv_rho)
+
+    def lap_c(v):
+        return h1.diffusion_apply(tab_c, v, inv_rho_c)
+
+    M = h1.pmg_precond(lap, h1.stiffness_diag(tab, inv_rho), lap_c,
+                       h1.stiffness_diag(tab_c, inv_rho_c), P, ortho=True)
+    g = torch.Generator(device=tab.wq.device).manual_seed(3)
+    vec = [torch.randn(tab.ndofs, dtype=s.dtype, device=tab.wq.device,
+                       generator=g) for _ in range(5)]
+    x, r, p, Ap, z = vec
+    rz = torch.sum(r * z)
+    it = torch.zeros((), dtype=torch.int64, device=tab.wq.device)
+
+    def vector_work():
+        active = (torch.sum(r * r) > 0.0) & (it < 10**9)
+        alpha = rz / torch.sum(p * Ap)
+        x.copy_(torch.where(active, x + alpha * p, x))
+        r.copy_(torch.where(active, r - alpha * Ap, r))
+        rz_new = torch.sum(r * z)
+        p.copy_(torch.where(active, z + (rz_new / rz) * p, p))
+        rz.copy_(torch.where(active, rz_new, rz))
+        it.add_(active.to(torch.int64))
+
+    def apply_bytes(t):
+        return (3 * t.ndofs * es + t.metric.numel() * es
+                + t.ed_flat.numel() * 8 + t.dg_flat.numel() * 8)
+
+    nd = tab.ndofs
+    parts = {
+        "operator apply": (lambda: lap(p), apply_bytes(tab)),
+        "preconditioner apply": (
+            lambda: M(r), apply_bytes(tab) + apply_bytes(tab_c)
+            + (P.P_ids.numel() + P.R_ids.numel() + P.c2f.numel()) * 8
+            + P.P_wts.numel() * es),
+        "reductions and updates": (vector_work, 8 * nd * es),
+    }
+    out = {}
+    for name, (fn, nbytes) in parts.items():
+        prof = device_share(fn, n)
+        out[name] = {"device_ms": prof.get("device_ms"),
+                     "wall_ms": prof.get("wall_ms"),
+                     "kernels": prof.get("kernels"), "bytes": nbytes,
+                     "bytes_ms": nbytes / PEAK_BYTES * 1e3,
+                     "top_ms": prof.get("top_ms")}
+    return out
+
+
+def phase_lomach_timing(cases, steps=8, profiled=1):
+    """Phase 24: ms/step through solve(), in turns eager, graph, graph,
+    eager, `steps` steps a turn, host clock to a synchronize (checkpoints
+    left out); device ms and busy share from `profiled` steps under
+    torch.profiler, graph and eager (one step: a low-Mach step launches
+    ~10-20 thousand kernels, and the profiler drops events past a few tens
+    of thousands); capture s and the graphs' pool; host
+    reads a step (CG status reads and ring reads); CG iterations per solve
+    (mean over the timed graph turns); the dense refresh s."""
+    out = {}
+    for name, s in cases.items():
+        s.output_freq = 10**9
+        s.write_restart = lambda: None
+
+        def turn(graphs, n=steps):
+            s.cuda_graphs = graphs
+            s.max_iters_cfg = s.iter + n
+            r0 = s.loops.reads + s.info_reads
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            s.solve()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return ((time.perf_counter() - t0) * 1e3 / n,
+                    (s.loops.reads + s.info_reads - r0) / n,
+                    ev[0].elapsed_time(ev[1]) / n)
+
+        ke0 = tgv_energy(s) if "TGV" in name else None
+        turn(True, 4)  # the BDF ramp, the warm-up step, the capture
+        ms = {True: [], False: []}
+        reads = {True: [], False: []}
+        span = {True: [], False: []}
+        rows = []
+        for graphs in (False, True, True, False):
+            m, rd, sp = turn(graphs)
+            ms[graphs].append(m)
+            reads[graphs].append(rd)
+            span[graphs].append(sp)
+            if graphs:
+                rows += s.info_log[-steps:]
+        prof = {}
+        for graphs in (True, False):
+            s.cuda_graphs = graphs
+            prof["graph" if graphs else "eager"] = device_share(
+                s.solve_step, profiled)
+        s.cuda_graphs = True
+        its = {k: float(np.mean([r[k] for r in rows]))
+               for k in rows[0] if k.endswith("_iters")}
+        refresh_s = None
+        if s.flow._direct is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.flow.precond_refresh(s.dt, s.max_bdf_order, force=True)
+            torch.cuda.synchronize()
+            refresh_s = time.perf_counter() - t0
+        g = next(iter(s._graphs.values()))
+        dev_ms = prof["graph"].get("device_ms")
+        res = {"dofs": s.tab.ndofs,
+               "graph_ms_per_step": float(np.mean(ms[True])),
+               "eager_ms_per_step": float(np.mean(ms[False])),
+               "graph_turns": ms[True], "eager_turns": ms[False],
+               "device_ms_per_step": (None if dev_ms is None
+                                      else dev_ms / profiled),
+               "span_ms_per_step": {"graph": float(np.mean(span[True])),
+                                    "eager": float(np.mean(span[False]))},
+               "launches_per_step": prof["graph"].get("launches"),
+               "busy_share": {k: v.get("busy_share") for k, v in
+                              prof.items()},
+               "host_reads_per_step": {"graph": float(np.mean(reads[True])),
+                                       "eager": float(np.mean(reads[False]))},
+               "cg_iterations_per_solve": its,
+               "capture_s": g.capture_s, "graphs": g.graphs,
+               "pool_MiB": g.pool_bytes / 2**20,
+               "dense_refresh_s": refresh_s,
+               "finite": bool(torch.isfinite(s.flow.u).all()),
+               "top_ms": prof["graph"].get("top_ms")}
+        if ke0 is not None:  # the TGV's decay, exp(-4 nu t) in energy
+            res["tgv_decay_err"] = abs(np.sqrt(tgv_energy(s) / ke0)
+                                       - np.exp(-2 * 0.01 * s.time))
+            log(f"  {name}: after {s.iter} steps |sqrt(KE/KE0) - "
+                f"exp(-2 nu t)| = {res['tgv_decay_err']:.2e} (bar 2e-3)")
+        if s.flow._direct is None and s.tab.dim == 2:
+            res["cg_iteration_parts"] = cg_breakdown(s)
+        log(f"  {name} ({res['dofs']} dofs, {s.dtype}): ms/step graph "
+            f"{res['graph_ms_per_step']:.3f} {ms[True]}, eager "
+            f"{res['eager_ms_per_step']:.3f} {ms[False]}; device ms/step "
+            f"{res['device_ms_per_step']} (kernels alone, profiled), "
+            f"{res['span_ms_per_step']} (CUDA events over the turns), "
+            f"{res['launches_per_step']} kernel launches a step; busy share "
+            f"{res['busy_share']}; "
+            f"host reads/step {res['host_reads_per_step']}; CG iterations "
+            f"per solve {its}; capture {g.capture_s:.3f} s ({g.graphs} "
+            f"graphs), pool {res['pool_MiB']:.1f} MiB; dense refresh "
+            f"{refresh_s} s")
+        if "cg_iteration_parts" in res:
+            for part, v in res["cg_iteration_parts"].items():
+                log(f"    one pressure CG iteration, {part}: device ms "
+                    f"{v['device_ms']}, {v['kernels']} kernels, >= "
+                    f"{v['bytes']} bytes = {v['bytes_ms']:.5f} ms at "
+                    f"{PEAK_BYTES / 1e12} TB/s; top {v['top_ms']}")
+        if not res["finite"]:
+            raise SystemExit(f"{name}: the state left the finite range")
+        out[f"{name} {str(s.dtype)[6:]}"] = res
+    return out
+
+
 def run(dev):
     """Every phase on device dev; returns the kernels' record and the
     card's nvidia-smi line."""
@@ -1833,6 +2462,25 @@ def run(dev):
             raise SystemExit(f"{name}: the f32 state left the finite range")
     steps.update(argon_steps)
 
+    log_phase("phase 21: the H1 operators and CG on the card vs the CPU "
+              "(f64, 2-D 16x16 p=3, 3-D 8^3 p=2), bitwise repeatable")
+    h1_worst = phase_h1(dev)
+    log_phase("phase 22: the low-Mach decks through the CLI (lomach_tgv2d.ini "
+              "40 steps, channel_rans.ini 200 steps, f32), then f64 card vs "
+              "CPU")
+    lomach_decks = phase_lomach_decks(dev)
+    log_phase("phase 23: low-Mach step graphs vs eager steps through solve() "
+              "(f64, 20 constant-order steps)")
+    lomach_graphs = phase_lomach_graphs()
+    log_phase("phase 24: low-Mach ms/step through solve(), graph vs eager "
+              "(channel_rans.ini, TGV 64x64 p=3, 3-D channel 24x12x12 p=2; "
+              "f64, f32)")
+    lomach_steps = {}
+    for dtype in (torch.float64, torch.float32):
+        lomach_steps.update(phase_lomach_timing(
+            {k: make().solver for k, make in lomach_cases(dtype).items()}))
+    torch.set_default_dtype(torch.float32)
+
     t16 = timing[(16, 16, 16)]
     tab16 = setup.tables((16, 16, 16), 2)
     gll = slot["gll_deck"]
@@ -1899,6 +2547,10 @@ def run(dev):
     summary["face_sweep on the argon plasma (p=2 GL, NS)"] = argon_faces
     summary["argon deck"] = {"launches": counts_argon, **argon_cli_checks,
                              **argon_solver_checks}
+    summary["low-Mach"] = {"H1 card vs CPU (f64)": h1_worst,
+                           "decks": lomach_decks,
+                           "graph vs eager (f64)": lomach_graphs,
+                           "solve() ms/step": lomach_steps}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

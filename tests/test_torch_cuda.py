@@ -4,6 +4,10 @@ gradient), with Sutherland and constant transport, on boxes, the curved
 cylinder O-grid and a hex mesh read from an MFEM file; the solver's step
 graph == its eager steps, with a characteristic outlet's ghost state in
 the loop's buffers; a checkpoint read on the card continues the run.
+The low-Mach path (no kernel of its own): an H1 operator repeats its bits
+on the card and matches the CPU; the Tomboulides step graph == eager
+steps, on p-multigrid and across a dense-factor refresh, and a capture
+holds while a dead solver's graphs are collected.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -687,3 +691,108 @@ def test_argon_deck_graph_matches_eager(device, f64, tmp_path):
     (Ug, tg, dtg), (Ue, te, dte) = out[True], out[False]
     np.testing.assert_allclose(Ug, Ue, rtol=0, atol=1e-12 * np.max(np.abs(Ue)))
     np.testing.assert_allclose([tg, dtg], [te, dte], rtol=1e-12)
+
+
+# ---------------------------------------------------------------- low-Mach
+
+LOMACH_TGV = os.path.join(os.path.dirname(__file__), "inputs",
+                          "lomach_tgv2d.ini")
+LOMACH_CHANNEL = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                              "examples", "cases", "channel_rans.ini")
+
+
+def _lomach(deck, outdir, graphs, iters, keys=None):
+    from tps_torch import harness
+
+    tps = harness.Tps()
+    tps.parse_command_line_args(["tps", "--runFile", deck])
+    tps.parse_input()
+    tps.config.outdir = str(outdir)
+    tps.config.raw.values["loMach/maxIters"] = str(iters)
+    for k, v in (keys or {}).items():
+        tps.config.raw.values[k] = v
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    tps.solver.cuda_graphs = graphs
+    tps.solve()
+    return tps.solver
+
+
+def test_h1_operator_is_repeatable_on_card(device):
+    """The H1 stiffness apply (gather, matmuls, the dof_gather sum: no
+    atomics) gives the same bits twice on the card, and the CPU's result
+    within 1e-12 of max|y| (f64)."""
+    from tps_torch.fem import h1
+
+    tab_np = h1.build_h1(box_2d(16, 16), 3)
+    rng = np.random.default_rng(0)
+    u, c = rng.standard_normal(tab_np.ndofs), 1.0 + rng.random(tab_np.ndofs)
+    ys = []
+    for dev in (device, device, "cpu"):
+        tab = tab_np.to_torch(torch.float64, dev)
+        ys.append(h1.diffusion_apply(
+            tab, torch.as_tensor(u, device=dev),
+            torch.as_tensor(c, device=dev)).cpu())
+    assert torch.equal(ys[0], ys[1])
+    assert float((ys[0] - ys[2]).abs().max()) <= 1e-12 * float(
+        ys[2].abs().max())
+
+
+def test_lomach_graph_matches_eager(device, f64, tmp_path, monkeypatch):
+    """The TGV deck at 16x16 p=3 with p-multigrid (the dense cutoff set
+    below it), 10 steps through solve(): graph replays == eager steps,
+    bitwise, with the same CG iterations every step."""
+    from tps_torch.fem import h1
+
+    monkeypatch.setattr(h1, "DENSE_DIRECT_MAX", 0)
+    keys = {"mesh/nx": "16", "mesh/ny": "16"}
+    g = _lomach(LOMACH_TGV, tmp_path / "g", True, 10, keys)
+    e = _lomach(LOMACH_TGV, tmp_path / "e", False, 10, keys)
+    assert g._graphs and not e._graphs
+    assert torch.equal(g.flow.u, e.flow.u) and torch.equal(g.flow.p, e.flow.p)
+    assert g.info_log == e.info_log and len(g.info_log) == 10
+
+
+def test_lomach_dense_refresh_inside_capture_window(device, f64, tmp_path):
+    """channel_rans.ini, 20 steps: the dense factors are refreshed at steps
+    0 and 16, the second between two replays, into the tensors the graph
+    reads; graph == eager bitwise."""
+    g = _lomach(LOMACH_CHANNEL, tmp_path / "g", True, 20)
+    e = _lomach(LOMACH_CHANNEL, tmp_path / "e", False, 20)
+    assert g.flow.refreshes == e.flow.refreshes == 2 and g._graphs
+    for name in ("k", "eps", "v2", "f"):
+        assert torch.equal(getattr(g.turb, name), getattr(e.turb, name))
+    assert torch.equal(g.flow.u, e.flow.u)
+    assert g.info_log == e.info_log
+
+
+def test_lomach_capture_after_a_dead_solver(device, f64, tmp_path,
+                                            monkeypatch):
+    """A solver dropped in a reference cycle, its step graphs with it, and
+    a collection forced inside the next solver's capture (at each CG
+    solve's split): the capture holds, since the dead graphs went before it
+    began (a graph destroyed inside a capture ends the capture)."""
+    import gc
+
+    from tps_torch.solvers.lomach.step_graph import StepGraph
+
+    split = StepGraph.split
+
+    def collecting(self, *args):
+        gc.collect()
+        return split(self, *args)
+
+    monkeypatch.setattr(StepGraph, "split", collecting)
+    enabled = gc.isenabled()
+    gc.disable()  # the dead solver lives until a collection
+    try:
+        old = _lomach(LOMACH_TGV, tmp_path / "a", True, 4)
+        assert old._graphs
+        old.cycle = old
+        del old
+        s = _lomach(LOMACH_TGV, tmp_path / "b", True, 4)
+    finally:
+        if enabled:
+            gc.enable()
+    assert s._graphs and s.iter == 4

@@ -99,6 +99,10 @@ def test_import_without_jax():
         "import tps_torch.physics.perfect_mixture\n"
         "import tps_torch.physics.gas_transport, tps_torch.physics.chemistry\n"
         "import tps_torch.physics.plasma_config\n"
+        "import tps_torch.fem.h1, tps_torch.solvers.lomach.solver\n"
+        "import tps_torch.solvers.lomach.step_graph\n"
+        "import tps_torch.solvers.lomach.rans\n"
+        "import tps_torch.solvers.lomach.zeta_model\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"

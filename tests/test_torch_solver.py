@@ -444,6 +444,36 @@ def test_nan_mid_chunk_names_its_step(tmp_path, f64):
     assert s.iter == 8
 
 
+def test_collector_paused_collects_first_and_restores():
+    """The guard around a graph capture: dead reference cycles are
+    collected on entry (a dead solver's CUDA graphs must not be destroyed
+    inside a capture), no automatic collection runs inside, and the
+    collector's state comes back, after an error too."""
+    import gc
+    import weakref
+
+    from tps_torch.solvers.step_graph import collector_paused
+
+    class Cycle:
+        pass
+
+    was = gc.isenabled()
+    try:
+        for enabled in (True, False):
+            (gc.enable if enabled else gc.disable)()
+            c = Cycle()
+            c.me = c
+            dead = weakref.ref(c)
+            del c
+            with pytest.raises(KeyError):
+                with collector_paused():
+                    assert dead() is None and not gc.isenabled()
+                    raise KeyError
+            assert gc.isenabled() == enabled
+    finally:
+        (gc.enable if was else gc.disable)()
+
+
 def test_cuda_device_requires_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("CUDA is present: --device cuda is valid here")

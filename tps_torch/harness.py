@@ -29,6 +29,7 @@ from .config.ini import IniInput
 from .config.run_config import parse_run_configuration
 from .solvers import base as solver_base
 from .solvers.compressible import CompressibleSolver  # noqa: F401 (registry)
+from .solvers.lomach.solver import LoMachSolver  # noqa: F401 (registry)
 
 # exit status of a completed run (reference: src/tps.hpp Tps::getStatus)
 NORMAL = 0
@@ -93,7 +94,7 @@ class Tps:
         if name not in solver_base.SOLVER_REGISTRY:
             raise NotImplementedError(
                 f"solver type '{name}' is not ported to tps_torch yet "
-                "(ROADMAP A9-A11)")
+                "(ROADMAP A10-A11)")
         self.solver = solver_base.create_solver(name, self.config, tps=self)
         self.solver.parse_solver_options()
         return self.solver

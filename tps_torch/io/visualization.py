@@ -1,11 +1,11 @@
 """ParaView-readable output: legacy ASCII VTK unstructured grids.
 
-The JAX package's io/visualization.py (`write_vtk_dg`, `_write_legacy_vtk`;
-tps_tpu/io/visualization.py:20-62, 99-129), numpy only.  The role of the
-reference's ParaViewDataCollection saves (src/M2ulPhyS.cpp:2043-2045) and
-of `tps --visual` (:4073-4154): the mesh and named nodal fields, each
-element's nodes written on their own (discontinuous), split into the
-sub-cells of its node lattice.
+The JAX package's io/visualization.py (`write_vtk_dg`, `write_vtk_h1`,
+`_write_legacy_vtk`; tps_tpu/io/visualization.py:20-129), numpy only.  The
+role of the reference's ParaViewDataCollection saves (src/M2ulPhyS.cpp:
+2043-2045) and of `tps --visual` (:4073-4154): the mesh and named nodal
+fields split into the sub-cells of each element's node lattice, each
+element's nodes written on their own (DG, discontinuous) or shared (H1).
 """
 
 from __future__ import annotations
@@ -54,6 +54,42 @@ def write_vtk_dg(path, tab_np, fields: dict):
 
     _write_legacy_vtk(path, pts3, cells, ctype,
                       {k: np.asarray(v).reshape(len(pts), -1)
+                       for k, v in fields.items()})
+
+
+def write_vtk_h1(path, tab_np, fields: dict):
+    """H1 fields on the space's dofs (shared points), each element's dof
+    lattice split into order-1 sub-cells (tps_tpu/io/visualization.py:65-96);
+    fields maps a name to [ndofs] or [ndofs, k]."""
+    xyz = np.asarray(tab_np.xyz)
+    ndofs, dim = xyz.shape
+    pts3 = np.concatenate([xyz, np.zeros((ndofs, 3 - dim))], axis=1)
+    ed = np.asarray(tab_np.elem_dofs)
+    n1d = tab_np.order + 1
+    cells = []
+    if dim == 2:
+        for e in range(tab_np.ne):
+            for j in range(n1d - 1):
+                for i in range(n1d - 1):
+                    c = i + n1d * j
+                    cells.append([ed[e, c], ed[e, c + 1],
+                                  ed[e, c + 1 + n1d], ed[e, c + n1d]])
+        ctype = _VTK_QUAD
+    else:
+        for e in range(tab_np.ne):
+            for k in range(n1d - 1):
+                for j in range(n1d - 1):
+                    for i in range(n1d - 1):
+                        c = i + n1d * (j + n1d * k)
+                        cells.append([
+                            ed[e, c], ed[e, c + 1], ed[e, c + 1 + n1d],
+                            ed[e, c + n1d], ed[e, c + n1d**2],
+                            ed[e, c + 1 + n1d**2], ed[e, c + 1 + n1d + n1d**2],
+                            ed[e, c + n1d + n1d**2],
+                        ])
+        ctype = _VTK_HEX
+    _write_legacy_vtk(path, pts3, cells, ctype,
+                      {k: np.asarray(v).reshape(ndofs, -1)
                        for k, v in fields.items()})
 
 

@@ -1,0 +1,517 @@
+"""LoMachSolver: the low-Mach orchestrator (reference: src/loMach.cpp).
+
+The port of the JAX package's solvers/lomach/solver.py.  Owns the mesh and
+the H1 space, builds the models from the ini input ([loMach] section;
+the factory of src/loMach.cpp:148-208), and steps thermoChem -> flow ->
+turbModel (reference: solveStep :414-437) with BDF order ramping.
+
+The step loop (step_graph.py): every step's CG solves run in blocks of
+masked iterations through one `SolveLoops`.  On a CUDA device, once the
+BDF order is constant (the JAX package's chunked steps start there too,
+its `_chunkable`), the first such step runs eagerly on a side stream, the
+next is captured as a StepGraph, and every step from then on is a replay
+of it; the ramp-up steps run eagerly.  `cuda_graphs = False` keeps every
+step eager (the graphs' reference).  The lagged dense factors of the
+flow are refreshed before a step when due, outside the graph.  Each step
+adds its solves' iterations and relative residuals to a device ring;
+the ring is read every `time/mcsLagSteps` steps, at a checkpoint and at
+the end, and a pressure or velocity solve that ended above tolerance
+raises there, as the JAX package's convergence check does (a
+checkpoint never holds a step whose solve failed).
+
+Out of the slice, each raising NotImplementedError with its ROADMAP item:
+the LTE and reacting thermo-chemistry and the sponge (A9.2, with the
+interpolated inlet, species initialisation and every file-fed turbulence
+input, which need interop/ext_data.py), the axisymmetric solver (A9.3),
+running statistics (A12) and domain decomposition (A8).
+"""
+
+from __future__ import annotations
+
+import os
+import time as _time
+
+import numpy as np
+import torch
+
+from ...fem import h1
+from ...io import h5lite
+from ...mesh import generators
+from ..base import Solver, register_solver
+from .base import (ConstantPropertyThermoChem, TemporalCoefficients,
+                   ZeroFlow, ZeroTurbModel)
+from .step_graph import SolveLoops, StepGraph
+from .thermo_chem import CaloricallyPerfectThermoChem, TemperatureDirichlet
+from .tomboulides import PressureDirichlet, Tomboulides, VelocityDirichlet
+from .turb import AlgebraicSubgridModel
+
+RING = 64  # steps of solve info kept on the device between two reads
+
+
+def _not_ported(what, item):
+    return NotImplementedError(f"{what} is not ported to tps_torch yet "
+                               f"(ROADMAP {item})")
+
+
+def check_slice(inp):
+    """Raise NotImplementedError for any low-Mach input this slice does not
+    run, on every device alike."""
+    tc = inp.get("loMach/thermo-solver", "constant-property")
+    if tc in ("lte-thermo-chem", "reacting-flow"):
+        raise _not_ported(f"the '{tc}' thermo-chemistry", "A9.2")
+    if any(inp.get(f"spongeMultiplier/{k}", 0)
+           for k in ("uniform", "plane", "cylinder", "annulus")):
+        raise _not_ported("the geometric sponge ([spongeMultiplier])", "A9.2")
+    if inp.get("plasma_models/initialize_species", 0):
+        raise _not_ported("species initialisation from a file "
+                          "(interop/ext_data.py)", "A9.2")
+    if inp.has("ransModel/zeta-f-file"):
+        raise _not_ported("zeta-f inlet profiles from a file "
+                          "(interop/ext_data.py)", "A9.2")
+    if inp.get("loMach/static-rans/visc-file", None):
+        raise _not_ported("a static-RANS eddy viscosity from a file "
+                          "(interop/ext_data.py)", "A9.2")
+    for sub in inp.sections_under("boundaryConditions"):
+        if inp.get(f"boundaryConditions/{sub}/type", "viscous") \
+                == "interpolate":
+            raise _not_ported("the interpolated inlet (interop/ext_data.py)",
+                              "A9.2")
+    if inp.get("loMach/axisymmetric", 0):
+        raise _not_ported("the axisymmetric low-Mach solver", "A9.3")
+    if inp.get("averaging/sampleFreq", 0) or inp.has("averaging/startIter"):
+        raise _not_ported("running statistics ([averaging])", "A12")
+    if max(int(inp.get("mesh/partitions", 1) or 1), 1) > 1:
+        raise _not_ported("domain decomposition (mesh/partitions > 1)", "A8")
+
+
+def _build_lomach_mesh(inp):
+    """[mesh] generator extension or [loMach] mesh file + scale."""
+    if inp.has("mesh/generator"):
+        gen = inp.get("mesh/generator", "box2d")
+        if gen == "box2d":
+            return generators.box_2d(
+                nx=inp.get("mesh/nx", 8), ny=inp.get("mesh/ny", 8),
+                x1=inp.get("mesh/x1", 1.0), y1=inp.get("mesh/y1", 1.0),
+                periodic_x=bool(inp.get("mesh/periodic_x", 0)),
+                periodic_y=bool(inp.get("mesh/periodic_y", 0)),
+            )
+        if gen == "box3d":
+            return generators.box_3d(
+                nx=inp.get("mesh/nx", 8), ny=inp.get("mesh/ny", 8),
+                nz=inp.get("mesh/nz", 8),
+                bounds=((0.0, inp.get("mesh/x1", 1.0)),
+                        (0.0, inp.get("mesh/y1", 1.0)),
+                        (0.0, inp.get("mesh/z1", 1.0))),
+                periodic=(bool(inp.get("mesh/periodic_x", 0)),
+                          bool(inp.get("mesh/periodic_y", 0)),
+                          bool(inp.get("mesh/periodic_z", 0))),
+            )
+        raise ValueError(f"unknown generator {gen}")
+    from ...mesh.mfem_reader import read_mesh
+
+    mesh = read_mesh(inp.get_required("loMach/mesh"))
+    scale = inp.get("loMach/scale-mesh", 1.0)
+    if scale != 1.0:
+        mesh = mesh.scaled(scale)
+    return mesh
+
+
+@register_solver("loMach")
+class LoMachSolver(Solver):
+    # on a CUDA device constant-order steps are replays of a captured step
+    # graph; False steps eagerly there (the graphs' reference)
+    cuda_graphs = True
+
+    def __init__(self, config, tps=None, device=None):
+        super().__init__(config, tps=tps)
+        if device is None:
+            device = getattr(tps, "device", None) or "cuda"
+        # TF32 stays off on this path (ROADMAP C, matmul precision): the
+        # solver never switches it on, so its f32 matmuls and the dense
+        # factors run in full f32 on the card
+        self.device = torch.device(device)
+
+    def initialize(self):
+        inp = self.config.raw
+        check_slice(inp)
+        self.dtype = torch.get_default_dtype()
+
+        self.mesh = _build_lomach_mesh(inp)
+        order = inp.get("loMach/order", 1)
+        self.tab_np = h1.build_h1(self.mesh, order=order)
+        self.tab = self.tab_np.to_torch(self.dtype, self.device)
+
+        self.dt = inp.get("time/dt_fixed", 1e-3)
+        self.max_bdf_order = inp.get("time/bdfOrder", 3)
+        self.max_iters_cfg = inp.get("loMach/maxIters", 10)
+        self.output_freq = inp.get("loMach/outputFreq", 1000)
+        self.lag = max(min(int(inp.get("time/mcsLagSteps", 8)), RING), 1)
+        cg_tol = inp.get("time/solverRelTolerance", 1e-12)
+        cg_maxiter = inp.get("time/maxSolverIteration", 500)
+        # the flow's solves have their own tolerance, looser by default
+        # (reference: tomboulides.hpp:149 default_rtol_ 1e-10)
+        flow_tol = inp.get("loMach/tomboulides/psolve-rtol",
+                           inp.get("loMach/rtol", 1e-10))
+
+        vel_bcs, temp_bcs, pres_bcs, inlet_info, qt_attrs = \
+            self._read_bcs(inp)
+
+        # thermo-chem model factory (reference: src/loMach.cpp:148-208)
+        tc_model = inp.get("loMach/thermo-solver", "constant-property")
+        if tc_model in ("calorically-perfect", "calorically_perfect"):
+            self.thermo = CaloricallyPerfectThermoChem(
+                self.tab,
+                gas_constant=inp.get("loMach/calperfect/Rgas", 287.058),
+                gamma=inp.get("loMach/calperfect/gamma", 1.4),
+                p_thermo=inp.get("loMach/ambientPressure", 101325.0),
+                closed_system=bool(inp.get("loMach/closedSystem", 0)),
+                constant_mu=(
+                    inp.get("loMach/calperfect/viscosity/mu", None, float)
+                    if inp.get("loMach/calperfect/viscosity-model",
+                               "sutherland") == "constant"
+                    else None),
+                Pr=inp.get("loMach/calperfect/Prandtl", 0.71),
+                temp_bcs=tuple(temp_bcs),
+                qt_bcs=(tuple(qt_attrs),) if qt_attrs else (),
+                T_init=inp.get("loMach/calperfect/ic/temperature", 300.0),
+                sw_stab=bool(
+                    inp.get("loMach/calperfect/streamwise-stabilization", 0)),
+                reh_factor=inp.get("loMach/calperfect/Reh_factor", 0.5),
+                reh_offset=inp.get("loMach/calperfect/Reh_offset", 1.0),
+                cg_tol=cg_tol, cg_maxiter=cg_maxiter,
+            )
+        else:
+            self.thermo = ConstantPropertyThermoChem(
+                self.tab,
+                rho=inp.get("loMach/constprop/rho", 1.0),
+                mu=inp.get("loMach/constprop/mu", 1.0e-3),
+            )
+
+        # optional smooth hot-kernel temperature IC:
+        #   [initialConditions]
+        #   profile = gaussian   temperature = peak, backgroundTemperature,
+        #   center = 'x y [z]'   width = 'wx wy [wz]' (1e30 = uniform dim)
+        if inp.get("initialConditions/profile", "uniform") == "gaussian" \
+                and hasattr(self.thermo, "set_temperature"):
+            Tpeak = inp.get("initialConditions/temperature", 300.0)
+            Tback = inp.get("initialConditions/backgroundTemperature", 300.0)
+            dim = self.mesh.dim
+            cen = np.asarray(inp.get_vec("initialConditions/center",
+                                         default=[0.0] * dim))
+            wid = np.asarray(inp.get_vec("initialConditions/width",
+                                         default=[1.0] * dim))
+            xyz = self.tab_np.xyz
+            arg = sum(((xyz[:, d] - cen[d]) / wid[d]) ** 2
+                      for d in range(dim))
+            self.thermo.set_temperature(Tback + (Tpeak - Tback) * np.exp(-arg))
+
+        # flow model factory
+        flow_model = inp.get("loMach/flow-solver", "tomboulides")
+        gvec = inp.get_vec("loMach/gravity", self.tab.dim) \
+            if inp.has("loMach/gravity") else None
+        if flow_model == "tomboulides":
+            self.flow = Tomboulides(
+                self.tab, self.thermo, vel_bcs=tuple(vel_bcs),
+                pres_bcs=tuple(pres_bcs), cg_tol=flow_tol,
+                cg_maxiter=cg_maxiter,
+                mesh=self.mesh,  # enables p-multigrid pressure precond
+                gravity=gvec,
+            )
+        elif flow_model == "zero-flow":
+            self.flow = ZeroFlow(self.tab)
+        else:
+            raise ValueError(f"unknown flow solver '{flow_model}'")
+        if hasattr(self.thermo, "flow"):
+            self.thermo.flow = self.flow
+
+        self.turb = self._build_turb(inp, inlet_info)
+        if self.turb is not None and hasattr(self.flow, "turb"):
+            self.flow.turb = self.turb
+        if self.turb is None:
+            self.turb = ZeroTurbModel(self.tab)
+
+        # initial condition
+        if inp.get("loMach/tomboulides/ic", None) == "tgv2d" \
+                and flow_model == "tomboulides":
+            x, y = self.tab.xyz[:, 0], self.tab.xyz[:, 1]
+            self.flow.set_velocity(torch.stack(
+                [torch.sin(x) * torch.cos(y), -torch.cos(x) * torch.sin(y)],
+                -1))
+
+        self.time = 0.0
+        self.iter = 0
+        self.loops = SolveLoops()
+        self._side = None  # the warm-up and capture stream (CUDA)
+        self._graphs = {}  # (order, dt) -> StepGraph
+        self._warm = set()  # (order, dt) whose warm-up step has run
+        self._ring = None  # [RING, len(info keys)] solve info of the last steps
+        self._info_keys = None
+        self._unread = 0  # steps in the ring not read yet
+        self.info_log = []  # the read rows (dicts), newest last
+        self.info_reads = 0  # host reads of the ring
+        self._wall0 = _time.perf_counter()
+
+        self.outdir = self.config.outdir
+        if inp.get("io/enableRestart", 0):
+            self.read_restart()
+
+    def _read_bcs(self, inp):
+        """[boundaryConditions/*]: velocity, temperature and pressure
+        Dirichlet BCs, inlets for the turbulence model, isothermal walls."""
+        vel_bcs, temp_bcs, pres_bcs = [], [], []
+        inlet_info = []  # (patch, base) of uniform inlets
+        qt_attrs = []  # isothermal-wall patches: Qt = 0 Dirichlet there
+        dim = self.mesh.dim
+        for sub in inp.sections_under("boundaryConditions"):
+            base = f"boundaryConditions/{sub}"
+            if not inp.has(f"{base}/patch"):
+                continue
+            patch = inp.get_required(f"{base}/patch", int)
+            kind = inp.get(f"{base}/type", "viscous")
+            # temperature Dirichlet applies to walls and inlets
+            if kind != "outlet" and inp.has(f"{base}/temperature"):
+                temp_bcs.append(TemperatureDirichlet(
+                    attrs=(patch,),
+                    value=inp.get_required(f"{base}/temperature", float)))
+            if kind in ("viscous", "no-slip", "viscous_isothermal"):
+                vel = inp.get_vec(f"{base}/velocity", default=[0.0] * dim)
+                vel_bcs.append(VelocityDirichlet(attrs=(patch,),
+                                                 value=tuple(vel)))
+                if inp.has(f"{base}/temperature"):
+                    qt_attrs.append(patch)
+            elif kind == "inlet":
+                vel = inp.get_vec(f"{base}/velocity", default=[0.0] * dim)
+                vel_bcs.append(VelocityDirichlet(
+                    attrs=(patch,), value=tuple(vel),
+                    ramp_time=inp.get(f"{base}/rampTime", 0.0)))
+                inlet_info.append((patch, base))
+            elif kind in ("outlet", "pressure"):
+                # pressure Dirichlet outlet (reference: pres_dbcs_,
+                # src/tomboulides.cpp:1865-1870)
+                pres_bcs.append(PressureDirichlet(
+                    attrs=(patch,), value=inp.get(f"{base}/pressure", 0.0)))
+            # any other type: a natural (do-nothing) boundary
+        return vel_bcs, temp_bcs, pres_bcs, inlet_info, qt_attrs
+
+    def _build_turb(self, inp, inlet_info):
+        """The turbulence model (reference: src/loMach.cpp:153-177); None
+        for none."""
+        turb = inp.get("loMach/turb-model", inp.get("loMach/sgsModel", "none"))
+        if turb in ("smagorinsky", "sigma", "wale"):
+            return AlgebraicSubgridModel(
+                self.tab, self.flow, model=turb,
+                const=inp.get("loMach/sgsModelConstant", 0.0) or None)
+        if turb == "algebraic-rans":
+            from .rans import AlgebraicRans
+
+            walls = self._wall_attrs(inp, "loMach/algebraic-rans/walls")
+            return AlgebraicRans(
+                self.tab, self.flow, self.thermo,
+                wall_distance=self._h1_wall_distance(walls),
+                max_mixing_length=inp.get(
+                    "loMach/algebraic-rans/max-mixing-length", 1.0e30))
+        if turb == "zeta-f":
+            from .zeta_model import ZetaModel
+
+            # inlet tke/v2 Dirichlet values: uniform from {inlet}/tke
+            # (v2 = 2/3 tke) (reference: zetaModel.cpp:481-540)
+            tdr_ic = inp.get("ransModel/tdr-ic", 1.0e-8)
+            inlet_bcs = []
+            for patch, base in inlet_info:
+                if inp.has(f"{base}/tke"):
+                    tke = inp.get(f"{base}/tke", 0.0)
+                    inlet_bcs.append(((patch,), tke, tdr_ic,
+                                      (2.0 / 3.0) * tke))
+            return ZetaModel(
+                self.tab, self.flow, self.thermo,
+                wall_attrs=self._wall_attrs(inp, "ransModel/walls"),
+                inlet_bcs=tuple(inlet_bcs),
+                tke_ic=inp.get("ransModel/tke-ic", 1.0e-4), tdr_ic=tdr_ic,
+                cg_tol=inp.get("ransModel/hsolve-rtol", 1e-10),
+                cg_maxiter=inp.get("ransModel/hsolve-maxIters", 500))
+        if turb == "static-rans":
+            from .rans import StaticRans
+
+            return StaticRans(
+                self.tab, inp.get("loMach/static-rans/eddy-viscosity", 0.0))
+        return None
+
+    def _wall_attrs(self, inp, key):
+        return tuple(int(a) for a in inp.get_vec(key, default=[])) \
+            or tuple(int(a) for a in np.unique(self.mesh.bdr_attrs))
+
+    def _h1_wall_distance(self, wall_attrs):
+        """Distance from every H1 dof to the nearest wall-boundary dof
+        (serial wall distance; reference: src/mesh_base.cpp)."""
+        xyz = self.tab_np.xyz
+        wxyz = xyz[h1.boundary_dofs(self.tab_np, tuple(wall_attrs))]
+        out = np.empty(len(xyz))
+        for i in range(0, len(xyz), 4096):
+            d = np.linalg.norm(
+                xyz[i:i + 4096, None, :] - wxyz[None, :, :], axis=-1)
+            out[i:i + 4096] = d.min(axis=1)
+        return out
+
+    @property
+    def max_iters(self):
+        return self.max_iters_cfg
+
+    # -- the step loop ---------------------------------------------------
+    def solve(self):
+        """Step to maxIters (reference: LoMachSolver::solve,
+        src/loMach.cpp:543)."""
+        self.solve_begin()
+        while self.iter < self.max_iters and self.status == 0:
+            self.solve_step()
+        self.solve_end()
+
+    def solve_step(self):
+        """thermo -> flow -> turb (reference: loMach.cpp:414-437): the
+        dense factors refreshed when due, then the step, eager or a graph
+        replay; then the service tail."""
+        order = min(self.iter + 1, self.max_bdf_order)
+        coeff = TemporalCoefficients.bdf(order)
+        if hasattr(self.flow, "precond_refresh"):
+            self.flow.precond_refresh(self.dt, order)
+            if self.flow._direct_age is not None:
+                self.flow._direct_age += 1
+        graph = self._graph(coeff)
+        if graph is not None:
+            graph.replay()
+        elif self._warming(coeff):
+            dev = self.device
+            self._side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(self._side):
+                self._body(coeff)
+            torch.cuda.current_stream(dev).wait_stream(self._side)
+        else:
+            self._body(coeff)
+        self.time += self.dt
+        self.iter += 1
+        self._unread += 1
+        if self._unread >= self.lag:
+            self._read_info()
+        if self.iter % self.output_freq == 0:
+            self._read_info()
+            wall = _time.perf_counter() - self._wall0
+            si = self.info_log[-1] if self.info_log else {}
+            txt = (f" [p: {si['p_iters']:.0f} it {si['p_res']:.1e}"
+                   f" | v: {si['v_iters']:.0f} it {si['v_res']:.1e}]"
+                   if "p_iters" in si else "")
+            print(f"loMach step {self.iter} t={self.time:.6e} "
+                  f"wall/step={wall / self.output_freq:.4f}s" + txt,
+                  flush=True)
+            self._wall0 = _time.perf_counter()
+            self.write_restart()
+
+    def _graphs_on(self, coeff):
+        return (self.cuda_graphs and self.device.type == "cuda"
+                and coeff.order == self.max_bdf_order)
+
+    def _warming(self, coeff):
+        """True for the first constant-order step on CUDA with graphs on:
+        it runs eagerly on the capture stream (library handles, workspaces
+        and caches set up before any capture)."""
+        key = (coeff.order, self.dt)
+        if not self._graphs_on(coeff) or key in self._warm:
+            return False
+        self._warm.add(key)
+        if self._side is None:
+            self._side = torch.cuda.Stream(device=self.device)
+        return True
+
+    def _graph(self, coeff):
+        """The step graph of this order and dt, captured on its second
+        step (the first warms up); None where steps run eagerly."""
+        key = (coeff.order, self.dt)
+        if not self._graphs_on(coeff) or key not in self._warm:
+            return None
+        graph = self._graphs.get(key)
+        if graph is None:
+            graph = StepGraph(self.loops, self._side)
+            graph.capture(lambda: self._body(coeff))
+            self._graphs[key] = graph
+        return graph
+
+    def _body(self, coeff):
+        """One step's device work (what a step graph holds): each model's
+        step, then its solves' info into the ring."""
+        self.loops.begin_step()
+        self.thermo.step(coeff, self.dt, self.loops)
+        self.flow.advance(coeff, self.dt, self.loops)
+        self.turb.step(coeff, self.dt, self.loops)
+        info = {}
+        for model in (self.flow, self.thermo, self.turb):
+            info.update(getattr(model, "info", {}))
+        if self._ring is None:  # the first step, always eager
+            self._info_keys = tuple(info)
+            self._ring = torch.zeros((RING, len(info)), dtype=self.dtype,
+                                     device=self.device)
+        row = torch.stack([info[k].to(self.dtype) for k in self._info_keys])
+        self._ring.copy_(torch.cat((self._ring[1:], row[None])))
+
+    def _read_info(self):
+        """Read the ring's unread rows (one host read) and check the flow's
+        solves converged (the JAX package's _check_solve_info)."""
+        n, self._unread = min(self._unread, RING), 0
+        if n == 0 or self._ring is None:
+            return
+        self.info_reads += 1
+        rows = [dict(zip(self._info_keys, r))
+                for r in self._ring[RING - n:].tolist()]
+        self.info_log = (self.info_log + rows)[-1024:]
+        for row in rows:
+            if "p_res" in row:
+                Tomboulides.check_solve_info(row)
+
+    def solve_end(self):
+        self._read_info()
+        self.write_restart()
+
+    # -- restart in the JAX package's layout -----------------------------
+    @property
+    def _restart_path(self):
+        return os.path.join(self.outdir, "restart_lomach.sol.h5")
+
+    def _restart_fields(self):
+        """Model state registered for checkpointing (tps_tpu/solvers/lomach/
+        solver.py:1013-1027)."""
+        fields = {"velocity": self.flow.velocity()}
+        if hasattr(self.flow, "p"):
+            fields["pressure"] = self.flow.p
+        if hasattr(self.thermo, "T"):
+            fields["temperature"] = self.thermo.T
+        fields["eddy_viscosity"] = self.turb.eddy_viscosity()
+        return {k: v.detach().double().cpu().numpy() for k, v in fields.items()}
+
+    def write_restart(self):
+        os.makedirs(self.outdir, exist_ok=True)
+        h5lite.write(self._restart_path,
+                     {"solution": self._restart_fields()},
+                     {"iteration": int(self.iter), "time": float(self.time),
+                      "order": int(self.tab.order),
+                      "dofs_global": int(self.tab.ndofs)})
+
+    def read_restart(self):
+        path = self._restart_path
+        if not os.path.exists(path):
+            raise FileNotFoundError(f"restart file not found: {path}")
+        f = h5lite.read(path)
+        self.iter = int(f.attrs["iteration"])
+        self.time = float(f.attrs["time"])
+        g = f["solution"]
+        if hasattr(self.flow, "set_velocity"):
+            self.flow.set_velocity(np.asarray(g["velocity"]))
+            self.flow.t.fill_(self.time)
+        if "pressure" in g and hasattr(self.flow, "p"):
+            self.flow.p.copy_(torch.as_tensor(np.asarray(g["pressure"])))
+        if "temperature" in g and hasattr(self.thermo, "set_temperature"):
+            self.thermo.set_temperature(np.asarray(g["temperature"]))
+
+    def visualization(self):
+        """ParaView VTK file of the model fields (reference: loMach pvdc)."""
+        from ...io.visualization import write_vtk_h1
+
+        path = os.path.join(self.outdir, f"lomach_{self.iter:08d}.vtk")
+        write_vtk_h1(path, self.tab_np, self._restart_fields())
+        return path

@@ -23,7 +23,9 @@ tuple with a tensor for each stateful BC, None for the others):
 
 A capture that meets a host sync or a pageable copy raises (PyTorch
 captures in the global error mode), and so does a failed replay.  Nothing
-falls back to eager stepping.
+falls back to eager stepping.  Python's cycle collector is paused while a
+graph captures (`collector_paused`): a collection inside a capture can
+destroy a dead graph, and that CUDA call ends the capture in an error.
 
 The kernels' wrappers count a launch per Python call (the `launches`
 dicts of dg/cuda_fused.py and dg/cuda_faces.py), so a capture would count
@@ -39,11 +41,31 @@ tensors), the body returns the new states and the step copies them in.
 
 from __future__ import annotations
 
+import contextlib
+import gc
 import time
 
 import torch
 
 RING = 64  # the longest chunk (the JAX solver's, _chunk_size)
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """One collection of Python's reference cycles, then no automatic one
+    until the block ends.  A capture runs inside: a solver dropped in a
+    reference cycle keeps its CUDA graphs until a collection, and a graph
+    destroyed while another captures is a CUDA call the capture does not
+    permit (cudaGraphExecDestroy), which ends it with "operation failed
+    due to a previous error during capture" at a later operation."""
+    gc.collect()
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if enabled:
+            gc.enable()
 
 
 class StepLoop:
@@ -100,20 +122,21 @@ class StepLoop:
             self._step()
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()
-        before = [dict(c) for c in self.counters]
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        try:
-            with torch.cuda.graph(graph):
-                self._step()
-        finally:
-            # what the capture recorded is not a launch
-            self.per_replay = [{k: c[k] - b.get(k, 0) for k in c}
-                               for c, b in zip(self.counters, before)]
-            for c, b in zip(self.counters, before):
-                c.update(b)
+        with collector_paused():
+            torch.cuda.empty_cache()
+            before = [dict(c) for c in self.counters]
+            reserved = torch.cuda.memory_reserved(dev)
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            try:
+                with torch.cuda.graph(graph):
+                    self._step()
+            finally:
+                # what the capture recorded is not a launch
+                self.per_replay = [{k: c[k] - b.get(k, 0) for k in c}
+                                   for c, b in zip(self.counters, before)]
+                for c, b in zip(self.counters, before):
+                    c.update(b)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
         self.graph = graph
