@@ -30,7 +30,13 @@ are XLA): the H1 operators and CG against the CPU, the shipped decks
 tests/inputs/lomach_tgv2d.ini and examples/cases/channel_rans.ini through
 the CLI (each constant-order step replayed as CUDA graphs, its CG solves
 in blocks, tps_torch/solvers/lomach/step_graph.py) and against the CPU in
-f64, graph against eager steps, and ms/step.
+f64, graph against eager steps, and ms/step.  The coupled plasma torch
+(phases 25-28; no hand-written kernel either): its modules (the LTE
+tables, the radius-weighted H1 applies, the EM block apply, the dense
+Schur and GMRES solves, the cross-mesh interpolator) against the CPU,
+examples/cases/torch_axisym_coupled.ini through the CLI and against the
+CPU in f64, graph against eager steps across an EM update, and ms/step
+through the coupled solve() on that deck and a refined one.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -1102,7 +1108,7 @@ def phase_io_timing(s):
     return res
 
 
-def phase_step_timing(cases, steps=32, profiled=16):
+def phase_step_timing(cases, steps=16, profiled=4):
     """ms/step through solve() (f32), the step graph against eager steps,
     in turns eager, graph, chain, chain, graph, eager, `steps` steps a
     turn, host clock to a synchronize ("chain": the same integrator and
@@ -2233,7 +2239,7 @@ def cg_breakdown(s, n=20):
     return out
 
 
-def phase_lomach_timing(cases, steps=8, profiled=1):
+def phase_lomach_timing(cases, steps=4, profiled=1):
     """Phase 24: ms/step through solve(), in turns eager, graph, graph,
     eager, `steps` steps a turn, host clock to a synchronize (checkpoints
     left out); device ms and busy share from `profiled` steps under
@@ -2339,6 +2345,475 @@ def phase_lomach_timing(cases, steps=8, profiled=1):
             raise SystemExit(f"{name}: the state left the finite range")
         out[f"{name} {str(s.dtype)[6:]}"] = res
     return out
+
+
+# ---------------------------------------------------------------- coupled
+
+COUPLED_DECK = os.path.join(REPO, "examples", "cases",
+                            "torch_axisym_coupled.ini")
+REFINED_DECK = os.path.join(REPO, "tps_torch", "tools",
+                            "torch_axisym_refined.ini")
+# the decks' tables, read from the checkout whatever the working directory
+COUPLED_TABLES = {
+    "loMach/ltethermo/table-file": os.path.join(REPO, "examples", "cases",
+                                                "lte_table.h5"),
+    "plasma_models/radiation_model/net_emission/tabulated/filename":
+        os.path.join(REPO, "examples", "cases", "nec_table.h5")}
+# f64, card against the CPU: a dense EM solve's fields (Cholesky factors
+# and two refinement steps, ~1e-15 relative residual) to 1e-10 of max;
+# GMRES-IR runs its Arnoldi cycles in f32, so its two solutions are held
+# by what the block operator maps their difference to, within the two
+# solves' relative residuals (both <= EM_SOLVE_TOL) of |b|
+EM_SOLVE_TOL = 1e-10
+POWER_TOL = 1e-8  # the total Joule heating after power control, relative
+COUPLED_CPU_TOL = 1e-9  # the deck's 20 steps, card vs CPU, f64
+
+
+def coupled_tps(deck, dtype, outdir, device="cuda", iters=None, keys=None):
+    """A coupled deck through the harness (lomach_tps), its tables read from
+    the checkout."""
+    return lomach_tps(deck, dtype, outdir, device=device, iters=iters,
+                      keys={**COUPLED_TABLES, **(keys or {})})
+
+
+def axisym_operators():
+    """The radius-weighted H1 applies of the axisymmetric flow and thermo:
+    name -> f(tab, inputs)."""
+    from tps_torch.fem import h1
+
+    def rq(t):
+        return t.xyz_q[..., 0]
+
+    def helm(t, x):
+        r = rq(t)
+        m = 4.0 * x["cq"] * r
+        mass = torch.stack([m + x["cq"] / r, m, m + x["cq"] / r])
+        return h1.helmholtz_apply_multi(
+            t, torch.cat([x["V"], x["u"][:, None]], 1), 1.0, mass,
+            torch.stack([x["cq"] * r] * 3))
+
+    return {
+        "mass_apply r": lambda t, x: h1.mass_apply(t, x["u"], rq(t)),
+        "mass_apply r c (k=2)":
+            lambda t, x: h1.mass_apply(t, x["V"], h1.to_quad(t, x["c"])
+                                       * rq(t)),
+        "diffusion_apply r c":
+            lambda t, x: h1.diffusion_apply(t, x["u"], x["cq"] * rq(t)),
+        "weak_grad r": lambda t, x: h1.weak_grad(t, x["u"], rq(t)),
+        "weak_divergence r":
+            lambda t, x: h1.weak_divergence(t, x["V"], rq(t)),
+        "mass_diag r": lambda t, x: h1.mass_diag(t, rq(t)),
+        "mass_lumped_diag c/r":
+            lambda t, x: h1.mass_lumped_diag(t, x["cq"] / rq(t)),
+        "stiffness_diag r/c":
+            lambda t, x: h1.stiffness_diag(t, rq(t) / x["cq"]),
+        "helmholtz_apply_multi (swirl columns)": helm,
+    }
+
+
+def table_lookups():
+    """The deck's LTE and NEC tables (read with h5lite): name -> table."""
+    from tps_torch.io import h5lite
+    from tps_torch.physics.tables import LinearTable
+
+    data = np.asarray(h5lite.read(
+        COUPLED_TABLES["loMach/ltethermo/table-file"])["T_mu_kap_sig_R_Cp"])
+    nec = np.asarray(h5lite.read(COUPLED_TABLES[
+        "plasma_models/radiation_model/net_emission/tabulated/filename"])
+        ["table"])
+    T = data[:, 0]
+    return {"rho(T)": LinearTable(T, 101325.0 / (data[:, 4] * T)),
+            "sigma(T)": LinearTable(T, data[:, 3]),
+            "NEC(T)": LinearTable(nec[:, 0], nec[:, 1]),
+            "kappa(T), x_log": LinearTable(T, data[:, 2], x_log=True),
+            "mu(T), x_log and f_log": LinearTable(T, data[:, 1], x_log=True,
+                                                  f_log=True)}
+
+
+def em_pair(dev, dtype=torch.float64):
+    """The shipped deck's EM solver (16x24 p=1) on the card and on the
+    CPU, the same Gaussian column of conductivity in both."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.config.run_config import parse_run_configuration
+    from tps_torch.solvers.em.qms import QuasiMagnetostaticSolverAxiSym
+
+    torch.set_default_dtype(dtype)
+    rc = parse_run_configuration(IniInput.read(COUPLED_DECK))
+    out = []
+    for device in (dev, "cpu"):
+        em = QuasiMagnetostaticSolverAxiSym(rc, device=device)
+        em.initialize()
+        xyz = em.tab_np.xyz
+        em.set_plasma_conductivity(torch.as_tensor(
+            2000.0 * np.exp(-(xyz[:, 0] / 0.006) ** 2
+                            - ((xyz[:, 1] - 0.04) / 0.02) ** 2)))
+        out.append(em)
+    return out
+
+
+def em_solve_pair(dev, gmres):
+    """Card and CPU EM solves on one path: (card, cpu, operator-mapped
+    difference over |b|, max field difference over max|A|)."""
+    from tps_torch.fem import h1
+
+    keep = h1.DENSE_DIRECT_MAX
+    if gmres:  # the dense path off through the port's own cutoff
+        h1.DENSE_DIRECT_MAX = 0
+    try:
+        card, cpu = em_pair(dev)
+        card.solve_step()
+        cpu.solve_step()
+    finally:
+        h1.DENSE_DIRECT_MAX = keep
+    _, _, apply, b = cpu._operands(cpu.plasma_conductivity)
+    d = torch.cat([card.A_re.cpu() - cpu.A_re, card.A_im.cpu() - cpu.A_im])
+    mapped = float(torch.linalg.norm(apply(d)) / torch.linalg.norm(b))
+    field = max(lrel(card.A_re, cpu.A_re), lrel(card.A_im, cpu.A_im),
+                lrel(card.joule_heating, cpu.joule_heating))
+    return card, cpu, mapped, field
+
+
+def phase_coupled_modules(dev):
+    """Phase 25: the coupled path's modules on the card against the CPU,
+    f64: the deck's table lookups; the radius-weighted H1 applies (12x24
+    p=2 column); the EM block apply (1e-12 of max|y|), the dense Schur
+    solve and GMRES-IR (the dense path off by h1.DENSE_DIRECT_MAX) on the
+    shipped 16x24 EM mesh: relative residuals <= EM_SOLVE_TOL, equal GMRES
+    iterations; FieldInterpolator.from_h1 both ways between the deck's
+    meshes (1e-12)."""
+    from tps_torch.fem import h1
+    from tps_torch.interop.interpolation import FieldInterpolator
+    from tps_torch.mesh.generators import box_2d
+
+    torch.set_default_dtype(torch.float64)
+    bad, worst = [], {}
+    q = np.random.default_rng(7).uniform(100.0, 30000.0, 20000)
+    for name, tbl in table_lookups().items():
+        y1, y2 = tbl(torch.as_tensor(q, device=dev)), tbl(
+            torch.as_tensor(q, device=dev))
+        e = lrel(y1.cpu(), tbl(torch.as_tensor(q)))
+        worst[f"table {name}"] = e
+        if not (torch.equal(y1, y2) and e <= H1_OP_TOL):
+            bad.append((name, e))
+    mesh = box_2d(12, 24, x1=0.02, y1=0.08)
+    tab_np = h1.build_h1(mesh, 2)
+    tcard, tcpu = tab_np.to_torch(torch.float64, dev), \
+        tab_np.to_torch(torch.float64, "cpu")
+    xg, xc = h1_inputs(tab_np, 11, dev), h1_inputs(tab_np, 11, "cpu")
+    for name, f in axisym_operators().items():
+        y1, y2, yc = f(tcard, xg), f(tcard, xg), f(tcpu, xc)
+        e = lrel(y1.cpu(), yc)
+        worst[name] = e
+        if not (torch.equal(y1, y2) and e <= H1_OP_TOL):
+            bad.append((name, e))
+    card, cpu = em_pair(dev)
+    w = np.random.default_rng(3).standard_normal(2 * card.tab.ndofs)
+    ys = []
+    for em in (card, cpu):
+        _, _, apply, _ = em._operands(em.plasma_conductivity)
+        ys.append(apply(torch.as_tensor(w, device=em.device)).cpu())
+    worst["EM block apply"] = lrel(ys[0], ys[1])
+    if worst["EM block apply"] > H1_OP_TOL:
+        bad.append(("EM block apply", worst["EM block apply"]))
+    solves = {}
+    for path in ("dense", "gmres"):
+        c, r, mapped, field = em_solve_pair(dev, path == "gmres")
+        solves[path] = {"iterations": (c.last_solve_iters,
+                                       r.last_solve_iters),
+                        "relres": (c.last_solve_relres, r.last_solve_relres),
+                        "mapped_difference": mapped, "field_difference":
+                            field, "card_ms": c.last_solve_ms,
+                        "card_event_ms": c.last_solve_device_ms}
+        ok = (c.last_solve_iters == r.last_solve_iters
+              and max(c.last_solve_relres, r.last_solve_relres)
+              <= EM_SOLVE_TOL and mapped <= 2 * EM_SOLVE_TOL
+              and (path == "gmres" or field <= EM_SOLVE_TOL))
+        log(f"  EM {path} ({c.tab.ndofs} dofs): iterations card/CPU "
+            f"{solves[path]['iterations']}, relres {c.last_solve_relres:.2e}"
+            f" / {r.last_solve_relres:.2e}, |B (A_card - A_cpu)| / |b| "
+            f"{mapped:.2e}, fields {field:.2e} of max, card "
+            f"{c.last_solve_ms:.1f} ms" + ("" if ok else "  FAIL"))
+        if not ok:
+            bad.append((f"EM {path}", solves[path]))
+    em_tab = card.tab_np
+    f2e = FieldInterpolator.build(mesh, 2, "gauss-lobatto", em_tab.xyz)
+    e2f = FieldInterpolator.build(card.mesh, 1, "gauss-lobatto", tab_np.xyz)
+    for name, it, src_np, u in (
+            ("flow -> EM", f2e, tab_np, xg["u"]),
+            ("EM -> flow", e2f, em_tab, torch.as_tensor(
+                np.sin(40 * em_tab.xyz[:, 0]) + em_tab.xyz[:, 1],
+                device=dev))):
+        yc = it.from_h1(src_np.to_torch(torch.float64, "cpu"), u.cpu())
+        e = lrel(it.from_h1(src_np.to_torch(torch.float64, dev), u).cpu(),
+                 yc)
+        worst[f"interpolate {name}"] = e
+        if e > H1_OP_TOL:
+            bad.append((name, e))
+    log("  card vs CPU (f64, relative to max|y|), each apply bitwise "
+        "repeatable on the card: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items()))
+    if bad:
+        raise SystemExit(f"phase 25: the coupled path's modules differ: {bad}")
+    return {"worst": worst, "em_solves": solves}
+
+
+def coupled_state(c):
+    fl, th, em = c.flow.flow, c.flow.thermo, c.em
+    return {"T": th.T, "u": fl.u, "u_theta": fl.ut, "p": fl.p,
+            "A_re": em.A_re, "A_im": em.A_im, "joule": th.joule_heating,
+            "efield": c.flow.efield}
+
+
+def phase_coupled_deck(dev):
+    """Phase 26: examples/cases/torch_axisym_coupled.ini through the CLI on
+    the card (f32).  As shipped (maxIters 1000) the deck diverges, in the
+    JAX package as here (the velocity grows ~1.2x a step from the first
+    step, the same digits in both: tests/test_torch_deck_growth.py): the
+    run must either stop cleanly with the solve-convergence guard's error
+    after step 30, or run its 1000 steps finite with the power on target
+    at every EM solve; it must not carry on in NaN.  Then 30 steps (three
+    EM solves): every field finite, the total Joule heating
+    on 400 W to POWER_TOL after control at each EM solve, the column's
+    peak T above the 300 K background, the EM solves and their iterations
+    printed; then its first 20 steps (two EM solves) in f64 on the card
+    and on the CPU: T, u, u_theta, p, A_re, A_im, the Joule heating and its
+    total within COUPLED_CPU_TOL of max."""
+    tps = coupled_tps(COUPLED_DECK, torch.float32, "coupled")
+    c = tps.solver
+    t0 = time.perf_counter()
+    try:
+        tps.solve()
+        stopped = None
+    except FloatingPointError as exc:
+        stopped = str(exc)
+    wall = time.perf_counter() - t0
+    power = max(abs(e["joule"] / e["target"] - 1.0) for e in c.em_log)
+    log(f"  as shipped, f32: {'stopped at' if stopped else 'ran to'} step "
+        f"{c.flow.iter} in {wall:.1f} s"
+        + (f", by the guard: {stopped}" if stopped else "")
+        + f"; EM solves {len(c.em_log)}, |Joule after control / 400 - 1| "
+        f"<= {power:.2e}")
+    if stopped is not None:
+        ok = c.flow.iter >= 30 and power <= POWER_TOL
+    else:
+        ok = (tps.get_status() == 0 and c.iter == 1000
+              and len(c.em_log) == 100 and power <= POWER_TOL
+              and all(bool(torch.isfinite(v).all())
+                      for v in coupled_state(c).values()))
+    if not ok:
+        raise SystemExit("the shipped deck: neither a clean stop at the "
+                         "convergence guard after step 30 nor 1000 finite "
+                         "steps on the target power")
+    out = {"as shipped f32": {"steps": c.flow.iter, "error": stopped}}
+    tps = coupled_tps(COUPLED_DECK, torch.float32, "coupled_30", iters=30)
+    c = tps.solver
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    fl = c.flow
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in coupled_state(c).values())
+    power = [abs(e["joule"] / e["target"] - 1.0) for e in c.em_log]
+    Tmax = float(fl.thermo.T.max())
+    g = list(fl._graphs.values())
+    em = {k: [e[k] for e in c.em_log]
+          for k in ("em_iters", "relres", "joule_raw")}
+    log(f"  30 steps, f32: {wall:.1f} s ({len(g)} step graph, "
+        f"{g[0].graphs if g else 0} graphs), {len(c.em_log)} EM solves "
+        f"(iterations, relres, raw Joule W: {em}), |Joule after "
+        f"control / 400 - 1| <= {max(power):.2e} (bar {POWER_TOL}); peak "
+        f"T {Tmax:.1f} K, max|u| {float(fl.flow.u.abs().max()):.2f} m/s; "
+        f"finite {finite}; last solves {fl.info_log[-1]}")
+    ok = (tps.get_status() == 0 and c.iter == 30 and g and finite
+          and len(c.em_log) == 3 and max(power) <= POWER_TOL
+          and Tmax > 300.0)
+    if not ok:
+        raise SystemExit("the coupled deck failed its checks")
+    out["f32 30 steps"] = {"wall_s": wall, "em_solves": len(c.em_log),
+                           "power_err": max(power), "T_max": Tmax}
+    states = []
+    for device in ("cuda", "cpu"):
+        tps = coupled_tps(COUPLED_DECK, torch.float64,
+                          f"coupled_{device}", device=device, iters=20)
+        tps.solve()
+        st = {k: v.double().cpu() for k, v in coupled_state(tps.solver)
+              .items()}
+        st["total joule"] = torch.tensor(
+            [e["joule"] for e in tps.solver.em_log], dtype=torch.float64)
+        states.append(st)
+    dists = {k: lrel(states[0][k], states[1][k]) for k in states[0]
+             if k != "u_theta"}
+    ut_zero = all(float(s["u_theta"].abs().max()) == 0.0 for s in states)
+    ok = all(v <= COUPLED_CPU_TOL for v in dists.values()) and ut_zero
+    log("  f64, 20 steps (2 EM solves), card vs the port's CPU run (each "
+        "field to its max): " + ", ".join(f"{k} {v:.2e}" for k, v in
+                                          dists.items())
+        + f"; u_theta 0 in both (no swirl inlet): {ut_zero} (bar "
+        f"{COUPLED_CPU_TOL})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the coupled deck: card and CPU differ")
+    out["f64 card vs cpu"] = dists
+    return out
+
+
+def phase_coupled_graphs(steps=20):
+    """Phase 27: the coupled deck in f64, 20 steps through the coupled
+    solve() with step graphs and with eager steps (EM updates at steps 0
+    and 10, the second between two replays): every field bitwise, the same
+    CG iterations every step, the Joule heating and E-field tensors the
+    same objects before and after the update (the hand-off copies)."""
+    runs = []
+    for graphs in (True, False):
+        tps = coupled_tps(COUPLED_DECK, torch.float64,
+                          f"coupled_graph_{graphs}", iters=steps)
+        c = tps.solver
+        c.flow.cuda_graphs = graphs
+        ptrs = (c.flow.thermo.joule_heating.data_ptr(),
+                c.flow.efield.data_ptr())
+        tps.solve()
+        same = ptrs == (c.flow.thermo.joule_heating.data_ptr(),
+                        c.flow.efield.data_ptr())
+        runs.append((coupled_state(c), c.flow.info_log, c, same))
+    (a, ia, ca, sa), (b, ib, _, _) = runs
+    bitwise = {k: torch.equal(a[k], b[k]) for k in a}
+    its = [k for k in ia[0] if k.endswith("_iters")]
+    same_its = [[r[k] for k in its] for r in ia] == \
+        [[r[k] for k in its] for r in ib]
+    ok = (all(bitwise.values()) and same_its and sa and ca.flow._graphs
+          and len(ca.em_log) == 2)
+    log(f"  {ca.iter} steps, {len(ca.em_log)} EM solves: graph vs eager "
+        f"bitwise {bitwise}; the same CG iterations every step {same_its};"
+        f" hand-off tensors kept {sa}; dense refreshes thermo "
+        f"{ca.flow.thermo.refreshes}, flow {ca.flow.flow.refreshes}"
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("coupled deck: graph and eager steps differ")
+    return {"bitwise": bitwise, "same_iterations": same_its}
+
+
+def phase_coupled_timing(cases, turn_steps=5, profiled=1):
+    """Phase 28: ms/step through the coupled solve(), after 4 steps (the
+    BDF ramp, the warm-up step, the capture; an EM update at step 0), in
+    turns eager, graph, graph, eager of `turn_steps` steps: steps 4-23,
+    EM updates at 10 and 20, so each kind's two turns hold one, its mean
+    one update per 10 steps; all within the 40 steps before the deck
+    diverges (phase 26).  Host clock to a synchronize; CUDA events over
+    each turn; one flow step profiled (device ms, launches) and one EM
+    solve (device ms); host reads a step; CG iterations per solve kind;
+    the EM solve's device ms and its share a step amortised over
+    solve-em-every-n; the dense refresh s; the interpolators' build s;
+    capture s and pool MiB."""
+    out = {}
+    for name, c in cases.items():
+        fl = c.flow
+        fl.output_freq = 10**9
+        fl.write_restart = lambda: None
+
+        def turn(graphs, n=turn_steps):
+            fl.cuda_graphs = graphs
+            fl.max_iters_cfg = c.iter + n
+            r0 = fl.loops.reads + fl.info_reads
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            c.solve()
+            ev[1].record()
+            torch.cuda.synchronize()
+            return ((time.perf_counter() - t0) * 1e3 / n,
+                    (fl.loops.reads + fl.info_reads - r0) / n,
+                    ev[0].elapsed_time(ev[1]) / n)
+
+        turn(True, 4)  # the BDF ramp, the warm-up step, the capture
+        ms = {True: [], False: []}
+        reads = {True: [], False: []}
+        span = {True: [], False: []}
+        rows = []
+        for graphs in (False, True, True, False):
+            m, rd, sp = turn(graphs)
+            ms[graphs].append(m)
+            reads[graphs].append(rd)
+            span[graphs].append(sp)
+            if graphs:
+                rows += fl.info_log[-turn_steps:]
+        prof = {}
+        for graphs in (True, False):
+            fl.cuda_graphs = graphs
+            prof["graph" if graphs else "eager"] = device_share(
+                fl.solve_step, profiled)
+        fl.cuda_graphs = True
+        em_prof = device_share(c.em.solve_step, 1)
+        em_ms = [e["device_ms"] for e in c.em_log[-4:]]
+        its = {k: float(np.mean([r[k] for r in rows]))
+               for k in rows[0] if k.endswith("_iters")}
+        refresh_s = {}
+        for model in (fl.thermo, fl.flow):
+            if getattr(model, "_direct", None) is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.precond_refresh(fl.dt, fl.max_bdf_order, force=True)
+                torch.cuda.synchronize()
+                refresh_s[type(model).__name__] = time.perf_counter() - t0
+        g = next(iter(fl._graphs.values()))
+        dev_ms = prof["graph"].get("device_ms")
+        em_dev = em_prof.get("device_ms")
+        res = {"flow_dofs": fl.tab.ndofs, "em_dofs": c.em.tab.ndofs,
+               "graph_ms_per_step": float(np.mean(ms[True])),
+               "eager_ms_per_step": float(np.mean(ms[False])),
+               "graph_turns": ms[True], "eager_turns": ms[False],
+               "flow_step_device_ms": (None if dev_ms is None
+                                       else dev_ms / profiled),
+               "span_ms_per_step": {"graph": float(np.mean(span[True])),
+                                    "eager": float(np.mean(span[False]))},
+               "launches_per_flow_step": prof["graph"].get("launches"),
+               "busy_share": {k: v.get("busy_share") for k, v in
+                              prof.items()},
+               "host_reads_per_step": {"graph": float(np.mean(reads[True])),
+                                       "eager": float(np.mean(reads[False]))},
+               "cg_iterations_per_solve": its,
+               "em_solve_device_ms": em_dev,
+               "em_solve_event_ms": em_ms,
+               "em_share_per_step_ms": (None if em_dev is None else
+                                        em_dev / c.solve_em_every_n),
+               "em_launches": em_prof.get("launches"),
+               "dense_refresh_s": refresh_s,
+               "interp_build_s": c.interp_build_s,
+               "capture_s": g.capture_s, "graphs": g.graphs,
+               "pool_MiB": g.pool_bytes / 2**20,
+               "finite": all(bool(torch.isfinite(v).all())
+                             for v in coupled_state(c).values()),
+               "top_ms": prof["graph"].get("top_ms")}
+        log(f"  {name} ({res['flow_dofs']} flow / {res['em_dofs']} EM dofs,"
+            f" {fl.dtype}): ms/step graph {res['graph_ms_per_step']:.3f} "
+            f"{ms[True]}, eager {res['eager_ms_per_step']:.3f} {ms[False]};"
+            f" flow step device ms {res['flow_step_device_ms']} (profiled), "
+            f"span {res['span_ms_per_step']}, {res['launches_per_flow_step']}"
+            f" launches a flow step; busy share {res['busy_share']}; host "
+            f"reads/step {res['host_reads_per_step']}; CG iterations per "
+            f"solve {its}; EM solve device ms {em_dev} (events {em_ms}), "
+            f"{res['em_share_per_step_ms']} ms a step amortised; dense "
+            f"refresh {refresh_s} s; interpolators {c.interp_build_s:.3f} s;"
+            f" capture {g.capture_s:.3f} s ({g.graphs} graphs), pool "
+            f"{res['pool_MiB']:.1f} MiB")
+        if not res["finite"]:
+            raise SystemExit(f"{name}: the state left the finite range")
+        out[f"{name} {str(fl.dtype)[6:]}"] = res
+    return out
+
+
+def coupled_cases(dtype):
+    """Phase 28's cases: the shipped deck, and in f64 the refined one.  In
+    f32 the refined deck's Jacobi-preconditioned velocity solve diverges
+    within three steps in the JAX package as in this one (a CPU probe at
+    24x48 with the dense path off: max|u| 17, 153, 440, 1.3e10 m/s there,
+    17, 20, 1.7e20, NaN here), so it is timed in f64 only."""
+    cases = {"torch_axisym_coupled.ini (12x24 p=2, EM 16x24)": lambda:
+             coupled_tps(COUPLED_DECK, dtype, "coupled_t")}
+    if dtype == torch.float64:
+        cases["refined (48x96 p=2, EM 64x96)"] = lambda: coupled_tps(
+            REFINED_DECK, dtype, "coupled_t_refined", iters=10**6)
+    return cases
 
 
 def run(dev):
@@ -2447,8 +2922,8 @@ def run(dev):
     # bench_argon_big's cfl 0.02 is above the electron-energy diffusion
     # limit at 32x32 p=2: T_e noise grows ~4x a step, in the JAX package
     # as in this one (the same digits on the CPU in f64, 1e-6 noise), and
-    # decays at 0.01.  These turns run ~230 steps, so at half of it, and
-    # at a quarter of that at 128x128 (h/4, dt ~ h^2); 16 steps a turn
+    # decays at 0.01.  These turns run ~120 steps, so at half of it, and
+    # at a quarter of that at 128x128 (h/4, dt ~ h^2); 8 steps a turn
     # (eager steps take 70-90 ms here)
     argon_steps = phase_step_timing({
         "argon 32x32": argon_solver(argon_big_deck(32, 0.01, 10**6,
@@ -2456,7 +2931,7 @@ def run(dev):
                                     torch.float32, False),
         "argon 128x128": argon_solver(argon_big_deck(128, 0.0025, 10**6,
                                                      "argon128"),
-                                      torch.float32, False)}, steps=16)
+                                      torch.float32, False)}, steps=8)
     for name, res in argon_steps.items():
         if not res["finite"]:
             raise SystemExit(f"{name}: the f32 state left the finite range")
@@ -2479,6 +2954,23 @@ def run(dev):
     for dtype in (torch.float64, torch.float32):
         lomach_steps.update(phase_lomach_timing(
             {k: make().solver for k, make in lomach_cases(dtype).items()}))
+    log_phase("phase 25: the coupled torch's modules on the card vs the "
+              "CPU (f64: tables, radius-weighted H1 applies, EM block "
+              "apply, dense Schur and GMRES solves, interpolation)")
+    coupled_modules = phase_coupled_modules(dev)
+    log_phase("phase 26: torch_axisym_coupled.ini as shipped through the CLI "
+              "(f32, 1000 steps, EM every 10), then f64 card vs CPU")
+    coupled_deck = phase_coupled_deck(dev)
+    log_phase("phase 27: the coupled deck's step graphs vs eager steps "
+              "across an EM update (f64, 20 steps)")
+    coupled_graphs = phase_coupled_graphs()
+    log_phase("phase 28: ms/step through the coupled solve(), graph vs "
+              "eager (the shipped deck in f64 and f32, the refined one in "
+              "f64)")
+    coupled_steps = {}
+    for dtype in (torch.float64, torch.float32):
+        coupled_steps.update(phase_coupled_timing(
+            {k: make().solver for k, make in coupled_cases(dtype).items()}))
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -2551,6 +3043,10 @@ def run(dev):
                            "decks": lomach_decks,
                            "graph vs eager (f64)": lomach_graphs,
                            "solve() ms/step": lomach_steps}
+    summary["coupled torch"] = {"modules card vs CPU (f64)": coupled_modules,
+                                "deck": coupled_deck,
+                                "graph vs eager (f64)": coupled_graphs,
+                                "solve() ms/step": coupled_steps}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

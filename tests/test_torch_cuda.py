@@ -7,7 +7,9 @@ the loop's buffers; a checkpoint read on the card continues the run.
 The low-Mach path (no kernel of its own): an H1 operator repeats its bits
 on the card and matches the CPU; the Tomboulides step graph == eager
 steps, on p-multigrid and across a dense-factor refresh, and a capture
-holds while a dead solver's graphs are collected.
+holds while a dead solver's graphs are collected.  The coupled torch
+deck: step graph == eager steps across an EM update; GMRES on the card
+matches the CPU.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -796,3 +798,82 @@ def test_lomach_capture_after_a_dead_solver(device, f64, tmp_path,
         if enabled:
             gc.enable()
     assert s._graphs and s.iter == 4
+
+
+CASES_DIR = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                         "examples", "cases")
+COUPLED_KEYS = {
+    "loMach/ltethermo/table-file": os.path.join(CASES_DIR, "lte_table.h5"),
+    "plasma_models/radiation_model/net_emission/tabulated/filename":
+        os.path.join(CASES_DIR, "nec_table.h5")}
+
+
+def test_coupled_graph_matches_eager_across_an_em_update(device, f64,
+                                                         tmp_path):
+    """torch_axisym_coupled.ini, 20 steps through the coupled solve(), EM
+    updates at steps 0 and 10 (the second between two replays): graph ==
+    eager bitwise, the same CG iterations every step.  The Joule heating
+    and E-field reach the captured step by copies into the tensors it
+    reads (a rebound tensor would leave the replays heating with the old
+    field)."""
+    from tps_torch import harness
+
+    runs = []
+    for graphs in (True, False):
+        tps = harness.Tps()
+        tps.parse_command_line_args(
+            ["tps", "--runFile",
+             os.path.join(CASES_DIR, "torch_axisym_coupled.ini")])
+        tps.parse_input()
+        tps.config.outdir = str(tmp_path / str(graphs))
+        tps.config.raw.values.update(COUPLED_KEYS)
+        tps.config.raw.values["loMach/maxIters"] = "20"
+        tps.choose_devices()
+        tps.choose_solver()
+        tps.initialize()
+        tps.solver.flow.cuda_graphs = graphs
+        tps.solve()
+        runs.append(tps.solver)
+    g, e = runs
+    assert len(g.em_log) == len(e.em_log) == 2 and g.flow._graphs
+    for name in ("T", "joule_heating"):
+        assert torch.equal(getattr(g.flow.thermo, name),
+                           getattr(e.flow.thermo, name))
+    for name in ("u", "ut", "p"):
+        assert torch.equal(getattr(g.flow.flow, name),
+                           getattr(e.flow.flow, name))
+    assert torch.equal(g.em.A_re, e.em.A_re)
+    assert torch.equal(g.flow.efield, e.flow.efield)
+    assert g.flow.info_log == e.flow.info_log
+    assert [x["joule"] for x in g.em_log] == [x["joule"] for x in e.em_log]
+
+
+def test_gmres_on_card_matches_cpu(device, f64, monkeypatch):
+    """The shipped deck's EM solve (16x24 p=1) on GMRES-IR (the dense
+    path off): the same iterations on the card and the CPU, both below
+    1e-10 relative residual, their difference mapped by the block
+    operator within 2e-10 of |b| (the f32 cycles round otherwise)."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.config.run_config import parse_run_configuration
+    from tps_torch.fem import h1
+    from tps_torch.solvers.em.qms import QuasiMagnetostaticSolverAxiSym
+
+    monkeypatch.setattr(h1, "DENSE_DIRECT_MAX", 0)
+    rc = parse_run_configuration(IniInput.read(
+        os.path.join(CASES_DIR, "torch_axisym_coupled.ini")))
+    ems = []
+    for dev in (device, "cpu"):
+        em = QuasiMagnetostaticSolverAxiSym(rc, device=dev)
+        em.initialize()
+        xyz = em.tab_np.xyz
+        em.set_plasma_conductivity(torch.as_tensor(
+            2000.0 * np.exp(-(xyz[:, 0] / 0.006) ** 2
+                            - ((xyz[:, 1] - 0.04) / 0.02) ** 2)))
+        em.solve_step()
+        ems.append(em)
+    card, cpu = ems
+    assert card.last_solve_iters == cpu.last_solve_iters > 30
+    assert max(card.last_solve_relres, cpu.last_solve_relres) <= 1e-10
+    _, _, apply, b = cpu._operands(cpu.plasma_conductivity)
+    d = torch.cat([card.A_re.cpu() - cpu.A_re, card.A_im.cpu() - cpu.A_im])
+    assert float(torch.linalg.norm(apply(d)) / torch.linalg.norm(b)) <= 2e-10

@@ -103,6 +103,11 @@ def test_import_without_jax():
         "import tps_torch.solvers.lomach.step_graph\n"
         "import tps_torch.solvers.lomach.rans\n"
         "import tps_torch.solvers.lomach.zeta_model\n"
+        "import tps_torch.physics.tables, tps_torch.physics.radiation\n"
+        "import tps_torch.solvers.lomach.lte_thermo\n"
+        "import tps_torch.solvers.lomach.axisym, tps_torch.fem.krylov\n"
+        "import tps_torch.solvers.em.qms, tps_torch.solvers.coupling\n"
+        "import tps_torch.interop.interpolation\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"

@@ -30,7 +30,7 @@ CUDA graph and replays it.
 
 Not here: the element-sharded assembly (ShardedH1, ROADMAP A8), the
 TPU's mod-row gather and explicit inverse factor (ROADMAP, "Not to
-port"), and GMRES (fem/krylov.py, for EM, ROADMAP A10).
+port"); GMRES, for the EM solve, is fem/krylov.py.
 """
 
 from __future__ import annotations
@@ -984,10 +984,11 @@ def direct_precond(L):
 
 
 def direct_precond_stack(Ls):
-    """Per-column preconditioner from stacked factors [k, nd, nd] for a
-    multi-RHS solve with a different operator per column: M(r [nd, k])."""
+    """Per-column preconditioner from factors ([k, nd, nd] stacked, or a
+    sequence of k [nd, nd]) for a multi-RHS solve with a different
+    operator per column: M(r [nd, k])."""
 
     def M(r):
         return torch.cat([torch.cholesky_solve(r[:, c:c + 1], Ls[c])
-                          for c in range(Ls.shape[0])], dim=1)
+                          for c in range(len(Ls))], dim=1)
     return M

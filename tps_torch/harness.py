@@ -29,7 +29,12 @@ from .config.ini import IniInput
 from .config.run_config import parse_run_configuration
 from .solvers import base as solver_base
 from .solvers.compressible import CompressibleSolver  # noqa: F401 (registry)
+from .solvers.coupling import CycleAvgJouleCoupling  # noqa: F401 (registry)
+from .solvers.em.qms import QuasiMagnetostaticSolverAxiSym  # noqa: F401
 from .solvers.lomach.solver import LoMachSolver  # noqa: F401 (registry)
+
+# solver types of the JAX package that the port does not run yet
+NOT_PORTED = {"em": "the 3-D EM solver (qms3d), ROADMAP A10"}
 
 # exit status of a completed run (reference: src/tps.hpp Tps::getStatus)
 NORMAL = 0
@@ -91,10 +96,10 @@ class Tps:
 
     def choose_solver(self):
         name = self.config.solver_type
-        if name not in solver_base.SOLVER_REGISTRY:
+        if name in NOT_PORTED:
             raise NotImplementedError(
                 f"solver type '{name}' is not ported to tps_torch yet "
-                "(ROADMAP A10-A11)")
+                f"({NOT_PORTED[name]})")
         self.solver = solver_base.create_solver(name, self.config, tps=self)
         self.solver.parse_solver_options()
         return self.solver

@@ -8,9 +8,11 @@ and constructs the port's PerfectMixture / transport / Chemistry objects
 with the reference's species-ordering conventions: input species are
 reordered to [others..., electron, background].
 
-Not here, each raising with its ROADMAP item: tables read from files or
-inline (tabulated rates, `read_table_input`; A6.3 on io/h5lite.py), the
-`net_emission` radiation model and radiative decay (A6.3), the general
+`read_table_input` reads a table from an HDF5 file (through io/h5lite.py)
+or from inline x/f lists; the low-Mach LTE thermo uses it for the
+net-emission table.  Not here, each raising with its ROADMAP item:
+tabulated reaction rates, the `net_emission` radiation model of the
+compressible mixture and radiative decay (A6.3), the general
 per-pair transport (`argon_mixture`, A6.3), constant transport with
 species (A6.2), the externally injected `bte` rates (A11) and the
 reacting-flow chemistry ramp (`ramp-chem`, the low-Mach family, A9).
@@ -23,9 +25,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..io import h5lite
 from .chemistry import Arrhenius, Chemistry, HoffertLien
 from .gas_transport import ArgonMinimalTransport
 from .perfect_mixture import PerfectMixture
+from .tables import LinearTable
 
 
 def _not_ported(what, item):
@@ -53,8 +57,20 @@ def _parse_composition(s: str) -> dict:
 
 
 def read_table_input(inp, prefix: str):
-    """A table spec (an HDF5 file or inline x/f lists)."""
-    raise _not_ported(f"tabulated inputs ([{prefix}])", "A6.3")
+    """Read a table spec: either an HDF5 file (dataset `table`, columns x
+    and f) or inline x/f lists."""
+    if inp.has(f"{prefix}/filename"):
+        data = np.asarray(h5lite.read(inp.get(f"{prefix}/filename"))["table"])
+        x, fv = data[:, 0], data[:, 1]
+    else:
+        x = np.asarray(inp.get_vec(f"{prefix}/x"))
+        fv = np.asarray(inp.get_vec(f"{prefix}/f"))
+    return LinearTable(
+        x=x,
+        f=fv,
+        x_log=bool(inp.get(f"{prefix}/x_log", 0)),
+        f_log=bool(inp.get(f"{prefix}/f_log", 0)),
+    )
 
 
 def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
@@ -154,7 +170,7 @@ def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
                     E=inp.get_required(f"{base}/hoffert_lien/E", float),
                 )
             if model == "tabulated":
-                return read_table_input(inp, f"{base}/tabulated")
+                raise _not_ported("tabulated reaction rates", "A6.3")
             if model == "radiative_decay":
                 raise _not_ported("the radiative-decay reaction model", "A6.3")
             if model == "bte":

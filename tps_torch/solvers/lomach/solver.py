@@ -11,19 +11,26 @@ BDF order is constant (the JAX package's chunked steps start there too,
 its `_chunkable`), the first such step runs eagerly on a side stream, the
 next is captured as a StepGraph, and every step from then on is a replay
 of it; the ramp-up steps run eagerly.  `cuda_graphs = False` keeps every
-step eager (the graphs' reference).  The lagged dense factors of the
-flow are refreshed before a step when due, outside the graph.  Each step
+step eager (the graphs' reference).  The lagged dense factors are
+refreshed when due outside the graph: the thermo's before the step, the
+flow's after the thermo step (host work between two of the graph's
+segments), as in the JAX package's per-step loop.  Each step
 adds its solves' iterations and relative residuals to a device ring;
 the ring is read every `time/mcsLagSteps` steps, at a checkpoint and at
 the end, and a pressure or velocity solve that ended above tolerance
 raises there, as the JAX package's convergence check does (a
 checkpoint never holds a step whose solve failed).
 
+The models: constant-property, calorically-perfect and LTE-table
+(`lte-thermo-chem`, its tables read with io/h5lite.py) thermo-chemistry;
+the planar Tomboulides flow, or with `loMach/axisymmetric` the (r, z)
+flow with swirl (axisym.py) and the radius weight in the thermo's forms.
+
 Out of the slice, each raising NotImplementedError with its ROADMAP item:
-the LTE and reacting thermo-chemistry and the sponge (A9.2, with the
-interpolated inlet, species initialisation and every file-fed turbulence
-input, which need interop/ext_data.py), the axisymmetric solver (A9.3),
-running statistics (A12) and domain decomposition (A8).
+the reacting thermo-chemistry and the sponge (A9.2, with the interpolated
+inlet, species initialisation and every file-fed turbulence input, which
+need interop/ext_data.py), running statistics (A12) and domain
+decomposition (A8).
 """
 
 from __future__ import annotations
@@ -40,6 +47,8 @@ from ...mesh import generators
 from ..base import Solver, register_solver
 from .base import (ConstantPropertyThermoChem, TemporalCoefficients,
                    ZeroFlow, ZeroTurbModel)
+from .axisym import TomboulidesAxisym
+from .lte_thermo import LteThermoChem
 from .step_graph import SolveLoops, StepGraph
 from .thermo_chem import CaloricallyPerfectThermoChem, TemperatureDirichlet
 from .tomboulides import PressureDirichlet, Tomboulides, VelocityDirichlet
@@ -57,7 +66,7 @@ def check_slice(inp):
     """Raise NotImplementedError for any low-Mach input this slice does not
     run, on every device alike."""
     tc = inp.get("loMach/thermo-solver", "constant-property")
-    if tc in ("lte-thermo-chem", "reacting-flow"):
+    if tc == "reacting-flow":
         raise _not_ported(f"the '{tc}' thermo-chemistry", "A9.2")
     if any(inp.get(f"spongeMultiplier/{k}", 0)
            for k in ("uniform", "plane", "cylinder", "annulus")):
@@ -76,12 +85,48 @@ def check_slice(inp):
                 == "interpolate":
             raise _not_ported("the interpolated inlet (interop/ext_data.py)",
                               "A9.2")
-    if inp.get("loMach/axisymmetric", 0):
-        raise _not_ported("the axisymmetric low-Mach solver", "A9.3")
     if inp.get("averaging/sampleFreq", 0) or inp.has("averaging/startIter"):
         raise _not_ported("running statistics ([averaging])", "A12")
     if max(int(inp.get("mesh/partitions", 1) or 1), 1) > 1:
         raise _not_ported("domain decomposition (mesh/partitions > 1)", "A8")
+
+
+def _build_lte_thermo(inp, tab, temp_bcs, cg_tol, cg_maxiter, weight_q=None,
+                      qt_bcs=()):
+    """LTE table thermo-chem from loMach/ltethermo/table-file (reference:
+    src/lte_thermo_chem.cpp:83-145, dataset T_mu_kap_sig_R_Cp), read with
+    io/h5lite.py."""
+    from ...physics.plasma_config import read_table_input
+    from ...physics.radiation import NetEmission
+    from ...physics.tables import LinearTable
+
+    table_file = inp.get_required("loMach/ltethermo/table-file")
+    data = np.asarray(h5lite.read(table_file)["T_mu_kap_sig_R_Cp"])
+    T, mu, kap, sig, Rg, Cp = (data[:, i] for i in range(6))
+    p0 = inp.get("loMach/ambientPressure", 101325.0)
+
+    radiation = None
+    if inp.get("plasma_models/radiation_model", "none") == "net_emission":
+        radiation = NetEmission(read_table_input(
+            inp, "plasma_models/radiation_model/net_emission/tabulated"))
+
+    return LteThermoChem(
+        tab,
+        flow=None,
+        rho_table=LinearTable(x=T, f=p0 / (Rg * T)),
+        cp_table=LinearTable(x=T, f=Cp),
+        mu_table=LinearTable(x=T, f=mu),
+        kappa_table=LinearTable(x=T, f=kap),
+        sigma_table=LinearTable(x=T, f=sig),
+        radiation=radiation,
+        temp_bcs=tuple(temp_bcs),
+        qt_bcs=qt_bcs,
+        weight_q=weight_q,
+        T_init=inp.get("initialConditions/temperature", 300.0),
+        cg_tol=inp.get("loMach/ltethermo/linear-solver-rtol", cg_tol),
+        cg_maxiter=inp.get("loMach/ltethermo/linear-solver-max-iter",
+                           cg_maxiter),
+    )
 
 
 def _build_lomach_mesh(inp):
@@ -157,6 +202,8 @@ class LoMachSolver(Solver):
             self._read_bcs(inp)
 
         # thermo-chem model factory (reference: src/loMach.cpp:148-208)
+        axisym = bool(inp.get("loMach/axisymmetric", 0))
+        weight_q = self.tab.xyz_q[..., 0] if axisym else None
         tc_model = inp.get("loMach/thermo-solver", "constant-property")
         if tc_model in ("calorically-perfect", "calorically_perfect"):
             self.thermo = CaloricallyPerfectThermoChem(
@@ -174,12 +221,18 @@ class LoMachSolver(Solver):
                 temp_bcs=tuple(temp_bcs),
                 qt_bcs=(tuple(qt_attrs),) if qt_attrs else (),
                 T_init=inp.get("loMach/calperfect/ic/temperature", 300.0),
+                weight_q=weight_q,
                 sw_stab=bool(
                     inp.get("loMach/calperfect/streamwise-stabilization", 0)),
                 reh_factor=inp.get("loMach/calperfect/Reh_factor", 0.5),
                 reh_offset=inp.get("loMach/calperfect/Reh_offset", 1.0),
                 cg_tol=cg_tol, cg_maxiter=cg_maxiter,
             )
+        elif tc_model == "lte-thermo-chem":
+            self.thermo = _build_lte_thermo(
+                inp, self.tab, temp_bcs, cg_tol, cg_maxiter,
+                weight_q=weight_q,
+                qt_bcs=(tuple(qt_attrs),) if qt_attrs else ())
         else:
             self.thermo = ConstantPropertyThermoChem(
                 self.tab,
@@ -209,7 +262,13 @@ class LoMachSolver(Solver):
         flow_model = inp.get("loMach/flow-solver", "tomboulides")
         gvec = inp.get_vec("loMach/gravity", self.tab.dim) \
             if inp.has("loMach/gravity") else None
-        if flow_model == "tomboulides":
+        if flow_model == "tomboulides" and axisym:
+            self.flow = TomboulidesAxisym(
+                self.tab, self.thermo, vel_bcs=tuple(vel_bcs),
+                swirl=bool(inp.get("loMach/swirl", 0)),
+                cg_tol=flow_tol, cg_maxiter=cg_maxiter, gravity=gvec,
+            )
+        elif flow_model == "tomboulides":
             self.flow = Tomboulides(
                 self.tab, self.thermo, vel_bcs=tuple(vel_bcs),
                 pres_bcs=tuple(pres_bcs), cg_tol=flow_tol,
@@ -371,10 +430,7 @@ class LoMachSolver(Solver):
         replay; then the service tail."""
         order = min(self.iter + 1, self.max_bdf_order)
         coeff = TemporalCoefficients.bdf(order)
-        if hasattr(self.flow, "precond_refresh"):
-            self.flow.precond_refresh(self.dt, order)
-            if self.flow._direct_age is not None:
-                self.flow._direct_age += 1
+        self._refresh(self.thermo, order)
         graph = self._graph(coeff)
         if graph is not None:
             graph.replay()
@@ -433,11 +489,23 @@ class LoMachSolver(Solver):
             self._graphs[key] = graph
         return graph
 
+    def _refresh(self, model, order):
+        """A model's lagged dense factors refreshed when due (host-driven,
+        eager), and their age advanced a step."""
+        if hasattr(model, "precond_refresh"):
+            model.precond_refresh(self.dt, order)
+            if model._direct_age is not None:
+                model._direct_age += 1
+
     def _body(self, coeff):
         """One step's device work (what a step graph holds): each model's
-        step, then its solves' info into the ring."""
+        step, then its solves' info into the ring.  The flow's factors
+        are refreshed after the thermo step, from its density, as the JAX
+        package's per-step loop does; a step graph runs that refresh as
+        host work between its segments."""
         self.loops.begin_step()
         self.thermo.step(coeff, self.dt, self.loops)
+        self.loops.host(lambda: self._refresh(self.flow, coeff.order))
         self.flow.advance(coeff, self.dt, self.loops)
         self.turb.step(coeff, self.dt, self.loops)
         info = {}

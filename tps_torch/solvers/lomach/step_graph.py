@@ -23,10 +23,12 @@ the speculation did.
 Every tensor the step reads or writes across steps lives in the models'
 buffers, updated in place (solvers/lomach/base.py); the ramped inlet
 reads the device time; the lagged dense factors are refreshed outside the
-graph, into the same tensors.  A capture that meets a host sync raises
-(PyTorch captures in the global error mode); nothing falls back.  The
-cycle collector is paused while a step captures (solvers/step_graph.py's
-`collector_paused`: a dead graph destroyed inside a capture ends it).
+graph, into the same tensors: before a replay, or as host work at a point
+between two segments (`SolveLoops.host`), which every replay runs there.
+A capture that meets a host sync raises (PyTorch captures in the global
+error mode); nothing falls back.  The cycle collector is paused while a
+step captures (solvers/step_graph.py's `collector_paused`: a dead graph
+destroyed inside a capture ends it).
 """
 
 from __future__ import annotations
@@ -62,6 +64,15 @@ class SolveLoops:
         else:
             self.spin(run, status, i, k)
 
+    def host(self, fn):
+        """Host work between two parts of a step (a lagged factor refresh
+        when due): run now, or, while a StepGraph captures, at this point
+        of every replay."""
+        if self.capturing is not None:
+            self.capturing.host_point(fn)
+        else:
+            fn()
+
     def spin(self, run, status, i, k):
         """Blocks of solve i until its status (done, iterations) says done:
         first one fewer than it needed the last time (at least one), then
@@ -84,7 +95,9 @@ class StepGraph:
     def __init__(self, loops, stream):
         self.loops = loops
         self.stream = stream  # the capture stream (warm-up ran there too)
-        self.items = []  # (graph, None) for a segment, (graph, (status, i, k)) for a block
+        # (graph, None) for a segment, (graph, (status, i, k)) for a block,
+        # (None, fn) for host work between segments
+        self.items = []
         self.pool = torch.cuda.graph_pool_handle()
         self.capture_s = None  # wall seconds of the capture
         self.pool_bytes = None  # device memory the graphs' pool reserved
@@ -142,13 +155,22 @@ class StepGraph:
         self.items.append((g, (status, i, k)))
         self._open()
 
+    def host_point(self, fn):
+        """Host work met during capture: close the segment, run fn at this
+        point of every replay, open the next segment."""
+        self._close()
+        self.items.append((None, fn))
+        self._open()
+
     def replay(self):
         for g, solve in self.items:
-            if solve is None:
+            if g is None:
+                solve()
+            elif solve is None:
                 g.replay()
             else:
                 self.loops.spin(g.replay, *solve)
 
     @property
     def graphs(self):
-        return len(self.items)
+        return sum(g is not None for g, _ in self.items)

@@ -9,8 +9,9 @@ src/calorically_perfect.cpp):
 
 solved with BDF/EXT in time and matrix-free CG in space; density follows
 the thermodynamic (not hydrodynamic) pressure: rho = p_th / (R T).  T, its
-history, Qt and p_th are tensors updated in place (base.py).  The sponge
-(ROADMAP A9.2) and the axisymmetric weight (A9.3) are not ported.
+history, Qt and p_th are tensors updated in place (base.py).  `weight_q`
+(the radius at quadrature points, [ne, nq]) weights every volume form of
+an axisymmetric run.  The sponge (ROADMAP A9.2) is not ported.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
                  p_thermo=101325.0, closed_system=False,
                  mu0=1.68e-5, sutherland_T0=273.0, sutherland_S0=110.4,
                  Pr=0.71, constant_mu=None, temp_bcs=(), qt_bcs=(),
-                 heat_source=None, sponge=None, sw_stab=False,
+                 heat_source=None, sponge=None, weight_q=None, sw_stab=False,
                  reh_factor=0.5, reh_offset=1.0, T_init=300.0, cg_tol=1e-10,
                  cg_maxiter=1000):
         if sponge is not None:
@@ -44,6 +45,9 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
                 "(ROADMAP A9.2)")
         self.tab = tab
         self.flow = flow
+        # optional quadrature-point volume weight (radius for axisymmetric
+        # runs; reference loMach/axisymmetric thermo path)
+        self.weight_q = weight_q
         # SUPG streamwise stabilization (reference:
         # loMach/calperfect/streamwise-stabilization, utils.cpp
         # streamwiseTensor/csupgFactor; defaults Reh_factor 0.5, offset 1)
@@ -143,11 +147,19 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
         rho_cp = rho * self.cp
         hist = -(bd[1] * T + bd[2] * T_hist[0] + bd[3] * T_hist[1]) / dt
 
+        wq = self.weight_q  # None (planar) or radius at quad points (axisym)
+        if wq is None:
+            kq = kappa  # nodal
+            kq_cp = kappa / self.cp
+        else:
+            kq = h1.to_quad(tab, kappa) * wq
+            kq_cp = kq / self.cp
+
         # explicit advection at time n: nodal u.grad(T), mass-weighted by rho cp
         adv = h1.convection_apply(tab, T, vel) / tab.ml
-        rhs = h1.mass_apply(tab, rho_cp * (hist - adv))
+        rhs = h1.mass_apply(tab, rho_cp * (hist - adv), coef=wq)
         if self.heat_source is not None:
-            rhs = rhs + h1.mass_apply(tab, self.heat_source)
+            rhs = rhs + h1.mass_apply(tab, self.heat_source, coef=wq)
 
         mask = self.T_mask
         Tbc = self.T_bc_values
@@ -168,6 +180,8 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
             # cp factor makes the streamwise addition act as a conductivity
             # in the rho*cp-scaled temperature equation
             coef = rho_q * self.cp * csupg * h_q * umag
+            if wq is not None:
+                coef = coef * wq
             udir = uq / torch.clamp(umag, min=1e-8)[..., None]
             K_supg = coef[..., None, None] * (
                 udir[..., :, None] * udir[..., None, :])
@@ -175,14 +189,15 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
             K_supg = None
 
         def helm(v):
-            out = (bd[0] / dt) * h1.mass_apply(tab, rho_cp * v) + \
-                h1.diffusion_apply(tab, v, kappa)
+            out = (bd[0] / dt) * h1.mass_apply(tab, rho_cp * v, coef=wq) + \
+                h1.diffusion_apply(tab, v, kq)
             if K_supg is not None:
                 out = out + h1.diffusion_apply_tensor(tab, v, K_supg)
             return out
 
-        diag = (bd[0] / dt) * torch.abs(h1.mass_lumped_diag(tab, rho_cp)) \
-            + h1.stiffness_diag(tab, kappa)
+        diag = (bd[0] / dt) * torch.abs(
+            h1.mass_lumped_diag(tab, rho_cp if wq is None else wq)) \
+            + h1.stiffness_diag(tab, kq)
         rhs = (rhs - helm(Tbc * (1.0 - mask))) * mask
         diag_c = diag * mask + (1.0 - mask)
         T_new, T_iters, T_res = h1.cg_solve(
@@ -196,11 +211,11 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
         # evaluated from the diffusion operator, not the material
         # derivative (reference computeQtTO, src/calorically_perfect.cpp:
         # 1050-1077)
-        lq = h1.diffusion_apply(tab, T_new, kappa / self.cp)
+        lq = h1.diffusion_apply(tab, T_new, kq_cp)
         if K_supg is not None:
             lq = lq + h1.diffusion_apply_tensor(tab, T_new, K_supg / self.cp)
-        qdiv, qt_iters, _ = h1.l2_project(tab, -lq, return_info=True,
-                                          loops=loops)
+        qdiv, qt_iters, _ = h1.l2_project(tab, -lq, coef=wq,
+                                          return_info=True, loops=loops)
         if self.heat_source is not None:
             qdiv = qdiv + self.heat_source / self.cp
         Qt = (self.R / p_thermo) * qdiv * self.Qt_mask

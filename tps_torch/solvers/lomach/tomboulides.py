@@ -191,12 +191,12 @@ class Tomboulides(FlowBase):
             return
         rho, mu = self._total_viscosity()
         bd0 = TemporalCoefficients.bdf(order).bd0
-        Lp, Lh = self._precond_build(rho, mu, dt, bd0)
+        L = self._precond_build(rho, mu, dt, bd0)
         if self._direct is None:
-            self._direct = (Lp, Lh)
+            self._direct = L
         else:
-            self._direct[0].copy_(Lp)
-            self._direct[1].copy_(Lh)
+            for dst, src in zip(self._direct, L):
+                dst.copy_(src)
         self._direct_age = 0
         self.refreshes += 1
 
