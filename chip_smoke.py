@@ -36,7 +36,15 @@ tables, the radius-weighted H1 applies, the EM block apply, the dense
 Schur and GMRES solves, the cross-mesh interpolator) against the CPU,
 examples/cases/torch_axisym_coupled.ini through the CLI and against the
 CPU in f64, graph against eager steps across an EM update, and ms/step
-through the coupled solve() on that deck and a refined one.
+through the coupled solve() on that deck and a refined one.  The reacting
+low-Mach plasma (phases 29-33; no hand-written kernel either): its
+modules (transport, reaction source, species closure, conductivity,
+tabulated rates, the sponge, the Gaussian interpolation of external data,
+one ReactingFlow step) against the CPU, tps_torch/tools/lomach_reacting.ini
+(bench.py's bench_lomach_reacting deck) through the CLI and against the
+CPU in f64, graph against eager steps across a dense refresh and inside
+an interpolated inlet's ramp, the reacting thermo under the Joule
+coupling, and ms/step on the deck.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -2289,13 +2297,14 @@ def phase_lomach_timing(cases, steps=4, profiled=1):
         s.cuda_graphs = True
         its = {k: float(np.mean([r[k] for r in rows]))
                for k in rows[0] if k.endswith("_iters")}
-        refresh_s = None
-        if s.flow._direct is not None:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            s.flow.precond_refresh(s.dt, s.max_bdf_order, force=True)
-            torch.cuda.synchronize()
-            refresh_s = time.perf_counter() - t0
+        refresh_s = {}  # s of a forced dense refresh, per model
+        for model in (s.thermo, s.flow):
+            if getattr(model, "_direct", None) is not None:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.precond_refresh(s.dt, s.max_bdf_order, force=True)
+                torch.cuda.synchronize()
+                refresh_s[type(model).__name__] = time.perf_counter() - t0
         g = next(iter(s._graphs.values()))
         dev_ms = prof["graph"].get("device_ms")
         res = {"dofs": s.tab.ndofs,
@@ -2816,6 +2825,448 @@ def coupled_cases(dtype):
     return cases
 
 
+# ---------------------------------------------------------------- reacting
+
+REACTING_DECK = os.path.join(REPO, "tps_torch", "tools",
+                             "lomach_reacting.ini")
+REACT_POINT_TOL = 1e-12  # pointwise modules, card vs CPU, f64
+# kappa + kappa_e's bar: the third-order electron conductivity's Devoto
+# combinations cancel, so a 4-ulp (1e-15) relative change of T moves it by
+# 3.0e-11 of max on the CPU at phase 29's state (libm and libdevice round
+# exp, log and pow apart by up to an ulp); the card read 8.3e-12 against
+# the CPU (NVIDIA H100 80GB HBM3, 700.00 W)
+REACT_POINT_TOLS = {"transport kappa + kappa_e": 3e-11}
+REACT_STEP_TOL = 1e-10  # one ReactingFlow step (its solves to 1e-12)
+REACT_CPU_TOL = 1e-9  # the deck after 10 steps, card vs CPU, f64
+REACT_STEPS = 40  # the deck's CLI run on the card (phase 30)
+
+
+def reacting_fields(s):
+    th = s.thermo
+    out = {"T": th.T, "Y": th.Y, "Y(Ar+)": th.Y[:, 0], "Qt": th.Qt,
+           "p_thermo": th.p_thermo.reshape(1), "u": s.flow.u, "p": s.flow.p}
+    return {k: v.detach().clone() for k, v in out.items()}
+
+
+def reacting_state(s, seed):
+    """A seeded argon state on the deck's dofs (T 6-12 kK, Y(Ar+) 1e-6 to
+    1e-3, closed), loaded into the thermo, the same numbers on any
+    device."""
+    th = s.thermo
+    rng = np.random.default_rng(seed)
+    nd = th.T.shape[0]
+    Y = np.zeros((nd, 3))
+    Y[:, 0] = 10.0 ** (-6.0 + 3.0 * rng.random(nd))
+    Y[:, 2] = 1.0 - Y[:, 0]
+    th.set_temperature(torch.as_tensor(6000.0 + 6000.0 * rng.random(nd)))
+    th.set_mass_fractions(th._close_species(torch.as_tensor(
+        Y, device=th.T.device)))
+
+
+def reacting_modules(s):
+    """The reacting thermo's pointwise modules on solver s's state: name
+    -> tensor."""
+    from tps_torch.physics.chemistry import TabulatedRate
+    from tps_torch.physics.tables import LinearTable
+    from tps_torch.solvers.lomach.sponge import GeometricSponge, PlaneSponge
+
+    th = s.thermo
+    T, Y, p = th.T, th.Y, th.p_thermo
+    diff, mu, kappa = th._transport_props(T, Y, p)
+    dY, dT = th._reaction_source(T, Y, p)
+    rate = TabulatedRate(LinearTable(
+        np.array([1e3, 4e3, 8e3, 1.2e4, 2e4]),
+        np.array([1e-30, 1e-12, 1e-6, 1e-3, 1.0]), x_log=True, f_log=True))
+    sponge = GeometricSponge(s.tab, uniform_mult=2.0, plane=PlaneSponge(
+        point=(0.007, 0.0), normal=(1.0, 0.3), width=0.001, mult=30.0))
+    return {"transport rho D_s": diff, "transport mu": mu,
+            "transport kappa + kappa_e": kappa, "reaction source dY/dt": dY,
+            "reaction source dT/dt": dT,
+            "_close_species": th._close_species(
+                Y * torch.linspace(0.5, 2.0, len(T), dtype=T.dtype,
+                                   device=T.device)[:, None]),
+            "plasma conductivity": th.plasma_conductivity(),
+            "TabulatedRate": rate(T), "sponge field": sponge.multiplier()}
+
+
+def inlet_plane(path, n=40):
+    """A parabolic u(y) inlet plane along x = 0 with a swirl column."""
+    with open(path, "w") as fh:
+        fh.write("# no, x, y, z, T, u, v, w\n")
+        for i, y in enumerate(np.linspace(0.0, 0.25, n)):
+            fh.write(f"{i},0.0,{y},0.0,{320.0 + 100.0 * y},"
+                     f"{64.0 * y * (0.25 - y)},0.0,{0.5 * y}\n")
+    return path
+
+
+def phase_reacting_modules(dev):
+    """Phase 29: the reacting path's modules on the card against the CPU,
+    f64, on lomach_reacting.ini's 24x48 p=2 space and a seeded argon
+    state: the transport properties, the reaction source,
+    _close_species, the plasma conductivity, a TabulatedRate (log-log),
+    the sponge field, the interpolated inlet's Gaussian interpolation
+    (REACT_POINT_TOL of max, kappa + kappa_e its own REACT_POINT_TOLS bar;
+    each bitwise repeatable on the card; what a 4-ulp change of T moves
+    each module by on the CPU is logged beside); then
+    one ReactingFlow step with its dense refresh, from the deck's IC
+    (REACT_STEP_TOL on T, Y, Qt)."""
+    from tps_torch.interop.ext_data import GaussianInterpExtData
+    from tps_torch.solvers.lomach.base import TemporalCoefficients
+
+    solvers = [lomach_tps(REACTING_DECK, torch.float64, f"react_mod_{d}",
+                          device=d).solver for d in ("cuda", "cpu")]
+    worst, bad = {}, []
+    for s in solvers:
+        reacting_state(s, 5)
+    card, again, cpu = (reacting_modules(solvers[0]),
+                        reacting_modules(solvers[0]),
+                        reacting_modules(solvers[1]))
+    path = inlet_plane(os.path.join(REPO, "build", "react_inlet.csv"))
+    eds = [GaussianInterpExtData(s.tab, path, (4,), ramp_steps=3)
+           for s in solvers]
+    for ed in eds:
+        ed.step()
+    for k, f in (("velocity", "velocity_values"), ("swirl", "swirl_values"),
+                 ("temperature", "temperature_values")):
+        card[f"gaussian_interp {k}"] = getattr(eds[0], f)()
+        again[f"gaussian_interp {k}"] = getattr(eds[0], f)()
+        cpu[f"gaussian_interp {k}"] = getattr(eds[1], f)()
+    # the modules' response to a 4-ulp (1e-15) relative change of T on
+    # the CPU, logged as the scale of the card-vs-CPU gaps
+    th = solvers[1].thermo
+    th.T.mul_(1.0 + 1e-15)
+    moved = reacting_modules(solvers[1])
+    moved = {k: lrel(moved[k], cpu[k]) for k in moved}
+    for k in card:
+        bar = REACT_POINT_TOLS.get(k, REACT_POINT_TOL)
+        worst[k] = lrel(card[k], cpu[k])
+        if not (torch.equal(card[k], again[k]) and worst[k] <= bar
+                and bool(torch.isfinite(card[k]).all())):
+            bad.append((k, worst[k], bar))
+    steps = []
+    for d in ("cuda", "cpu"):
+        s = lomach_tps(REACTING_DECK, torch.float64, f"react_step_{d}",
+                       device=d).solver
+        s._refresh(s.thermo, 1)
+        s.thermo.step(TemporalCoefficients.bdf(1), s.dt)
+        steps.append(s.thermo)
+    for k in ("T", "Y", "Qt"):
+        worst[f"one step {k}"] = lrel(getattr(steps[0], k),
+                                      getattr(steps[1], k))
+        if worst[f"one step {k}"] > REACT_STEP_TOL:
+            bad.append((f"one step {k}", worst[f"one step {k}"]))
+    info = {k: float(v) for k, v in steps[0].info.items()}
+    log(f"  {solvers[0].tab.ndofs} dofs; card vs CPU (f64, relative to "
+        f"max|y|), each bitwise repeatable on the card: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (bars {REACT_POINT_TOL}, {REACT_POINT_TOLS}; a 4-ulp change "
+        f"of T on the CPU moves them " + ", ".join(
+            f"{k} {v:.1e}" for k, v in moved.items())
+        + f"; one step {REACT_STEP_TOL}); the step's solves on the card "
+        f"{info}")
+    if bad:
+        raise SystemExit(f"phase 29: the reacting modules differ: {bad}")
+    return {"worst": worst, "ulp_response": moved, "one_step_info": info}
+
+
+def phase_reacting_deck(dev):
+    """Phase 30: lomach_reacting.ini through the CLI's path on the card
+    (f32, as `python -m tps_torch --runFile` runs it), REACT_STEPS steps:
+    every field finite, the solve-info guard read every step without
+    tripping (it raises), the step graph captured once and replayed from
+    the first constant-order step on, Y a partition of unity, p_thermo
+    near the closed system's 39.7 kPa, the species in the checkpoint;
+    then 10 steps in f64 on the card and on the CPU: T, Y, Y(Ar+), u and
+    p_thermo within REACT_CPU_TOL of max."""
+    from tps_torch.io import h5lite
+
+    tps = lomach_tps(REACTING_DECK, torch.float32, "reacting",
+                     iters=REACT_STEPS)
+    s = tps.solver
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = reacting_fields(s)
+    finite = all(bool(torch.isfinite(v).all()) for v in st.values())
+    g = list(s._graphs.values())
+    replays = g[0].replays if g else 0
+    ysum = float((s.thermo.Y.sum(-1) - 1.0).abs().max())
+    p_th = float(s.thermo.p_thermo)
+    ck = h5lite.read(os.path.join(s.outdir, "restart_lomach.sol.h5"))
+    layout = ck["solution"]["species"].shape == (s.tab.ndofs, 3)
+    rows = len(s.info_log)
+    log(f"  f32: {s.iter} steps in {wall:.2f} s, {len(g)} step graph "
+        f"({g[0].graphs if g else 0} graphs), {replays} replays, host "
+        f"reads {s.loops.reads + s.info_reads}; T {float(st['T'].min()):.1f}"
+        f"-{float(st['T'].max()):.1f} K, Y(Ar+) max "
+        f"{float(st['Y(Ar+)'].max()):.4e}, |sum Y - 1| {ysum:.1e}, max|u| "
+        f"{float(st['u'].abs().max()):.4f} m/s, p_thermo {p_th:.2f} Pa; "
+        f"finite {finite}; solve-info rows read {rows}; species in the "
+        f"checkpoint {layout}; last solves {s.info_log[-1]}")
+    ok = (tps.get_status() == 0 and s.iter == REACT_STEPS and finite
+          and len(g) == 1 and replays == REACT_STEPS - s.max_bdf_order
+          and rows == REACT_STEPS and ysum < 1e-5
+          and 30000.0 < p_th < 50000.0 and layout)
+    if not ok:
+        raise SystemExit("the reacting deck failed its checks")
+    out = {"f32": {"steps": s.iter, "wall_s": wall, "replays": replays,
+                   "T_max": float(st["T"].max()), "p_thermo": p_th}}
+    states = []
+    for device in ("cuda", "cpu"):
+        tps = lomach_tps(REACTING_DECK, torch.float64, f"reacting_{device}",
+                         device=device, iters=10)
+        tps.solve()
+        states.append({k: v.double().cpu()
+                       for k, v in reacting_fields(tps.solver).items()})
+    dists = {k: lrel(states[0][k], states[1][k]) for k in states[0]}
+    ok = all(dists[k] <= REACT_CPU_TOL
+             for k in ("T", "Y", "Y(Ar+)", "u", "p_thermo"))
+    log("  f64, 10 steps, card vs the port's CPU run (each field to its "
+        "max): " + ", ".join(f"{k} {v:.2e}" for k, v in dists.items())
+        + f" (bar {REACT_CPU_TOL} on T, Y, u, p_thermo)"
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the reacting deck: card and CPU differ")
+    out["f64 card vs cpu"] = dists
+    return out
+
+
+SPONGE_INLET_DECK = """
+[solver]
+type = loMach
+[mesh]
+generator = box2d
+nx = 16
+ny = 8
+x1 = 1.0
+y1 = 0.25
+[loMach]
+order = 2
+flow-solver = tomboulides
+thermo-solver = calorically-perfect
+maxIters = {iters}
+[loMach/calperfect]
+viscosity-model = constant
+viscosity/mu = 5e-3
+[time]
+dt_fixed = 1e-3
+[spongeMultiplier]
+plane = 1
+planePoint = '0.7 0.0 0.0'
+planeNormal = '1.0 0.0 0.0'
+planeWidth = 0.05
+planeMult = 20.0
+[boundaryConditions/inlet1]
+patch = 4
+type = interpolate
+name = {csv}
+rampSteps = {ramp}
+[boundaryConditions/wall1]
+patch = 1
+type = viscous
+temperature = 300.0
+[boundaryConditions/wall2]
+patch = 3
+type = viscous
+[boundaryConditions/outlet1]
+patch = 2
+type = outlet
+"""
+
+
+def phase_reacting_graphs(steps=22):
+    """Phase 31: step graphs against eager steps through solve(), f64:
+    lomach_reacting.ini, `steps` steps (the dense factors refreshed again
+    at step 17, between two replays), and a 16x8 p=2 channel with a plane
+    sponge and an interpolated inlet whose ramp (12 steps) runs through
+    all 10 of its steps (its device step counter advanced inside the
+    graph): every field bitwise, the same CG iterations every step, the
+    BC tensors the same objects."""
+    csv = inlet_plane(os.path.join(REPO, "build", "sponge_inlet.csv"))
+    deck = os.path.join(REPO, "build", "sponge_inlet.ini")
+    with open(deck, "w") as f:
+        f.write(SPONGE_INLET_DECK.format(iters=10, csv=csv, ramp=12))
+    out = {}
+    for name, path, n in (("lomach_reacting.ini", REACTING_DECK, steps),
+                          ("sponge + interpolated inlet", deck, 10)):
+        runs = []
+        for graphs in (True, False):
+            tps = lomach_tps(path, torch.float64, f"react_graph_{graphs}",
+                             iters=n)
+            s = tps.solver
+            s.cuda_graphs = graphs
+            s.write_restart = lambda: None
+            ptrs = [s.flow.vel_bc_values.data_ptr(),
+                    s.thermo.T_bc.data_ptr()]
+            tps.solve()
+            st = {"u": s.flow.u, "p": s.flow.p, "T": s.thermo.T,
+                  "Qt": s.thermo.Qt, "T_bc": s.thermo.T_bc,
+                  "u_bc": s.flow.vel_bc_values}
+            if hasattr(s.thermo, "Y"):
+                st.update(Y=s.thermo.Y, p_thermo=s.thermo.p_thermo)
+            for i, ed in enumerate(s.ext_data):
+                st[f"inlet {i} count"] = ed.count
+            same = ptrs == [s.flow.vel_bc_values.data_ptr(),
+                            s.thermo.T_bc.data_ptr()]
+            runs.append((st, s.info_log, s, same))
+        (a, ia, sa, same), (b, ib, _, _) = runs
+        bitwise = {k: torch.equal(a[k], b[k]) for k in a}
+        its = [k for k in ia[0] if k.endswith("_iters")]
+        same_its = [[r[k] for k in its] for r in ia] == \
+            [[r[k] for k in its] for r in ib]
+        g = list(sa._graphs.values())
+        refreshes = getattr(sa.thermo, "refreshes", None)
+        ok = (all(bitwise.values()) and same_its and same and g
+              and g[0].replays == n - sa.max_bdf_order
+              and (refreshes is None or refreshes >= 2))
+        if sa.ext_data:
+            ok = ok and float(sa.ext_data[0].count) == n
+        log(f"  {name}: {sa.iter} steps ({g[0].replays if g else 0} "
+            f"replays), graph vs eager bitwise {bitwise}; the same CG "
+            f"iterations every step {same_its}; BC tensors kept {same}; "
+            f"dense refreshes thermo {refreshes}, flow "
+            f"{sa.flow.refreshes}" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{name}: graph and eager steps differ")
+        out[name] = {"bitwise": bitwise, "same_iterations": same_its}
+    return out
+
+
+def reacting_coupled(device, outdir):
+    """tests/test_coupling.py::test_cycle_avg_joule_coupling_reacting's
+    set-up on device: the argon zero-flow reacting column (5x5 p=1,
+    axisymmetric, 9 kK), an EM mesh 10x10 with a coil ring, EM every 2
+    steps, 100 W."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.config.run_config import parse_run_configuration
+    from tps_torch.mesh.generators import box_2d
+    from tps_torch.solvers.coupling import CycleAvgJouleCoupling
+    from tps_torch.solvers.em.qms import QuasiMagnetostaticSolverAxiSym
+
+    with open(ARGON_DECK) as f:
+        argon = f.read()
+    argon = "[plasma_models]" + argon.split("[plasma_models]", 1)[1]
+    text = f"""
+[solver]
+type = cycle-avg-joule-coupled
+[cycle-avg-joule-coupled]
+plasma-solver = lomach
+axisymmetric = 1
+solve-em-every-n = 2
+input-power = 100.0
+eval-Rplasma = 1
+[mesh]
+generator = box2d
+nx = 5
+ny = 5
+x1 = 0.01
+y1 = 0.01
+periodic_y = 1
+[loMach]
+order = 1
+axisymmetric = 1
+flow-solver = zero-flow
+thermo-solver = reacting-flow
+maxIters = 4
+ambientPressure = 101325.0
+openSystem = 1
+[loMach/reacting]
+sub-steps = 4
+[initialConditions]
+temperature = 9000.0
+[time]
+dt_fixed = 1e-7
+[em]
+current_amplitude = 1e6
+current_frequency = 1e5
+""" + argon.rsplit("[io]", 1)[0]
+    torch.set_default_dtype(torch.float64)
+    rc = parse_run_configuration(IniInput.parse(text))
+    rc.outdir = os.path.join(REPO, "build", outdir)
+    mesh = box_2d(10, 10, x0=0.0, x1=0.03, y0=-0.01, y1=0.02)
+    cent = mesh.vertices[mesh.elements].mean(axis=1)
+    attrs = np.ones(mesh.num_elements, dtype=np.int64)
+    attrs[(np.abs(cent[:, 0] - 0.018) < 0.004)
+          & (np.abs(cent[:, 1] - 0.005) < 0.004)] = 2
+    mesh.elem_attrs = attrs
+    c = CycleAvgJouleCoupling(rc, device=device)
+    c._em_in = QuasiMagnetostaticSolverAxiSym(rc, mesh=mesh, device=device)
+    c._em_in.initialize()
+    c.initialize()
+    return c
+
+
+def phase_reacting_coupled(dev):
+    """Phase 32: the reacting thermo under the cycle-averaged Joule
+    coupling on the card (reacting_coupled), 4 steps, two EM updates:
+    sigma from the mixture's transport positive and finite, the total
+    Joule heating after control on 100 W to POWER_TOL at each update, the
+    column heats, Y a partition of unity; then the same on the CPU: T, Y,
+    the Joule heating, the E-field and sigma within REACT_CPU_TOL."""
+    runs = []
+    for device in ("cuda", "cpu"):
+        c = reacting_coupled(device, f"react_coupled_{device}")
+        sigma0 = c.flow.thermo.plasma_conductivity()
+        T0 = float(c.flow.thermo.T.mean())
+        for _ in range(4):
+            c.solve_step()
+        th = c.flow.thermo
+        runs.append((c, sigma0, T0, {
+            "T": th.T.double().cpu(), "Y": th.Y.double().cpu(),
+            "joule": th.joule_heating.double().cpu(),
+            "efield": c.flow.efield.double().cpu(),
+            "sigma": th.plasma_conductivity().double().cpu()}))
+    (c, sigma0, T0, a), (_, _, _, b) = runs
+    power = [abs(e["joule"] / e["target"] - 1.0) for e in c.em_log]
+    dists = {k: lrel(a[k], b[k]) for k in a}
+    ysum = float((a["Y"].sum(-1) - 1.0).abs().max())
+    ok = (float(sigma0.min()) >= 0.0 and float(sigma0.max()) > 0.0
+          and bool(torch.isfinite(sigma0).all()) and len(c.em_log) == 2
+          and max(power) <= POWER_TOL and float(a["T"].mean()) > T0
+          and ysum < 1e-12 and all(v <= REACT_CPU_TOL
+                                   for v in dists.values()))
+    log(f"  4 steps, {len(c.em_log)} EM solves (iterations "
+        f"{[e['em_iters'] for e in c.em_log]}): sigma "
+        f"{float(sigma0.min()):.3e}-{float(sigma0.max()):.3e} S/m, |Joule "
+        f"after control / 100 - 1| <= {max(power):.2e} (bar {POWER_TOL}); "
+        f"mean T {T0:.1f} -> {float(a['T'].mean()):.1f} K; |sum Y - 1| "
+        f"{ysum:.1e}; card vs CPU: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in dists.items())
+        + f" (bar {REACT_CPU_TOL})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the reacting coupling failed its checks")
+    return {"power_err": max(power), "card_vs_cpu": dists}
+
+
+def reacting_chain(s, n=4):
+    """Device ms of the reacting thermo's pointwise chain on the deck's
+    state, profiled alone: one transport evaluation (the thermo step and
+    the flow's viscosity take one each a step) and one reaction source
+    (4 substeps and the Qt take 5 a step)."""
+    th = s.thermo
+    tr = device_share(lambda: th._transport_props(th.T, th.Y, th.p_thermo),
+                      n)
+    rs = device_share(lambda: th._reaction_source(th.T, th.Y, th.p_thermo,
+                                                  th.t), n)
+    out = {"transport_device_ms": tr.get("device_ms"),
+           "transport_launches": tr.get("launches"),
+           "reaction_source_device_ms": rs.get("device_ms"),
+           "reaction_source_launches": rs.get("launches")}
+    if None not in (out["transport_device_ms"],
+                    out["reaction_source_device_ms"]):
+        out["chain_device_ms_per_step"] = (2 * out["transport_device_ms"]
+                                           + 5 * out[
+                                               "reaction_source_device_ms"])
+    return out
+
+
+def reacting_cases(dtype):
+    """Phase 33's case: the deck as shipped."""
+    return {"lomach_reacting.ini (24x48 p=2)": lambda: lomach_tps(
+        REACTING_DECK, dtype, "reacting_t", iters=10**6)}
+
+
 def run(dev):
     """Every phase on device dev; returns the kernels' record and the
     card's nvidia-smi line."""
@@ -2971,6 +3422,35 @@ def run(dev):
     for dtype in (torch.float64, torch.float32):
         coupled_steps.update(phase_coupled_timing(
             {k: make().solver for k, make in coupled_cases(dtype).items()}))
+    log_phase("phase 29: the reacting path's modules on the card vs the CPU "
+              "(f64, 24x48 p=2: transport, reaction source, closure, "
+              "conductivity, TabulatedRate, sponge, Gaussian interpolation; "
+              "one ReactingFlow step)")
+    reacting_mods = phase_reacting_modules(dev)
+    log_phase(f"phase 30: lomach_reacting.ini through the CLI (f32, "
+              f"{REACT_STEPS} steps), then f64 card vs CPU (10 steps)")
+    reacting_deck = phase_reacting_deck(dev)
+    log_phase("phase 31: step graphs vs eager steps through solve() (f64): "
+              "the reacting deck across a dense refresh, a channel with a "
+              "plane sponge and an interpolated inlet inside its ramp")
+    reacting_graphs = phase_reacting_graphs()
+    log_phase("phase 32: the reacting thermo under the Joule coupling on the "
+              "card (test_coupling.py's 5x5 set-up, 4 steps), then vs the "
+              "CPU (f64)")
+    reacting_coupled_out = phase_reacting_coupled(dev)
+    log_phase("phase 33: ms/step through solve() on lomach_reacting.ini, "
+              "graph vs eager (f64, f32)")
+    reacting_steps = {}
+    for dtype in (torch.float64, torch.float32):
+        cases = {k: make().solver for k, make in
+                 reacting_cases(dtype).items()}
+        res = phase_lomach_timing(cases)
+        for name, s in cases.items():
+            key = f"{name} {str(s.dtype)[6:]}"
+            res[key]["pointwise_chain"] = chain = reacting_chain(s)
+            log(f"  {key}: the pointwise chain alone, device ms: {chain}")
+        reacting_steps.update(res)
+        del cases
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -3047,6 +3527,10 @@ def run(dev):
                                 "deck": coupled_deck,
                                 "graph vs eager (f64)": coupled_graphs,
                                 "solve() ms/step": coupled_steps}
+    summary["reacting low Mach"] = {
+        "modules card vs CPU (f64)": reacting_mods, "deck": reacting_deck,
+        "graph vs eager (f64)": reacting_graphs,
+        "coupled": reacting_coupled_out, "solve() ms/step": reacting_steps}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

@@ -26,8 +26,8 @@ cross-mesh interpolator against the JAX package's, on the CPU in f64.
   through the CLI's entry (`tps_torch.harness.main`, as
   `python -m tps_torch --device cpu` runs it, in f32);
 - refusals of what stays out: the compressible plasma solver under the
-  coupling (ROADMAP A11), a 3-D EM mesh and the `em` solver (A10), the
-  reacting-flow thermo (A9.2).
+  coupling (ROADMAP A11), a 3-D EM mesh and the `em` solver (A10).  The
+  reacting thermo under the coupling runs: tests/test_torch_reacting.py.
 """
 
 import os
@@ -440,7 +440,6 @@ REFUSALS = {
                       "compressible"}, "A11"),
     "qms3d": ({"cycle-avg-joule-coupled/axisymmetric": "0"}, "A10"),
     "em3d": ({"solver/type": "em"}, "A10"),
-    "reacting": ({"loMach/thermo-solver": "reacting-flow"}, "A9.2"),
 }
 
 

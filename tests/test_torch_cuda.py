@@ -9,7 +9,9 @@ on the card and matches the CPU; the Tomboulides step graph == eager
 steps, on p-multigrid and across a dense-factor refresh, and a capture
 holds while a dead solver's graphs are collected.  The coupled torch
 deck: step graph == eager steps across an EM update; GMRES on the card
-matches the CPU.
+matches the CPU.  The reacting deck: step graph == eager steps across a
+dense refresh, and inside an interpolated inlet's ramp; a ReactingFlow
+step on the card matches the CPU.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -877,3 +879,115 @@ def test_gmres_on_card_matches_cpu(device, f64, monkeypatch):
     _, _, apply, b = cpu._operands(cpu.plasma_conductivity)
     d = torch.cat([card.A_re.cpu() - cpu.A_re, card.A_im.cpu() - cpu.A_im])
     assert float(torch.linalg.norm(apply(d)) / torch.linalg.norm(b)) <= 2e-10
+
+
+REACTING_DECK = os.path.join(os.path.dirname(os.path.dirname(__file__)),
+                             "tps_torch", "tools", "lomach_reacting.ini")
+REACTING_KEYS = {"mesh/nx": "12", "mesh/ny": "24"}
+
+
+def test_reacting_graph_matches_eager_across_a_refresh(device, f64,
+                                                       tmp_path):
+    """lomach_reacting.ini cut to 12x24, 20 steps through solve(): the
+    thermo's and the flow's dense factors refreshed again at step 17,
+    between two replays; graph == eager bitwise (T, Y, p_thermo, u, p),
+    the same CG iterations every step."""
+    g = _lomach(REACTING_DECK, tmp_path / "g", True, 20, REACTING_KEYS)
+    e = _lomach(REACTING_DECK, tmp_path / "e", False, 20, REACTING_KEYS)
+    assert g._graphs and not e._graphs
+    assert g.thermo.refreshes == e.thermo.refreshes == 2
+    assert next(iter(g._graphs.values())).replays == 17
+    for name in ("T", "Y", "Qt", "p_thermo"):
+        assert torch.equal(getattr(g.thermo, name), getattr(e.thermo, name))
+    assert torch.equal(g.flow.u, e.flow.u) and torch.equal(g.flow.p, e.flow.p)
+    assert g.info_log == e.info_log and len(g.info_log) == 20
+
+
+def test_interpolated_inlet_graph_matches_eager_inside_its_ramp(
+        device, f64, tmp_path):
+    """A channel with an interpolated inlet (rampSteps 12, its device step
+    counter advanced inside the graph) and a plane sponge, 8 steps: graph
+    == eager bitwise, the ramp at 8/12 in both, the BC tensors the same
+    objects after the run."""
+    csv = tmp_path / "inlet.csv"
+    with open(csv, "w") as fh:
+        fh.write("# no, x, y, z, T, u, v, w\n")
+        for i, y in enumerate(np.linspace(0.0, 0.25, 30)):
+            fh.write(f"{i},0.0,{y},0.0,{320 + 100 * y},"
+                     f"{64 * y * (0.25 - y)},0.0,0.0\n")
+    deck = tmp_path / "deck.ini"
+    deck.write_text(f"""
+[solver]
+type = loMach
+[mesh]
+generator = box2d
+nx = 8
+ny = 4
+x1 = 1.0
+y1 = 0.25
+[loMach]
+order = 2
+flow-solver = tomboulides
+thermo-solver = calorically-perfect
+[loMach/calperfect]
+viscosity-model = constant
+viscosity/mu = 5e-3
+[time]
+dt_fixed = 1e-3
+[spongeMultiplier]
+plane = 1
+planePoint = '0.7 0.0 0.0'
+planeNormal = '1.0 0.0 0.0'
+planeWidth = 0.05
+planeMult = 20.0
+[boundaryConditions/inlet1]
+patch = 4
+type = interpolate
+name = {csv}
+rampSteps = 12
+[boundaryConditions/wall1]
+patch = 1
+type = viscous
+temperature = 300.0
+[boundaryConditions/wall2]
+patch = 3
+type = viscous
+[boundaryConditions/outlet1]
+patch = 2
+type = outlet
+""")
+    g = _lomach(str(deck), tmp_path / "g", True, 8)
+    e = _lomach(str(deck), tmp_path / "e", False, 8)
+    assert g._graphs and float(g.ext_data[0].count) == 8.0
+    for a, b in ((g.flow.u, e.flow.u), (g.flow.p, e.flow.p),
+                 (g.thermo.T, e.thermo.T),
+                 (g.flow.vel_bc_values, e.flow.vel_bc_values),
+                 (g.thermo.T_bc, e.thermo.T_bc)):
+        assert torch.equal(a, b)
+    assert g.info_log == e.info_log
+
+
+def test_reacting_step_on_card_matches_cpu(device, f64):
+    """One ReactingFlow step of the deck (12x24 p=2, the argon full tier
+    from the deck's IC, its dense refresh) on the card and on the CPU: T,
+    Y and Qt within 1e-10 of max."""
+    from tps_torch import harness
+    from tps_torch.solvers.lomach.base import TemporalCoefficients
+
+    out = []
+    for dev in ("cuda", "cpu"):
+        tps = harness.Tps()
+        tps.parse_command_line_args(["tps", "--runFile", REACTING_DECK,
+                                     "--device", dev])
+        tps.parse_input()
+        tps.config.raw.values.update(REACTING_KEYS)
+        tps.choose_devices()
+        tps.choose_solver()
+        tps.initialize()
+        s = tps.solver
+        s._refresh(s.thermo, 1)
+        s.thermo.step(TemporalCoefficients.bdf(1), s.dt)
+        out.append({k: getattr(s.thermo, k).cpu() for k in ("T", "Y", "Qt")})
+    for k in out[0]:
+        d = float((out[0][k] - out[1][k]).abs().max())
+        assert d <= 1e-10 * float(out[1][k].abs().max()), k

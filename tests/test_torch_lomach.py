@@ -388,13 +388,6 @@ def test_channel_deck_zeta_fields(tmp_path):
 # ---------------------------------------------------------------- refusals
 
 REFUSALS = {
-    "reacting": ("[loMach]\nthermo-solver = reacting-flow\n", "A9.2"),
-    "sponge": ("[spongeMultiplier]\nuniform = 1\n", "A9.2"),
-    "interpolate": ("[boundaryConditions/inlet1]\npatch = 4\n"
-                    "type = interpolate\n", "A9.2"),
-    "species": ("[plasma_models]\ninitialize_species = 1\n", "A9.2"),
-    "zeta_file": ("[ransModel]\nzeta-f-file = inlet.csv\n", "A9.2"),
-    "visc_file": ("[loMach/static-rans]\nvisc-file = nut.csv\n", "A9.2"),
     "averaging": ("[averaging]\nsampleFreq = 10\n", "A12"),
     "partitions": ("[mesh]\npartitions = 2\n", "A8"),
 }

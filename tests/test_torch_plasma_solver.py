@@ -146,6 +146,8 @@ def _deck(tmp_path, edit):
                          "radiation_model = net_emission"), "A6.3"),
     (lambda t: t.replace("equation_system = navier-stokes",
                          "equation_system = euler"), "A6.2"),
+    (lambda t: t.replace("fluid = user_defined", "fluid = lte_table"),
+     "A6.3"),
 ])
 def test_unported_plasma_inputs_raise(tmp_path, edit, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -108,6 +108,9 @@ def test_import_without_jax():
         "import tps_torch.solvers.lomach.axisym, tps_torch.fem.krylov\n"
         "import tps_torch.solvers.em.qms, tps_torch.solvers.coupling\n"
         "import tps_torch.interop.interpolation\n"
+        "import tps_torch.interop.ext_data\n"
+        "import tps_torch.solvers.lomach.reacting_flow\n"
+        "import tps_torch.solvers.lomach.sponge\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"

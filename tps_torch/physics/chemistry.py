@@ -9,10 +9,11 @@ progress rates by mass action over molar number densities, creation rates
 in mass units.  The (static, small) reaction list is unrolled in Python
 over constants, so a step that runs it stays capturable as a CUDA graph.
 
-Not here: tabulated rates (TabulatedRate, which reads tables) and
-radiative decay wait for ROADMAP A6.3, the externally injected `bte`
-rates for the Boltzmann coupling (ROADMAP A11); physics/plasma_config.py
-raises for each.
+TabulatedRate reads a 1-D table in temperature (physics/tables.py); the
+low-Mach reacting thermo takes it, the compressible mixture does not yet
+(solvers/compressible.py raises, ROADMAP A6.3).  Not here: radiative decay
+(ROADMAP A6.3) and the externally injected `bte` rates for the Boltzmann
+coupling (ROADMAP A11); physics/plasma_config.py raises for each.
 """
 
 from __future__ import annotations
@@ -51,6 +52,17 @@ class HoffertLien:
     def __call__(self, T, **kw):
         tf = self.E / BOLTZMANN_CONSTANT / T
         return self.A * T**self.b * (tf + 2.0) * torch.exp(-tf)
+
+
+@dataclass(frozen=True, eq=False)
+class TabulatedRate:
+    """Rate from a 1-D table in temperature (reference:
+    src/reaction.cpp:63-83; tps_tpu/physics/chemistry.py:53)."""
+
+    table: object  # tables.LinearTable
+
+    def __call__(self, T, **kw):
+        return self.table(T)
 
 
 @dataclass(frozen=True, eq=False)

@@ -6,16 +6,20 @@ _parse_composition and build_plasma, tps_tpu/physics/plasma_config.py:
 [plasma_models], [reactions/*] — exemplar test/inputs/argonMinimal.ini)
 and constructs the port's PerfectMixture / transport / Chemistry objects
 with the reference's species-ordering conventions: input species are
-reordered to [others..., electron, background].
+reordered to [others..., electron, background].  Its species and reaction
+readers (`read_species`, `parse_reactions`) also serve the reacting
+low-Mach thermo's simple tier, which keeps the input order.
 
 `read_table_input` reads a table from an HDF5 file (through io/h5lite.py)
-or from inline x/f lists; the low-Mach LTE thermo uses it for the
-net-emission table.  Not here, each raising with its ROADMAP item:
-tabulated reaction rates, the `net_emission` radiation model of the
-compressible mixture and radiative decay (A6.3), the general
+or from inline x/f lists: the low-Mach LTE thermo's net-emission table, a
+`tabulated` reaction rate, the reacting thermo's net emission.  With
+`loMach/reactingFlow/ramp-chem`, `[reactions_base/reactionN]` gives the
+baseline chemistry the reacting thermo blends from (`chemistry_base`).
+The compressible mixture takes neither tabulated rates nor net emission
+yet (solvers/compressible.py raises, ROADMAP A6.3).  Not here, each
+raising with its ROADMAP item: radiative decay (A6.3), the general
 per-pair transport (`argon_mixture`, A6.3), constant transport with
-species (A6.2), the externally injected `bte` rates (A11) and the
-reacting-flow chemistry ramp (`ramp-chem`, the low-Mach family, A9).
+species (A6.2) and the externally injected `bte` rates (A11).
 """
 
 from __future__ import annotations
@@ -26,9 +30,10 @@ from dataclasses import dataclass
 import numpy as np
 
 from ..io import h5lite
-from .chemistry import Arrhenius, Chemistry, HoffertLien
+from .chemistry import Arrhenius, Chemistry, HoffertLien, TabulatedRate
 from .gas_transport import ArgonMinimalTransport
 from .perfect_mixture import PerfectMixture
+from .radiation import NetEmission
 from .tables import LinearTable
 
 
@@ -46,6 +51,7 @@ class PlasmaSetup:
     species_names: list  # mixture-ordered
     input_to_mixture: np.ndarray  # input species index -> mixture index
     initial_mass_fractions: np.ndarray = None  # mixture-ordered
+    chemistry_base: object | None = None  # ramp-chem's baseline chemistry
 
 
 def _parse_composition(s: str) -> dict:
@@ -73,31 +79,99 @@ def read_table_input(inp, prefix: str):
     )
 
 
-def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
-    # ---- atoms ----
+def read_species(inp, default_cv: float):
+    """[atoms] and [species] in input order: the names, molar masses,
+    charges, heats of formation, molar cv / R (`default_cv` where a
+    species gives none), initial mass fractions and level degeneracies,
+    one list each."""
     atoms = {}
-    n_atoms = inp.get("atoms/numAtoms", 0)
-    for a in range(1, n_atoms + 1):
-        name = inp.get_required(f"atoms/atom{a}/name")
-        atoms[name] = inp.get_required(f"atoms/atom{a}/mass", float)
-
-    # ---- species (input order) ----
+    for a in range(1, inp.get("atoms/numAtoms", 0) + 1):
+        atoms[inp.get_required(f"atoms/atom{a}/name")] = inp.get_required(
+            f"atoms/atom{a}/mass", float)
     nsp = inp.get_required("species/numSpecies", int)
-    bg_input = inp.get_required("species/background_index", int)  # 1-based
     names, mws, charges, hf, cv, imf, degen = [], [], [], [], [], [], []
     for s in range(1, nsp + 1):
         base = f"species/species{s}"
         name = inp.get_required(f"{base}/name")
         comp = _parse_composition(inp.get(f"{base}/composition", "{}"))
-        mw = sum(atoms[a] * c for a, c in comp.items())
-        charge = -comp.get("E", 0.0) if name != "E" else -1.0
         names.append(name)
-        mws.append(mw)
-        charges.append(charge)
+        mws.append(sum(atoms[a] * c for a, c in comp.items()))
+        charges.append(-comp.get("E", 0.0) if name != "E" else -1.0)
         hf.append(inp.get(f"{base}/formation_energy", 0.0))
-        cv.append(inp.get(f"{base}/perfect_mixture/constant_molar_cv", 1.5))
+        cv.append(inp.get(f"{base}/perfect_mixture/constant_molar_cv",
+                          default_cv))
         imf.append(inp.get(f"{base}/initialMassFraction", 0.0))
         degen.append(inp.get(f"{base}/level_degeneracy", 1.0))
+    return names, mws, charges, hf, cv, imf, degen
+
+
+def _rate_model(inp, base):
+    model = inp.get(f"{base}/model", "arrhenius")
+    if model in ("arrhenius", "hoffert_lien"):
+        rate = Arrhenius if model == "arrhenius" else HoffertLien
+        return rate(A=inp.get_required(f"{base}/{model}/A", float),
+                    b=inp.get_required(f"{base}/{model}/b", float),
+                    E=inp.get_required(f"{base}/{model}/E", float))
+    if model == "tabulated":
+        return TabulatedRate(read_table_input(inp, f"{base}/tabulated"))
+    if model == "radiative_decay":
+        raise _not_ported("the radiative-decay reaction model", "A6.3")
+    if model == "bte":
+        raise _not_ported("externally injected (bte) reaction rates", "A11")
+    raise NotImplementedError(f"reaction model '{model}'")
+
+
+def parse_reactions(inp, nsp: int, mixture, to_mixture=None,
+                    baseline=False):
+    """The Chemistry of [reactions] over `mixture`, or None without
+    reactions.  `to_mixture` maps input species to the mixture's order
+    (identity if None).  With `baseline`, ramp-chem's baseline chemistry:
+    the same reactions, stoichiometry and equilibria, the rate models (and
+    the energies, where given) from [reactions_base/reactionN] (reference:
+    src/reactingFlow.cpp:658-682)."""
+    n_react = inp.get("reactions/numberOfReactions",
+                      inp.get("reactions/number_of_reactions", 0))
+    if n_react == 0:
+        return None
+    to_mixture = np.arange(nsp) if to_mixture is None else to_mixture
+    r_stoich = np.zeros((n_react, nsp))
+    p_stoich = np.zeros((n_react, nsp))
+    models, energies, balances, eq_params = [], [], [], []
+    for r in range(1, n_react + 1):
+        base = f"reactions/reaction{r}"
+        r_stoich[r - 1, to_mixture] = inp.get_vec(
+            f"{base}/reactant_stoichiometry", nsp)
+        p_stoich[r - 1, to_mixture] = inp.get_vec(
+            f"{base}/product_stoichiometry", nsp)
+        energy = inp.get(f"{base}/reaction_energy", 0.0)
+        if baseline:
+            base_b = f"reactions_base/reaction{r}"
+            models.append(_rate_model(inp, base_b))
+            energies.append(inp.get(f"{base_b}/reaction_energy", energy))
+        else:
+            models.append(_rate_model(inp, base))
+            energies.append(energy)
+        db = bool(inp.get(f"{base}/detailed_balance", 0))
+        balances.append(db)
+        eq_params.append(tuple(
+            inp.get_required(f"{base}/equilibrium_constant/{k}", float)
+            for k in "AbE") if db else (0.0, 0.0, 0.0))
+    return Chemistry(
+        mixture=mixture,
+        reactant_stoich=r_stoich,
+        product_stoich=p_stoich,
+        models=tuple(models),
+        reaction_energies=tuple(energies),
+        detailed_balance=tuple(balances),
+        equilibrium_params=tuple(eq_params),
+        min_temperature=inp.get("reactions/minimumTemperature", 0.0),
+    )
+
+
+def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
+    names, mws, charges, hf, cv, imf, degen = read_species(inp, 1.5)
+    nsp = len(names)
+    bg_input = inp.get_required("species/background_index", int)  # 1-based
 
     # ---- reorder to mixture convention: [others..., E, background] ----
     e_input = names.index("E")
@@ -145,85 +219,29 @@ def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
     else:
         raise NotImplementedError(f"transport model '{tmodel}'")
 
-    # ---- reactions ----
-    chemistry = None
-    n_react = inp.get("reactions/numberOfReactions",
-                      inp.get("reactions/number_of_reactions", 0))
-    if inp.get("loMach/reactingFlow/ramp-chem", 0):
-        raise _not_ported("the chemistry ramp (ramp-chem)", "A9")
-    if n_react > 0:
-        r_stoich = np.zeros((n_react, nsp))
-        p_stoich = np.zeros((n_react, nsp))
-
-        def parse_model(base):
-            model = inp.get(f"{base}/model", "arrhenius")
-            if model == "arrhenius":
-                return Arrhenius(
-                    A=inp.get_required(f"{base}/arrhenius/A", float),
-                    b=inp.get_required(f"{base}/arrhenius/b", float),
-                    E=inp.get_required(f"{base}/arrhenius/E", float),
-                )
-            if model == "hoffert_lien":
-                return HoffertLien(
-                    A=inp.get_required(f"{base}/hoffert_lien/A", float),
-                    b=inp.get_required(f"{base}/hoffert_lien/b", float),
-                    E=inp.get_required(f"{base}/hoffert_lien/E", float),
-                )
-            if model == "tabulated":
-                raise _not_ported("tabulated reaction rates", "A6.3")
-            if model == "radiative_decay":
-                raise _not_ported("the radiative-decay reaction model", "A6.3")
-            if model == "bte":
-                raise _not_ported("externally injected (bte) reaction rates",
-                                  "A11")
-            raise NotImplementedError(f"reaction model '{model}'")
-
-        models, energies, balances, eq_params = [], [], [], []
-        for r in range(1, n_react + 1):
-            base = f"reactions/reaction{r}"
-            rs = inp.get_vec(f"{base}/reactant_stoichiometry", nsp)
-            ps = inp.get_vec(f"{base}/product_stoichiometry", nsp)
-            for i in range(nsp):
-                r_stoich[r - 1, input_to_mixture[i]] = rs[i]
-                p_stoich[r - 1, input_to_mixture[i]] = ps[i]
-            energies.append(inp.get(f"{base}/reaction_energy", 0.0))
-            models.append(parse_model(base))
-            db = bool(inp.get(f"{base}/detailed_balance", 0))
-            balances.append(db)
-            if db:
-                eq_params.append(
-                    (
-                        inp.get_required(f"{base}/equilibrium_constant/A", float),
-                        inp.get_required(f"{base}/equilibrium_constant/b", float),
-                        inp.get_required(f"{base}/equilibrium_constant/E", float),
-                    )
-                )
-            else:
-                eq_params.append((0.0, 0.0, 0.0))
-        chemistry = Chemistry(
-            mixture=mixture,
-            reactant_stoich=r_stoich,
-            product_stoich=p_stoich,
-            models=tuple(models),
-            reaction_energies=tuple(energies),
-            detailed_balance=tuple(balances),
-            equilibrium_params=tuple(eq_params),
-            min_temperature=inp.get("reactions/minimumTemperature", 0.0),
-        )
+    # ---- reactions (and ramp-chem's baseline) ----
+    chemistry = parse_reactions(inp, nsp, mixture, input_to_mixture)
+    chemistry_base = None
+    if chemistry is not None and inp.get("loMach/reactingFlow/ramp-chem", 0):
+        chemistry_base = parse_reactions(inp, nsp, mixture, input_to_mixture,
+                                         baseline=True)
 
     # ---- radiation ----
+    radiation = None
     rmodel = inp.get("plasma_models/radiation_model", "none")
     if rmodel == "net_emission":
-        raise _not_ported("the net-emission radiation model", "A6.3")
-    if rmodel not in ("none", "n/a"):
+        radiation = NetEmission(read_table_input(
+            inp, "plasma_models/radiation_model/net_emission/tabulated"))
+    elif rmodel not in ("none", "n/a"):
         raise NotImplementedError(f"radiation model '{rmodel}'")
 
     return PlasmaSetup(
         mixture=mixture,
         transport=transport,
         chemistry=chemistry,
-        radiation=None,
+        radiation=radiation,
         species_names=[names[i] for i in order],
         input_to_mixture=input_to_mixture,
         initial_mass_fractions=np.array([imf[i] for i in order]),
+        chemistry_base=chemistry_base,
     )

@@ -212,6 +212,18 @@ def _check_plasma(rc: RunConfiguration):
     if rc.equation_system == "euler":
         # the face-sweep kernel's mixture policy is Navier-Stokes only
         raise _not_ported("Euler on a species mixture", "A6.2")
+    # physics/plasma_config.py builds both for the low-Mach reacting
+    # thermo; the mixture's source term (dg/source_term.py) takes neither
+    n_react = raw.get("reactions/numberOfReactions",
+                      raw.get("reactions/number_of_reactions", 0))
+    for r in range(1, n_react + 1):
+        if raw.get(f"reactions/reaction{r}/model", "arrhenius") \
+                == "tabulated":
+            raise _not_ported("tabulated reaction rates in the "
+                              "compressible mixture", "A6.3")
+    if raw.get("plasma_models/radiation_model", "none") == "net_emission":
+        raise _not_ported("the net-emission radiation model in the "
+                          "compressible mixture", "A6.3")
 
 
 def check_slice(rc: RunConfiguration):
@@ -222,7 +234,7 @@ def check_slice(rc: RunConfiguration):
                              "file's [plasma_models] and [species]")
         _check_plasma(rc)
     elif rc.fluid == "lte_table":
-        raise _not_ported("the LTE-table fluid (physics/lte.py)", "A9")
+        raise _not_ported("the LTE-table fluid (physics/lte.py)", "A6.3")
     elif rc.fluid != "dry_air":
         # neither package has another fluid (the JAX package raises too)
         raise ValueError(f"fluid '{rc.fluid}': the fluids are dry_air, "

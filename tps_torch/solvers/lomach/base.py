@@ -145,7 +145,7 @@ class ZeroTurbModel(TurbModelBase):
 
 class SpongeBase:
     """Damping-coefficient field interface (reference: src/sponge_base.hpp:67);
-    no sponge is ported yet (ROADMAP A9.2)."""
+    sponge.py's GeometricSponge."""
 
     def multiplier(self):
         raise NotImplementedError

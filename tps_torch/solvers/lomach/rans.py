@@ -4,9 +4,9 @@ The port of the JAX package's solvers/lomach/rans.py.  AlgebraicRans
 (reference: src/algebraic_rans.cpp:120-191):
   nu_t = min(kappa d_wall, max_mixing_length)^2 * |omega|
 with |omega| the vorticity magnitude from the H1 velocity field.
-StaticRans (src/static_rans.cpp): a frozen eddy-viscosity field (a
-constant here; one read from a file needs interop/ext_data.py, ROADMAP
-A9.2).
+StaticRans (src/static_rans.cpp): a frozen eddy-viscosity field, a
+constant or one read from `loMach/static-rans/visc-file`
+(interop/ext_data.py, solver.py).
 """
 
 from __future__ import annotations
@@ -59,8 +59,9 @@ class StaticRans(TurbModelBase):
 
     def __init__(self, tab, nut_field):
         self._nut = torch.as_tensor(
-            np.broadcast_to(np.asarray(nut_field, np.float64), (tab.ndofs,)),
-            dtype=tab.wq.dtype, device=tab.wq.device).clone()
+            np.broadcast_to(np.asarray(nut_field, np.float64),
+                            (tab.ndofs,)).copy(),
+            dtype=tab.wq.dtype, device=tab.wq.device)
 
     def eddy_viscosity(self):
         return self._nut

@@ -21,16 +21,20 @@ the end, and a pressure or velocity solve that ended above tolerance
 raises there, as the JAX package's convergence check does (a
 checkpoint never holds a step whose solve failed).
 
-The models: constant-property, calorically-perfect and LTE-table
-(`lte-thermo-chem`, its tables read with io/h5lite.py) thermo-chemistry;
-the planar Tomboulides flow, or with `loMach/axisymmetric` the (r, z)
-flow with swirl (axisym.py) and the radius weight in the thermo's forms.
+The models: constant-property, calorically-perfect, LTE-table
+(`lte-thermo-chem`, its tables read with io/h5lite.py) and finite-rate
+reacting (`reacting-flow`, reacting_flow.py: the argon plasma stack or the
+simple Pr/Sc tier) thermo-chemistry; the planar Tomboulides flow, or with
+`loMach/axisymmetric` the (r, z) flow with swirl (axisym.py) and the
+radius weight in the calorically-perfect and LTE thermo's forms; the
+geometric sponge ([spongeMultiplier], sponge.py); external data
+(interop/ext_data.py): the `interpolate` inlet, whose ramped values the
+step writes into the flow's and the thermo's BC tensors from a device
+step counter, species initialisation, the zeta-f inlet file and the
+static-RANS eddy-viscosity file.
 
 Out of the slice, each raising NotImplementedError with its ROADMAP item:
-the reacting thermo-chemistry and the sponge (A9.2, with the interpolated
-inlet, species initialisation and every file-fed turbulence input, which
-need interop/ext_data.py), running statistics (A12) and domain
-decomposition (A8).
+running statistics (A12) and domain decomposition (A8).
 """
 
 from __future__ import annotations
@@ -65,30 +69,94 @@ def _not_ported(what, item):
 def check_slice(inp):
     """Raise NotImplementedError for any low-Mach input this slice does not
     run, on every device alike."""
-    tc = inp.get("loMach/thermo-solver", "constant-property")
-    if tc == "reacting-flow":
-        raise _not_ported(f"the '{tc}' thermo-chemistry", "A9.2")
-    if any(inp.get(f"spongeMultiplier/{k}", 0)
-           for k in ("uniform", "plane", "cylinder", "annulus")):
-        raise _not_ported("the geometric sponge ([spongeMultiplier])", "A9.2")
-    if inp.get("plasma_models/initialize_species", 0):
-        raise _not_ported("species initialisation from a file "
-                          "(interop/ext_data.py)", "A9.2")
-    if inp.has("ransModel/zeta-f-file"):
-        raise _not_ported("zeta-f inlet profiles from a file "
-                          "(interop/ext_data.py)", "A9.2")
-    if inp.get("loMach/static-rans/visc-file", None):
-        raise _not_ported("a static-RANS eddy viscosity from a file "
-                          "(interop/ext_data.py)", "A9.2")
-    for sub in inp.sections_under("boundaryConditions"):
-        if inp.get(f"boundaryConditions/{sub}/type", "viscous") \
-                == "interpolate":
-            raise _not_ported("the interpolated inlet (interop/ext_data.py)",
-                              "A9.2")
     if inp.get("averaging/sampleFreq", 0) or inp.has("averaging/startIter"):
         raise _not_ported("running statistics ([averaging])", "A12")
     if max(int(inp.get("mesh/partitions", 1) or 1), 1) > 1:
         raise _not_ported("domain decomposition (mesh/partitions > 1)", "A8")
+
+
+def _build_reacting_flow(inp, tab, temp_bcs, cg_tol, cg_maxiter, qt_bcs=(),
+                         spec_bcs=()):
+    """Finite-rate reacting thermo-chemistry from the [species]/[reactions]
+    schema (tps_tpu/solvers/lomach/solver.py:106-247): the argon plasma
+    stack where a transport model is named and an electron is among the
+    species, else the simple tier over the input species order."""
+    from ...physics.plasma_config import (build_plasma, parse_reactions,
+                                          read_species)
+    from .reacting_flow import ReactingFlow, SpeciesSet
+
+    nsp = inp.get("species/numSpecies", 0)
+    has_electron = any(inp.get(f"species/species{s}/name", "") == "E"
+                       for s in range(1, nsp + 1))
+    common = dict(
+        p_thermo=inp.get("loMach/ambientPressure", 101325.0),
+        closed_system=not bool(inp.get("loMach/openSystem", 0)),
+        n_substeps=inp.get("loMach/reacting/sub-steps", 4),
+        temp_bcs=tuple(temp_bcs), qt_bcs=qt_bcs, spec_bcs=spec_bcs,
+        T_init=inp.get("initialConditions/temperature", 300.0),
+        cg_tol=cg_tol, cg_maxiter=cg_maxiter)
+    if has_electron and inp.get("plasma_models/transport_model", ""):
+        pl = build_plasma(inp, tab.dim, tab.dim)
+        return ReactingFlow(
+            tab, species_names=pl.species_names, mixture=pl.mixture,
+            transport=pl.transport, chemistry=pl.chemistry,
+            radiation=pl.radiation,
+            operator_split=bool(inp.get("loMach/reacting/operator-split", 1)),
+            Y_init=pl.initial_mass_fractions,
+            const_plasma_conductivity=inp.get(
+                "plasma_models/const_plasma_conductivity", 0.0),
+            chemistry_base=pl.chemistry_base,
+            ramp_start=inp.get("loMach/reactingFlow/ramp-chem/ramp_start",
+                               -1.0),
+            ramp_time=inp.get("loMach/reactingFlow/ramp-chem/ramp_time",
+                              -1.0),
+            **common)
+
+    names, mws, _, hf, cv, imf, _ = read_species(inp, 2.5)
+    chemistry = parse_reactions(
+        inp, len(names), SpeciesSet(mws, names.index("E") if "E" in names
+                                    else -1))
+    return ReactingFlow(
+        tab, species_names=names, mw=tuple(mws), molar_cv_over_R=tuple(cv),
+        formation_energy=tuple(hf), chemistry=chemistry,
+        Y_init=np.asarray(imf), **common)
+
+
+def _build_sponge(inp, tab):
+    """The geometric sponge of [spongeMultiplier] (reference:
+    src/geometricSponge.cpp), or None."""
+    if not any(inp.get(f"spongeMultiplier/{k}", 0)
+               for k in ("uniform", "plane", "cylinder", "annulus")):
+        return None
+    from .sponge import (AnnulusSponge, CylinderSponge, GeometricSponge,
+                         PlaneSponge)
+
+    key = "spongeMultiplier"
+    plane = cylinder = annulus = None
+    uniform_mult = (inp.get(f"{key}/uniformMult", 1.0)
+                    if inp.get(f"{key}/uniform", 0) else None)
+    if inp.get(f"{key}/plane", 0):
+        plane = PlaneSponge(
+            point=tuple(inp.get_vec(f"{key}/planePoint")),
+            normal=tuple(inp.get_vec(f"{key}/planeNormal")),
+            width=inp.get(f"{key}/planeWidth", 1e-8),
+            mult=inp.get(f"{key}/planeMult", 1.0))
+    if inp.get(f"{key}/cylinder", 0):
+        cylinder = CylinderSponge(
+            radius_x=inp.get(f"{key}/cylinderRadiusX", -1.0),
+            radius_y=inp.get(f"{key}/cylinderRadiusY", -1.0),
+            radius_z=inp.get(f"{key}/cylinderRadiusZ", -1.0),
+            width=inp.get(f"{key}/cylinderWidth", 1e-8),
+            mult=inp.get(f"{key}/cylinderMult", 1.0))
+    if inp.get(f"{key}/annulus", 0):
+        annulus = AnnulusSponge(
+            point=tuple(inp.get_vec(f"{key}/annulusPoint",
+                                    default=[0.0, 0.0, 0.0])),
+            radius_y=inp.get(f"{key}/annulusRadiusY", -1.0),
+            width=inp.get(f"{key}/annulusWidth", 1e-8),
+            mult=inp.get(f"{key}/annulusMult", 1.0))
+    return GeometricSponge(tab, uniform_mult=uniform_mult, plane=plane,
+                           cylinder=cylinder, annulus=annulus)
 
 
 def _build_lte_thermo(inp, tab, temp_bcs, cg_tol, cg_maxiter, weight_q=None,
@@ -198,8 +266,9 @@ class LoMachSolver(Solver):
         flow_tol = inp.get("loMach/tomboulides/psolve-rtol",
                            inp.get("loMach/rtol", 1e-10))
 
-        vel_bcs, temp_bcs, pres_bcs, inlet_info, qt_attrs = \
+        vel_bcs, temp_bcs, pres_bcs, inlet_info, qt_attrs, ext_specs = \
             self._read_bcs(inp)
+        self.sponge = _build_sponge(inp, self.tab)
 
         # thermo-chem model factory (reference: src/loMach.cpp:148-208)
         axisym = bool(inp.get("loMach/axisymmetric", 0))
@@ -221,7 +290,7 @@ class LoMachSolver(Solver):
                 temp_bcs=tuple(temp_bcs),
                 qt_bcs=(tuple(qt_attrs),) if qt_attrs else (),
                 T_init=inp.get("loMach/calperfect/ic/temperature", 300.0),
-                weight_q=weight_q,
+                sponge=self.sponge, weight_q=weight_q,
                 sw_stab=bool(
                     inp.get("loMach/calperfect/streamwise-stabilization", 0)),
                 reh_factor=inp.get("loMach/calperfect/Reh_factor", 0.5),
@@ -233,6 +302,13 @@ class LoMachSolver(Solver):
                 inp, self.tab, temp_bcs, cg_tol, cg_maxiter,
                 weight_q=weight_q,
                 qt_bcs=(tuple(qt_attrs),) if qt_attrs else ())
+        elif tc_model == "reacting-flow":
+            self.thermo = _build_reacting_flow(
+                inp, self.tab, temp_bcs, cg_tol, cg_maxiter,
+                qt_bcs=(tuple(qt_attrs),) if qt_attrs else (),
+                spec_bcs=self._species_bcs(inp, inlet_info, qt_attrs))
+            if inp.get("plasma_models/initialize_species", 0):
+                self._initialize_species(inp)
         else:
             self.thermo = ConstantPropertyThermoChem(
                 self.tab,
@@ -265,13 +341,13 @@ class LoMachSolver(Solver):
         if flow_model == "tomboulides" and axisym:
             self.flow = TomboulidesAxisym(
                 self.tab, self.thermo, vel_bcs=tuple(vel_bcs),
-                swirl=bool(inp.get("loMach/swirl", 0)),
+                swirl=bool(inp.get("loMach/swirl", 0)), sponge=self.sponge,
                 cg_tol=flow_tol, cg_maxiter=cg_maxiter, gravity=gvec,
             )
         elif flow_model == "tomboulides":
             self.flow = Tomboulides(
                 self.tab, self.thermo, vel_bcs=tuple(vel_bcs),
-                pres_bcs=tuple(pres_bcs), cg_tol=flow_tol,
+                pres_bcs=tuple(pres_bcs), sponge=self.sponge, cg_tol=flow_tol,
                 cg_maxiter=cg_maxiter,
                 mesh=self.mesh,  # enables p-multigrid pressure precond
                 gravity=gvec,
@@ -282,6 +358,7 @@ class LoMachSolver(Solver):
             raise ValueError(f"unknown flow solver '{flow_model}'")
         if hasattr(self.thermo, "flow"):
             self.thermo.flow = self.flow
+        self._build_ext_data(ext_specs)
 
         self.turb = self._build_turb(inp, inlet_info)
         if self.turb is not None and hasattr(self.flow, "turb"):
@@ -316,10 +393,12 @@ class LoMachSolver(Solver):
 
     def _read_bcs(self, inp):
         """[boundaryConditions/*]: velocity, temperature and pressure
-        Dirichlet BCs, inlets for the turbulence model, isothermal walls."""
+        Dirichlet BCs, inlets for the turbulence model and the species,
+        isothermal walls, interpolated inlets."""
         vel_bcs, temp_bcs, pres_bcs = [], [], []
-        inlet_info = []  # (patch, base) of uniform inlets
+        inlet_info = []  # (patch, "uniform" | "interpolate", base)
         qt_attrs = []  # isothermal-wall patches: Qt = 0 Dirichlet there
+        ext_specs = []  # (patch, profile file, ramp steps)
         dim = self.mesh.dim
         for sub in inp.sections_under("boundaryConditions"):
             base = f"boundaryConditions/{sub}"
@@ -343,14 +422,93 @@ class LoMachSolver(Solver):
                 vel_bcs.append(VelocityDirichlet(
                     attrs=(patch,), value=tuple(vel),
                     ramp_time=inp.get(f"{base}/rampTime", 0.0)))
-                inlet_info.append((patch, base))
+                inlet_info.append((patch, "uniform", base))
             elif kind in ("outlet", "pressure"):
                 # pressure Dirichlet outlet (reference: pres_dbcs_,
                 # src/tomboulides.cpp:1865-1870)
                 pres_bcs.append(PressureDirichlet(
                     attrs=(patch,), value=inp.get(f"{base}/pressure", 0.0)))
+            elif kind == "interpolate":
+                # the external-data inlet (reference: GaussianInterpExtData):
+                # its values are written into the BC tensors every step
+                vel_bcs.append(VelocityDirichlet(attrs=(patch,),
+                                                 value=(0.0,) * dim))
+                ext_specs.append((patch,
+                                  inp.get(f"{base}/name", "inletPlane.csv"),
+                                  inp.get(f"{base}/rampSteps", 1)))
+                inlet_info.append((patch, "interpolate", base))
             # any other type: a natural (do-nothing) boundary
-        return vel_bcs, temp_bcs, pres_bcs, inlet_info, qt_attrs
+        return vel_bcs, temp_bcs, pres_bcs, inlet_info, qt_attrs, ext_specs
+
+    @staticmethod
+    def _species_bcs(inp, inlet_info, qt_attrs):
+        """Species Dirichlet BCs of the reacting thermo (reference:
+        zero-Neumann by default at inlets and walls, Dirichlet with
+        loMach/reactingFlow/neumann-species-* = 0, src/reactingFlow.cpp:
+        790-792): an inlet takes its speciesMassFractions (a pure
+        background without them), an isothermal wall a pure background."""
+        spec_bcs = []
+        if not bool(inp.get("loMach/reactingFlow/neumann-species-inlet", 1)):
+            for patch, _kind, base in inlet_info:
+                vals = (inp.get_vec(f"{base}/speciesMassFractions")
+                        if inp.has(f"{base}/speciesMassFractions") else None)
+                spec_bcs.append(((patch,), vals))
+        if not bool(inp.get("loMach/reactingFlow/neumann-species-wall", 1)):
+            for patch in qt_attrs:
+                spec_bcs.append(((patch,), None))
+        return tuple(spec_bcs)
+
+    def _initialize_species(self, inp):
+        """Y and its history from plasma_models/initialize_file (reference:
+        setFieldInitSpec, src/gaussianInterpExtData.cpp:559-748),
+        renormalised; after the thermo's set-up, so a closed system keeps
+        the mass of the input composition, as in the JAX package."""
+        from ...interop.ext_data import volume_field_from_file
+
+        fname = inp.get_required("plasma_models/initialize_file")
+        Y0 = np.atleast_2d(np.asarray(volume_field_from_file(self.tab,
+                                                             fname)))
+        if Y0.shape[0] != self.tab.ndofs:
+            Y0 = Y0.T
+        nsp = self.thermo.Y.shape[1]
+        if Y0.shape[1] != nsp:
+            raise ValueError(f"{fname}: {Y0.shape[1]} species columns, "
+                             f"model has {nsp}")
+        Y0 = np.clip(Y0, 0.0, None)
+        Y0 = Y0 / np.maximum(Y0.sum(axis=1, keepdims=True), 1e-300)
+        self.thermo.set_mass_fractions(Y0)
+
+    def _build_ext_data(self, ext_specs):
+        """The interpolated inlets (reference: GaussianInterpExtData): each
+        step writes their ramped velocity (and swirl) and their
+        temperature into the flow's and the thermo's BC tensors
+        (`_apply_ext_data`); a thermo with `T_bc` (all but the constant-
+        property one) takes
+        their dofs as temperature Dirichlet dofs, once, as the JAX package
+        does."""
+        from ...interop.ext_data import GaussianInterpExtData
+
+        self.ext_data = [GaussianInterpExtData(self.tab, fname, (patch,),
+                                               ramp_steps=ramp)
+                         for patch, fname, ramp in ext_specs]
+        if self.ext_data and getattr(self.thermo, "T_bc", None) is not None:
+            for ed in self.ext_data:
+                self.thermo.T_mask.index_fill_(0, ed.dofs, 0.0)
+
+    def _apply_ext_data(self):
+        """The interpolated inlets' step (device work; the JAX package's
+        extData step before the thermo's, loMach.cpp:414)."""
+        swirl = getattr(self.flow, "swirl_bc_values", None)
+        tvals = getattr(self.thermo, "T_bc", None)
+        for ed in self.ext_data:
+            ed.step()
+            self.flow.vel_bc_values.index_copy_(0, ed.dofs,
+                                                ed.velocity_values())
+            sv = ed.swirl_values()
+            if swirl is not None and sv is not None:
+                swirl.index_copy_(0, ed.dofs, sv)
+            if tvals is not None:
+                tvals.index_copy_(0, ed.dofs, ed.temperature_values())
 
     def _build_turb(self, inp, inlet_info):
         """The turbulence model (reference: src/loMach.cpp:153-177); None
@@ -374,13 +532,25 @@ class LoMachSolver(Solver):
 
             # inlet tke/v2 Dirichlet values: uniform from {inlet}/tke
             # (v2 = 2/3 tke) (reference: zetaModel.cpp:481-540)
+            # or, at an interpolated inlet, from ransModel/zeta-f-file
+            # scaled by ransModel/bc-fac (setInletTurbScalars)
             tdr_ic = inp.get("ransModel/tdr-ic", 1.0e-8)
+            tke_file = inp.get("ransModel/zeta-f-file", None)
             inlet_bcs = []
-            for patch, base in inlet_info:
-                if inp.has(f"{base}/tke"):
+            for patch, kind, base in inlet_info:
+                if kind == "uniform" and inp.has(f"{base}/tke"):
                     tke = inp.get(f"{base}/tke", 0.0)
                     inlet_bcs.append(((patch,), tke, tdr_ic,
                                       (2.0 / 3.0) * tke))
+                elif kind == "interpolate" and tke_file:
+                    from ...interop.ext_data import inlet_scalars_from_file
+
+                    _dofs, vals = inlet_scalars_from_file(
+                        self.tab, tke_file, (patch,),
+                        fac=inp.get("ransModel/bc-fac", 1.0))
+                    inlet_bcs.append((
+                        (patch,), vals[:, 0], tdr_ic,
+                        vals[:, 1] if vals.shape[1] > 1 else None))
             return ZetaModel(
                 self.tab, self.flow, self.thermo,
                 wall_attrs=self._wall_attrs(inp, "ransModel/walls"),
@@ -391,8 +561,15 @@ class LoMachSolver(Solver):
         if turb == "static-rans":
             from .rans import StaticRans
 
-            return StaticRans(
-                self.tab, inp.get("loMach/static-rans/eddy-viscosity", 0.0))
+            nut = inp.get("loMach/static-rans/eddy-viscosity", 0.0)
+            visc_file = inp.get("loMach/static-rans/visc-file", None)
+            if visc_file:
+                from ...interop.ext_data import volume_field_from_file
+
+                nut = volume_field_from_file(
+                    self.tab, visc_file,
+                    fac=inp.get("loMach/static-rans/visc-fac", 1.0))
+            return StaticRans(self.tab, nut)
         return None
 
     def _wall_attrs(self, inp, key):
@@ -504,6 +681,7 @@ class LoMachSolver(Solver):
         package's per-step loop does; a step graph runs that refresh as
         host work between its segments."""
         self.loops.begin_step()
+        self._apply_ext_data()
         self.thermo.step(coeff, self.dt, self.loops)
         self.loops.host(lambda: self._refresh(self.flow, coeff.order))
         self.flow.advance(coeff, self.dt, self.loops)
@@ -549,6 +727,8 @@ class LoMachSolver(Solver):
             fields["pressure"] = self.flow.p
         if hasattr(self.thermo, "T"):
             fields["temperature"] = self.thermo.T
+        if hasattr(self.thermo, "Y"):
+            fields["species"] = self.thermo.Y
         fields["eddy_viscosity"] = self.turb.eddy_viscosity()
         return {k: v.detach().double().cpu().numpy() for k, v in fields.items()}
 
@@ -575,6 +755,13 @@ class LoMachSolver(Solver):
             self.flow.p.copy_(torch.as_tensor(np.asarray(g["pressure"])))
         if "temperature" in g and hasattr(self.thermo, "set_temperature"):
             self.thermo.set_temperature(np.asarray(g["temperature"]))
+        if "species" in g and hasattr(self.thermo, "Y"):
+            # Y only, its history kept (tps_tpu/solvers/lomach/solver.py:
+            # 1070-1071)
+            self.thermo.Y.copy_(torch.as_tensor(np.asarray(g["species"])))
+        if hasattr(self.thermo, "t"):
+            # the ramp-chem clock (its windows are absolute time)
+            self.thermo.t.fill_(self.time)
 
     def visualization(self):
         """ParaView VTK file of the model fields (reference: loMach pvdc)."""

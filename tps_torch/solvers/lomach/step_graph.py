@@ -101,6 +101,7 @@ class StepGraph:
         self.pool = torch.cuda.graph_pool_handle()
         self.capture_s = None  # wall seconds of the capture
         self.pool_bytes = None  # device memory the graphs' pool reserved
+        self.replays = 0  # steps replayed so far
         self._segment = None
 
     def capture(self, body):
@@ -163,6 +164,7 @@ class StepGraph:
         self._open()
 
     def replay(self):
+        self.replays += 1
         for g, solve in self.items:
             if g is None:
                 solve()

@@ -11,7 +11,8 @@ solved with BDF/EXT in time and matrix-free CG in space; density follows
 the thermodynamic (not hydrodynamic) pressure: rho = p_th / (R T).  T, its
 history, Qt and p_th are tensors updated in place (base.py).  `weight_q`
 (the radius at quadrature points, [ne, nq]) weights every volume form of
-an axisymmetric run.  The sponge (ROADMAP A9.2) is not ported.
+an axisymmetric run.  A geometric sponge (sponge.py) scales the thermal
+conductivity (reference: src/calorically_perfect.cpp:463).
 """
 
 from __future__ import annotations
@@ -39,11 +40,8 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
                  heat_source=None, sponge=None, weight_q=None, sw_stab=False,
                  reh_factor=0.5, reh_offset=1.0, T_init=300.0, cg_tol=1e-10,
                  cg_maxiter=1000):
-        if sponge is not None:
-            raise NotImplementedError(
-                "the geometric sponge is not ported to tps_torch yet "
-                "(ROADMAP A9.2)")
         self.tab = tab
+        self.sponge = sponge
         self.flow = flow
         # optional quadrature-point volume weight (radius for axisymmetric
         # runs; reference loMach/axisymmetric thermo path)
@@ -81,7 +79,7 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
             free[dofs] = 0.0
             vals[dofs] = bc.value
         self.T_mask = torch.as_tensor(free, **kw)
-        self.T_bc_values = torch.as_tensor(vals, **kw)
+        self.T_bc = torch.as_tensor(vals, **kw)
         self.T = full(tab, T_init, nd)
         self.T_hist = [full(tab, 0.0, nd) for _ in range(2)]
         self.set_temperature(self.T)
@@ -101,7 +99,7 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
     # -- interfaces --------------------------------------------------------
     def set_temperature(self, T0):
         T0 = torch.as_tensor(T0, dtype=self.T.dtype, device=self.T.device)
-        self.T.copy_(T0 * self.T_mask + self.T_bc_values * (1.0 - self.T_mask))
+        self.T.copy_(T0 * self.T_mask + self.T_bc * (1.0 - self.T_mask))
         for h in self.T_hist:
             h.copy_(self.T)
 
@@ -126,8 +124,11 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
         vel = (self.flow.velocity() if self.flow is not None
                else torch.zeros((self.tab.ndofs, self.tab.dim),
                                 dtype=self.T.dtype, device=self.T.device))
+        kappa = self.conductivity()
+        if self.sponge is not None:
+            kappa = kappa * self.sponge.multiplier()
         T_new, Qt, self.info = self._step_impl(
-            self.T, self.T_hist, vel, self.density(), self.conductivity(),
+            self.T, self.T_hist, vel, self.density(), kappa,
             self.p_thermo, dt, coeff.order, loops)
         shift_history(self.T_hist, self.T)
         self.T.copy_(T_new)
@@ -162,7 +163,7 @@ class CaloricallyPerfectThermoChem(ThermoChemBase):
             rhs = rhs + h1.mass_apply(tab, self.heat_source, coef=wq)
 
         mask = self.T_mask
-        Tbc = self.T_bc_values
+        Tbc = self.T_bc
 
         if self.sw_stab:
             # SUPG: anisotropic streamwise diffusion

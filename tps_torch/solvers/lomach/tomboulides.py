@@ -14,7 +14,10 @@ rotational, non-incremental form:
      S_mom = (grad u_ext)^T grad(mu) - Qt grad(mu)
 
 Pure-Neumann (orthogonalised) and pressure-Dirichlet (outlet) Poisson
-solves; spatially varying and time-ramped velocity Dirichlet values.  The
+solves; spatially varying and time-ramped velocity Dirichlet values (an
+interpolated inlet writes its ramped values into `vel_bc_values` in
+place, solver.py); a geometric sponge (sponge.py) scales the total
+viscosity.  The
 pressure solve is preconditioned by the lagged dense Cholesky factor on
 small spaces (fem/h1.py dense_capable), else by two-level p-multigrid,
 else by Chebyshev; the velocity components are solved together, in one
@@ -61,11 +64,8 @@ class Tomboulides(FlowBase):
     def __init__(self, tab, thermo, turb=None, vel_bcs=(), body_force=None,
                  sponge=None, cg_tol=1e-10, cg_maxiter=1000, mesh=None,
                  pres_bcs=(), gravity=None):
-        if sponge is not None:
-            raise NotImplementedError(
-                "the geometric sponge is not ported to tps_torch yet "
-                "(ROADMAP A9.2)")
         self.tab = tab
+        self.sponge = sponge
         self.thermo = thermo
         self.turb = turb
         self.vel_bcs = tuple(vel_bcs)
@@ -165,6 +165,10 @@ class Tomboulides(FlowBase):
         mu = self.thermo.viscosity()
         if self.turb is not None:
             mu = mu + rho * self.turb.eddy_viscosity()
+        if self.sponge is not None:
+            # the geometric sponge scales the total viscosity (reference:
+            # src/tomboulides.cpp:2077)
+            mu = mu * self.sponge.multiplier()
         return rho, mu
 
     def _precond_build(self, rho, mu, dt, bd0):

@@ -10,9 +10,9 @@ diffusion coefficient mu + mu_t/sigma and semi-implicit destruction; f
 solves the elliptic relaxation equation L^2 lap(f) - f = rhs.  Constants
 follow the reference defaults (src/zetaModel.hpp:238-250).
 
-Inlet values are uniform (scalars); profiles read from a file
-(ransModel/zeta-f-file) need interop/ext_data.py (ROADMAP A9.2).  The
-state (k, eps, v2, f, mu_t and the histories) is updated in place.
+Inlet values are uniform (scalars) or, for an interpolated inlet, the
+profiles of `ransModel/zeta-f-file` at its dofs (interop/ext_data.py,
+solver.py).  The state (k, eps, v2, f, mu_t and the histories) is updated in place.
 """
 
 from __future__ import annotations
@@ -62,7 +62,8 @@ class ZetaModel(TurbModelBase):
         free = np.ones(nd)
         if wall_attrs:
             free[h1.boundary_dofs(tab, tuple(wall_attrs))] = 0.0
-        # inlet Dirichlet values: (attrs, k, eps[, v2]) tuples of scalars
+        # inlet Dirichlet values: (attrs, k, eps[, v2]) tuples of scalars, or
+        # of arrays over the patch's dofs (boundary_dofs order)
         k_free = np.array(free)
         kin, ein = np.zeros(nd), np.zeros(nd)
         for bc in inlet_bcs:
