@@ -44,7 +44,15 @@ one ReactingFlow step) against the CPU, tps_torch/tools/lomach_reacting.ini
 (bench.py's bench_lomach_reacting deck) through the CLI and against the
 CPU in f64, graph against eager steps across a dense refresh and inside
 an interpolated inlet's ramp, the reacting thermo under the Joule
-coupling, and ms/step on the deck.
+coupling, and ms/step on the deck.  The compressible argon plasma
+(phases 34-37): the face sweep's mixture variants (the ternary in 3-D and
+on Euler, with constant transport, the six-species mixture with the
+per-pair transport) against their plain versions; the coupled channel
+tps_torch/tools/argon_channel_coupled.ini through the CLI (its 2-D argon
+sweep 4 times a step), then in f64 on the card against the CPU and graph
+against eager steps across an EM update; each variant's deck, argon_full.ini
+and argon_inflow_outflow.ini through the CLI, the last two at 64x64 p=2
+against plain loops; ms/step on the channel and on argon_full at 64x64.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -59,6 +67,7 @@ from __future__ import annotations
 
 import functools
 import json
+from concurrent.futures import ThreadPoolExecutor
 import os
 import subprocess
 import sys
@@ -325,9 +334,19 @@ def flagship_deck():
 
 
 def all_launches():
+    """Launches by kernel since the last reset."""
     from tps_torch.dg import cuda_faces, cuda_fused
 
     return {**cuda_fused.launches, **cuda_faces.launches}
+
+
+def launches_by_variant():
+    """all_launches() and the face sweep's launches by variant
+    ("face_sweep/<variant>", summed in "face_sweep")."""
+    from tps_torch.dg import cuda_faces
+
+    return {**all_launches(), **{f"face_sweep/{v}": n for v, n in
+                                 cuda_faces.variant_launches.items()}}
 
 
 def reset_all_launches():
@@ -476,10 +495,11 @@ def phase_solver(dev):
 
 
 def phase_timing(setup, dev):
-    """ms/RHS (RK4 chains of 50 steps through the kernels, 10 through the
-    host-bound plain version) and ms per kernel, kernels vs plain, in
-    turns plain, kernel, kernel, plain, by CUDA events; each kernel's
-    time on the device alone (`kernel_ms`), f32 and f64."""
+    """ms/RHS (RK4 chains of 50 steps through the kernels, 2 through the
+    host-bound plain version) and ms per kernel (50 calls, the plain
+    version 10), kernels vs plain, in turns plain, kernel, kernel, plain,
+    by CUDA events; each kernel's time on the device alone (`kernel_ms`),
+    f32 and f64."""
     from tps_torch.dg.cuda_fused import build_cuda_fused
     from tps_torch.time.integrators import rk4
 
@@ -501,7 +521,7 @@ def phase_timing(setup, dev):
                 return x
             return run
 
-        steps = {"plain": 10, "kernels": 50}
+        steps = {"plain": 2, "kernels": 50}
         runs = {"plain": chain(plain, U2, steps["plain"]),
                 "kernels": chain(rhs, U, steps["kernels"])}
         times = {"plain": [], "kernels": []}
@@ -509,15 +529,15 @@ def phase_timing(setup, dev):
             times[which].append(cuda_ms(runs[which], 2) / (4 * steps[which]))
         G = rhs.gradient(U)
         k = {
-            "k1_gradient": [cuda_ms(lambda: plain.gradient(U2), 50),
+            "k1_gradient": [cuda_ms(lambda: plain.gradient(U2), 10),
                             cuda_ms(lambda: rhs.gradient(U), 50),
                             cuda_ms(lambda: rhs.gradient(U), 50),
-                            cuda_ms(lambda: plain.gradient(U2), 50)],
+                            cuda_ms(lambda: plain.gradient(U2), 10)],
             "k2_faces_volume": [
-                cuda_ms(lambda: plain.faces_volume(U2, G.reshape(tab.ne, -1)), 50),
+                cuda_ms(lambda: plain.faces_volume(U2, G.reshape(tab.ne, -1)), 10),
                 cuda_ms(lambda: rhs.faces_volume(U, G), 50),
                 cuda_ms(lambda: rhs.faces_volume(U, G), 50),
-                cuda_ms(lambda: plain.faces_volume(U2, G.reshape(tab.ne, -1)), 50)],
+                cuda_ms(lambda: plain.faces_volume(U2, G.reshape(tab.ne, -1)), 10)],
         }
         res = {
             "ms_per_rhs": float(np.mean(times["kernels"])),
@@ -1116,13 +1136,14 @@ def phase_io_timing(s):
     return res
 
 
-def phase_step_timing(cases, steps=16, profiled=4):
+def phase_step_timing(cases, steps=8, profiled=4):
     """ms/step through solve() (f32), the step graph against eager steps,
     in turns eager, graph, chain, chain, graph, eager, `steps` steps a
     turn, host clock to a synchronize ("chain": the same integrator and
     RHS called in a bare loop with Python-float t and dt, as phase 10's
-    chains, outside solve()); the device's busy share in a profiled
-    chunk of `profiled` steps, graph and eager; the capture's wall time
+    chains, outside solve()); the device's busy share in a profiled graph
+    chunk of `profiled` steps, and eager's from it (eager_busy); the
+    capture's wall time
     and the graph pool's device memory.  The checkpoints solve() writes
     (every outputFreq and at its end) are left out: steps, not I/O (phase
     16 times the I/O)."""
@@ -1153,14 +1174,12 @@ def phase_step_timing(cases, steps=16, profiled=4):
         ms = {True: [], False: [], "chain": []}
         for kind in (False, True, "chain", "chain", True, False):
             ms[kind].append(chain() if kind == "chain" else turn(kind))
-        prof = {}
-        for graphs in (True, False):
-            s.cuda_graphs = graphs
-            prof["graph" if graphs else "eager"] = device_share(
-                lambda: s.solve_chunk(profiled), 1)
         s.cuda_graphs = True
+        prof = {"graph": device_share(lambda: s.solve_chunk(profiled), 1)}
         lp = s._loop
         dev_ms = prof["graph"].get("device_ms")
+        prof["eager"] = eager_busy(None if dev_ms is None else dev_ms / profiled,
+                                   float(np.mean(ms[False])))
         res = {"graph_ms_per_step": float(np.mean(ms[True])),
                "eager_ms_per_step": float(np.mean(ms[False])),
                "chain_ms_per_step": float(np.mean(ms["chain"])),
@@ -1187,9 +1206,10 @@ def phase_step_timing(cases, steps=16, profiled=4):
 
 def phase_slot_timing(setup, dev):
     """f32 NS, CUDA events, in turns plain, kernel, kernel, plain: the face
-    sweep alone and ms/RHS of the slot path (RK4 chains) through the
-    kernel and through the plain sweep, on the flagship GLL deck's box and
-    the walled GL box; the slot RHS's parts; launches per RHS."""
+    sweep alone (50 calls, the plain one 10) and ms/RHS of the slot path
+    (RK4 chains of 10 steps, through the plain sweep 2) through the kernel
+    and through the plain sweep, on the flagship GLL deck's box and the
+    walled GL box; the slot RHS's parts; launches per RHS."""
     from tps_torch.dg import cuda_faces
     from tps_torch.dg.cuda_faces import build_face_sweep, face_sweep_plain
     from tps_torch.dg.operators import dg_gradient
@@ -1211,22 +1231,25 @@ def phase_slot_timing(setup, dev):
         U = perturbed_U(ctx.mixture, tab_np.xyz_dof, torch.float32, dev)
         X = face_input(ctx, tab, U)
 
-        def chain(f):
+        def chain(f, steps):
             def run():
                 x = U
-                for _ in range(10):
+                for _ in range(steps):
                     x = rk4(f, x, 0.0, 1e-7)[0]
                 return x
             return run
 
-        def turns(fp, fk, reps, per):
-            t = [cuda_ms(fp, reps), cuda_ms(fk, reps), cuda_ms(fk, reps),
-                 cuda_ms(fp, reps)]
-            return (t[1] + t[2]) / 2 / per, (t[0] + t[3]) / 2 / per, t
+        def turns(fp, fk, reps, plain_reps, per, plain_per):
+            t = [cuda_ms(fp, plain_reps), cuda_ms(fk, reps),
+                 cuda_ms(fk, reps), cuda_ms(fp, plain_reps)]
+            return ((t[1] + t[2]) / 2 / per, (t[0] + t[3]) / 2 / plain_per,
+                    t)
 
-        ms_rhs, plain_rhs, t_rhs = turns(chain(rhs_p), chain(rhs_k), 2, 40)
+        # the host-bound plain version: 2-step chains and 10 sweeps
+        ms_rhs, plain_rhs, t_rhs = turns(chain(rhs_p, 2), chain(rhs_k, 10),
+                                         2, 2, 40, 8)
         ms_sw, plain_sw, t_sw = turns(lambda: sweep.plain(X), lambda: sweep(X),
-                                      50, 1)
+                                      50, 10, 1, 1)
         Up = ctx.mixture.primitives(U)
         parts = {"gradient": cuda_ms(lambda: dg_gradient(tab, Up), 50),
                  "face_sweep": ms_sw}
@@ -1583,6 +1606,14 @@ def device_share(fn, n=8):
             "top_ms": {k[:60]: v for k, v in top}}
 
 
+def eager_busy(device_ms, eager_ms):
+    """An eager step's busy share: a profiled graph step's device ms (the
+    same kernels) over the eager turns' ms a step.  Profiling an eager
+    step of 10-20 thousand launches costs seconds of event processing on
+    the host."""
+    return {"busy_share": None if device_ms is None else device_ms / eager_ms}
+
+
 # ---------------------------------------------------------------- bounds
 
 
@@ -1670,17 +1701,22 @@ def k2_bound(t, basis="gl", size=4):
     return bound(ops, nbytes)
 
 
-def face_bound(t, eq, basis, size=4, curved=False, argon=False):
+def face_bound(t, eq, basis, size=4, curved=False, argon=False, neq=None,
+               flux_ops=None):
     """The face sweep on tables t: per interior slot the own traces of X's
     k channels and the scatter of neq, per interior face the flux.  X in,
     the result out, the normals, nbr_row, the mask and Btr_or.  `argon`:
-    the plasma's 6 equations (k = 18) and MIX_FACE_OPS (2-D, NS)."""
+    the plasma's 6 equations (k = 18) and MIX_FACE_OPS (2-D, NS); a
+    mixture variant gives its neq and flux operations per point
+    (MIX_OPS)."""
     ne, nd, nq, nlf, dim = t.ne, t.ndof, t.nqf, t.nlf, t.dim
-    neq = dim + 4 if argon else dim + 2
+    if neq is None:
+        neq = dim + 4 if argon else dim + 2
+        flux_ops = MIX_FACE_OPS if argon else None
     k = neq if eq == "euler" else neq * (1 + dim)
     trace, _ = tensor_fma(t, basis, curved)
     slots = int(np.count_nonzero(np.asarray(t.interior_mask)))
-    flux = (slots * nq * MIX_FACE_OPS // 2 if argon
+    flux = (slots * nq * flux_ops // 2 if flux_ops is not None
             else slots * nq * FACE_OPS[eq] * neq // 5 // 2)
     ops = 2 * slots * (k + neq) * trace + flux
     nbytes = (size * (ne * nd * k + ne * nd * neq + nlf * ne * nq * dim
@@ -2250,10 +2286,11 @@ def cg_breakdown(s, n=20):
 def phase_lomach_timing(cases, steps=4, profiled=1):
     """Phase 24: ms/step through solve(), in turns eager, graph, graph,
     eager, `steps` steps a turn, host clock to a synchronize (checkpoints
-    left out); device ms and busy share from `profiled` steps under
-    torch.profiler, graph and eager (one step: a low-Mach step launches
-    ~10-20 thousand kernels, and the profiler drops events past a few tens
-    of thousands); capture s and the graphs' pool; host
+    left out); device ms and busy share from `profiled` graph steps under
+    torch.profiler (one step: a low-Mach step launches ~10-20 thousand
+    kernels, and the profiler drops events past a few tens of thousands),
+    the eager busy share from them (eager_busy); capture s and the graphs'
+    pool; host
     reads a step (CG status reads and ring reads); CG iterations per solve
     (mean over the timed graph turns); the dense refresh s."""
     out = {}
@@ -2289,12 +2326,10 @@ def phase_lomach_timing(cases, steps=4, profiled=1):
             span[graphs].append(sp)
             if graphs:
                 rows += s.info_log[-steps:]
-        prof = {}
-        for graphs in (True, False):
-            s.cuda_graphs = graphs
-            prof["graph" if graphs else "eager"] = device_share(
-                s.solve_step, profiled)
         s.cuda_graphs = True
+        prof = {"graph": device_share(s.solve_step, profiled)}
+        prof["eager"] = eager_busy(prof["graph"].get("device_ms"),
+                                   float(np.mean(ms[False])))
         its = {k: float(np.mean([r[k] for r in rows]))
                for k in rows[0] if k.endswith("_iters")}
         refresh_s = {}  # s of a forced dense refresh, per model
@@ -2708,8 +2743,9 @@ def phase_coupled_timing(cases, turn_steps=5, profiled=1):
     EM updates at 10 and 20, so each kind's two turns hold one, its mean
     one update per 10 steps; all within the 40 steps before the deck
     diverges (phase 26).  Host clock to a synchronize; CUDA events over
-    each turn; one flow step profiled (device ms, launches) and one EM
-    solve (device ms); host reads a step; CG iterations per solve kind;
+    each turn; one graph flow step profiled (device ms, launches; the
+    eager busy share from it, eager_busy) and one EM solve (device ms);
+    host reads a step; CG iterations per solve kind;
     the EM solve's device ms and its share a step amortised over
     solve-em-every-n; the dense refresh s; the interpolators' build s;
     capture s and pool MiB."""
@@ -2746,12 +2782,10 @@ def phase_coupled_timing(cases, turn_steps=5, profiled=1):
             span[graphs].append(sp)
             if graphs:
                 rows += fl.info_log[-turn_steps:]
-        prof = {}
-        for graphs in (True, False):
-            fl.cuda_graphs = graphs
-            prof["graph" if graphs else "eager"] = device_share(
-                fl.solve_step, profiled)
         fl.cuda_graphs = True
+        prof = {"graph": device_share(fl.solve_step, profiled)}
+        prof["eager"] = eager_busy(prof["graph"].get("device_ms"),
+                                   float(np.mean(ms[False])))
         em_prof = device_share(c.em.solve_step, 1)
         em_ms = [e["device_ms"] for e in c.em_log[-4:]]
         its = {k: float(np.mean([r[k] for r in rows]))
@@ -3267,6 +3301,548 @@ def reacting_cases(dtype):
         REACTING_DECK, dtype, "reacting_t", iters=10**6)}
 
 
+# ---------------------------------------------------------------- mixtures
+
+# the compressible argon plasma's decks (phases 34-37)
+# f64, the coupled channel on the card against the port's CPU run after 12
+# steps across an EM update (the same operations summed in another order;
+# the EM solve is dense, ~1e-15 relative residual)
+CHANNEL_CPU_TOL = 1e-9
+ARGON_CHANNEL_DECK = os.path.join(REPO, "tps_torch", "tools",
+                                  "argon_channel_coupled.ini")
+FULL_DECK = os.path.join(REPO, "tests", "inputs", "argon_full.ini")
+INOUT_DECK = os.path.join(REPO, "tests", "inputs", "argon_inflow_outflow.ini")
+# the face flux per point of each mixture policy, counted from its code as
+# MIX_FACE_OPS is (an estimate: the 3-D stress and gradients add ~20% to
+# the 2-D counts; Euler keeps the convective flux and the combination;
+# constant transport replaces the collision integrals' ~390 operations a
+# side; the six-species mixture's 15 binary diffusivities, 5 viscosities
+# and 28 third-order integrals take ~1,100 a side)
+MIX_OPS = {"argon_2d": MIX_FACE_OPS, "argon_3d": 2 * (77 + 671) + 65,
+           "argon_euler": 2 * 67 + 45, "argon_euler_3d": 2 * 77 + 55,
+           "argon_const": 2 * (67 + 240) + 55,
+           "gas_mixture": 2 * (90 + 1100) + 70}
+# the ternary with constant transport (ConstantPlasmaTransport): the
+# argon_minimal transport's values at the shipped deck's state (rho 1.6,
+# 300 K, ion fraction 1e-7), the species in input order (E, Ar, Ar+)
+CONSTANT_PLASMA = """
+[plasma_models/transport_model/constant]
+viscosity = 2.25e-5
+bulk_viscosity = 0.0
+thermal_conductivity = 0.0175
+electron_thermal_conductivity = 1.5e-5
+diffusivity/species1 = 0.094
+diffusivity/species2 = 4.2e-6
+diffusivity/species3 = 4.2e-6
+momentum_transfer_frequency/species1 = 0.0
+momentum_transfer_frequency/species2 = 4.4e10
+momentum_transfer_frequency/species3 = 4.1e9
+"""
+
+
+def mixture_text(kind):
+    """The ini text of a face-sweep variant's plasma: the shipped argon
+    deck (argon_2d, argon_3d, argon_euler), with constant transport
+    (argon_const) or tests/inputs/argon_full.ini (gas_mixture)."""
+    with open(FULL_DECK if kind == "gas_mixture" else ARGON_DECK) as f:
+        text = f.read()
+    if kind == "argon_euler":
+        text = text.replace("equation_system = navier-stokes",
+                            "equation_system = euler")
+    if kind == "argon_const":
+        text = text.replace("transport_model = argon_minimal",
+                            "transport_model = constant") + CONSTANT_PLASMA
+    return text
+
+
+def mixture_ctx(kind, dim):
+    """(RHS context, mixture) of a variant's plasma, dim-D."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.dg.fluxes import Fluxes
+    from tps_torch.dg.rhs import RHSContext
+    from tps_torch.dg.riemann import Rusanov
+    from tps_torch.physics.plasma_config import build_plasma
+
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    path = os.path.join(REPO, "build", f"mixture_{kind}.ini")
+    with open(path, "w") as f:
+        f.write(mixture_text(kind))
+    pl = build_plasma(IniInput.read(path), dim, dim)
+    eq = "euler" if kind == "argon_euler" else "navier-stokes"
+    fl = Fluxes(mixture=pl.mixture,
+                transport=None if eq == "euler" else pl.transport,
+                eq_system=eq)
+    return RHSContext(fluxes=fl, riemann=Rusanov(fl))
+
+
+def mixture_U(mix, xyz, dtype, device, L=0.01):
+    """A perturbed plasma state on an L box, 2-D or 3-D: argon_U's rho
+    1.6, u ~10, Th ~1,800 K, Te ~9,000 K, the ion fraction ~1e-3 and
+    every other active species ~1e-4, with a wave in every primitive."""
+    dim = xyz.shape[-1]
+    k = 2 * np.pi / L
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    if dim == 3:
+        wave = wave * np.cos(k * xyz[..., 2])
+    Up = np.zeros(xyz.shape[:-1] + (mix.num_equations,))
+    Up[..., 0] = 1.6 * (1 + 0.05 * wave)
+    Up[..., 1], Up[..., 2] = 10.0 + 3.0 * wave, -2.0 * wave
+    if dim == 3:
+        Up[..., 3] = 1.5 * wave
+    Up[..., dim + 1] = 1800.0 * (1 + 0.05 * wave)
+    for s in range(mix.num_active_species):
+        frac = 1e-3 if s == 0 else 1e-4
+        Up[..., dim + 2 + s] = (frac * 1.6 / mix.mw[s]
+                                * (1 + (0.2 if s == 0 else 0.1) * wave))
+    Up[..., -1] = 9000.0 * (1 - 0.1 * wave)
+    U = mix.conservatives(torch.as_tensor(Up, dtype=torch.float64))
+    return U.to(dtype=dtype, device=device).contiguous()
+
+
+def mixture_tables(n, order, basis, L=0.01):
+    from tps_torch.dg.discretization import build_tables
+    from tps_torch.mesh.generators import box_2d, box_3d
+
+    if len(n) == 3:
+        mesh = box_3d(*n, bounds=((0.0, L),) * 3, periodic=(True,) * 3)
+    else:
+        mesh = box_2d(*n, x1=L, y1=L, periodic_x=True, periodic_y=True)
+    return build_tables(mesh, order, **({} if basis == "gl" else GLL))
+
+
+# (variant, plasma, grid, order, basis): each variant on a small grid and
+# at the full width of its path (the last of each, timed)
+MIXTURE_FACE_CASES = (
+    ("argon_3d", "argon_3d", (4, 4, 4), 2, "gll"),
+    ("argon_3d", "argon_3d", (16, 16, 16), 2, "gl"),
+    ("argon_euler", "argon_euler", (8, 8), 1, "gll"),
+    ("argon_euler", "argon_euler", (16, 16, 16), 2, "gl"),
+    ("argon_euler", "argon_euler", (64, 64), 2, "gl"),
+    ("argon_const", "argon_const", (8, 8), 2, "gll"),
+    ("argon_const", "argon_const", (64, 64), 2, "gl"),
+    ("gas_mixture", "gas_mixture", (4, 4), 1, "gll"),
+    ("gas_mixture", "gas_mixture", (64, 64), 2, "gl"),
+)
+
+
+def phase_mixture_faces(dev, cases=MIXTURE_FACE_CASES):
+    """Phase 34: the face sweep's mixture variants against their plain
+    versions, f64 within TOL and f32 by TOL's rule, each on a small grid
+    and at the full width of its path; the full-width case timed in f32
+    (kernel, plain, kernel) and f64 (CUDA events, and on the device), with
+    its bound.  Returns
+    {variant: record} and the largest f64 error."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+
+    failures, out, worst = [], {}, 0.0
+    for var, plasma, n, order, basis in cases:
+        t0 = time.perf_counter()
+        dim = len(n)
+        ctx = mixture_ctx(plasma, dim)
+        tab_np = mixture_tables(n, order, basis)
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        tab32 = tab_np.to_torch(torch.float32, dev)
+        sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+        X64 = face_input(ctx, tab64, mixture_U(ctx.mixture, tab_np.xyz_dof,
+                                               torch.float64, dev))
+        X32 = X64.float()
+        y64, p64 = sw64(X64), sw64.plain(X64)
+        r64 = rel(y64, p64)
+        k32, p32 = sw32(X32), sw32.plain(X32)
+        ref = sw64.plain(X32.double())
+        r32 = rel(k32, p32)
+        dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+        name = f"{var} {'x'.join(map(str, n))} p={order} {basis}"
+        ok = (r64 <= TOL[torch.float64] and sw64.variant == var
+              and (r32 <= TOL[torch.float32] or dk <= 2 * dp))
+        log(f"  {name} (NEQ {sw64.neq}, k {sw64.k}, {tab_np.ne} elements, "
+            f"set-up {time.perf_counter() - t0:.1f} s): f64 {r64:.3e} (bar "
+            f"{TOL[torch.float64]}); f32 {r32:.3e} (bar {TOL[torch.float32]}"
+            f", or f64 dist: kernel {dk:.3e} <= 2 x plain {dp:.3e})"
+            + ("" if ok else "  FAIL"))
+        worst = max(worst, r64)
+        if not ok:
+            failures.append(name)
+        key = var if not (var == "argon_euler" and dim == 3) else \
+            "argon_euler_3d"
+        if n[0] >= 16:
+            ms = [cuda_ms(lambda: sw32(X32), 30),
+                  cuda_ms(lambda: sw32.plain(X32), 3),
+                  cuda_ms(lambda: sw32(X32), 30)]
+            b = face_bound(tab_np, ctx.fluxes.eq_system, basis,
+                           neq=sw64.neq, flux_ops=MIX_OPS[key])
+            out[key] = {
+                "grid": name, "neq": sw64.neq, "nodes": tab_np.ne * tab_np.ndof,
+                "ms": (ms[0] + ms[2]) / 2, "plain_ms": ms[1],
+                "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep", 20),
+                "f64_ms": cuda_ms(lambda: sw64(X64), 20),
+                "f64_device_ms": kernel_ms(lambda: sw64(X64), "face_sweep",
+                                           20),
+                "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+                "bytes_ms": b[3], "f64_rel_err": r64,
+                "max_abs_err": float(torch.max(torch.abs(k32 - p32))),
+                "f32_rel": r32, "f32_f64_dist": dk, "plain_f32_f64_dist": dp,
+                "turns": ms}
+            log(f"  timing {name} f32: {out[key]}")
+        del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"face sweep parity on the mixtures failed: "
+                         f"{failures}")
+    return out, worst
+
+
+def channel_tps(dtype, outdir, device="cuda", iters=None, keys=None,
+                path=ARGON_CHANNEL_DECK):
+    """A compressible deck through the harness, as `python -m tps_torch
+    --runFile path [--device cpu]` does, in dtype, its output in
+    build/<outdir>; `iters` and `keys` change its maxIters and ini
+    values."""
+    from tps_torch import harness
+
+    torch.set_default_dtype(dtype)
+    tps = harness.Tps()
+    tps.parse_command_line_args(
+        ["tps", "--runFile", path] + ([] if device == "cuda"
+                                      else ["--device", "cpu"]))
+    tps.parse_input()
+    tps.config.outdir = os.path.join(REPO, "build", outdir)
+    for k, v in (keys or {}).items():
+        tps.config.raw.values[k] = v
+    if iters is not None:
+        tps.config.max_iters = iters
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    return tps
+
+
+def state_rel(U, ref, mix=None):
+    """max|U - ref| per equation over that equation's max, the momenta
+    over max rho times a speed (a channel's cross-stream momentum, and
+    every momentum of a gas at rest, starts at 0): max |u|, or the max
+    characteristic speed of `mix`: the largest."""
+    U, ref = U.double().cpu(), ref.double().cpu()
+    dim = 2
+    speed = float(torch.max(torch.abs(ref[..., 1:1 + dim]) / ref[..., :1]))
+    if mix is not None:
+        speed = float(torch.max(mix.max_char_speed(ref)))
+    out = 0.0
+    for q in range(ref.shape[-1]):
+        scale = float(torch.max(torch.abs(ref[..., q])))
+        if 1 <= q <= dim:
+            scale = max(scale, float(torch.max(ref[..., 0])) * speed)
+        out = max(out, float(torch.max(torch.abs(U[..., q] - ref[..., q])))
+                  / scale)
+    return out
+
+
+def channel_state(c):
+    return {"U": c.flow.U, "joule": c.flow.joule_heating,
+            "efield": c.flow.efield, "A_re": c.em.A_re, "A_im": c.em.A_im}
+
+
+def channel_power(c):
+    return max(abs(e["joule"] / e["target"] - 1.0) for e in c.em_log)
+
+
+def phase_channel_deck(dev):
+    """Phase 35: tps_torch/tools/argon_channel_coupled.ini (the compressible
+    argon channel under the Joule coupling, 64x64 p=2 GL, EM every 10
+    steps) through the CLI as shipped (f32, 200 steps) with the launch
+    counts set to 0 before it: the 2-D argon face sweep 4 times a step,
+    no other variant; finite; the steps replayed the step graph; the
+    power after control on target at each EM solve.  Then 12 steps (EM
+    updates at 0 and 10) in f64 on the card and on the CPU: the state, the
+    Joule heating, the E-field and the EM potential within
+    CHANNEL_CPU_TOL; the power within POWER_TOL of the target; the step
+    graph against eager steps over the same 12 steps within GRAPH_TOL."""
+    tps = channel_tps(torch.float32, "channel")
+    c = tps.solver
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches_by_variant()
+    steps = c.flow.iter
+    want = {"face_sweep": 4 * steps, "face_sweep/argon_2d": 4 * steps}
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in channel_state(c).values())
+    power32 = channel_power(c)
+    Up = c.flow.mixture.primitives(c.flow.U)
+    log(f"  as shipped, f32: {steps} steps in {wall:.1f} s, {len(c.em_log)} "
+        f"EM solves; launches {counts}; finite {finite}; |Joule after "
+        f"control / target - 1| <= {power32:.2e} (f32); T_e max "
+        f"{float(Up[..., -1].max()):.1f} K, max|u| "
+        f"{float(Up[..., 1:3].abs().max()):.3f} m/s; step graph "
+        f"{c.flow._loop.graph is not None}, launches a replay "
+        f"{c.flow._loop.per_replay}")
+    if (bad or not finite or tps.get_status() != 0 or steps != 200
+            or len(c.em_log) != 20 or c.flow._loop.graph is None):
+        raise SystemExit(f"the coupled channel's CLI run failed its checks "
+                         f"(launches off: {bad})")
+    out = {"as shipped f32": {"steps": steps, "wall_s": wall,
+                              "launches": counts, "power_err_f32": power32}}
+    runs = {}
+    for name, device, graphs in (("card", "cuda", True), ("cpu", "cpu", True),
+                                 ("eager", "cuda", False)):
+        tps = channel_tps(torch.float64, f"channel_{name}", device=device,
+                          iters=12)
+        c = tps.solver
+        c.flow.cuda_graphs = graphs
+        ptrs = (c.flow.joule_heating.data_ptr(), c.flow.efield.data_ptr())
+        tps.solve()
+        runs[name] = ({k: v.double().cpu().clone()
+                       for k, v in channel_state(c).items()},
+                      channel_power(c), len(c.em_log),
+                      ptrs == (c.flow.joule_heating.data_ptr(),
+                               c.flow.efield.data_ptr()))
+    card, cpu, eager = runs["card"], runs["cpu"], runs["eager"]
+    cpu_d = {k: (state_rel(card[0][k], cpu[0][k]) if k == "U"
+                 else lrel(card[0][k], cpu[0][k])) for k in card[0]}
+    graph_d = {k: (state_rel(card[0][k], eager[0][k]) if k == "U"
+                   else lrel(card[0][k], eager[0][k])) for k in card[0]}
+    ok = (max(cpu_d.values()) <= CHANNEL_CPU_TOL
+          and max(graph_d.values()) <= GRAPH_TOL
+          and max(card[1], cpu[1]) <= POWER_TOL
+          and card[2] == cpu[2] == eager[2] == 2 and card[3])
+    log(f"  f64, 12 steps (EM updates at 0 and 10): card vs the port's CPU "
+        f"run {cpu_d} (bar {CHANNEL_CPU_TOL}); graph vs eager {graph_d} "
+        f"(bar {GRAPH_TOL}); |Joule / target - 1| card {card[1]:.2e}, CPU "
+        f"{cpu[1]:.2e} (bar {POWER_TOL}); hand-off tensors kept {card[3]}"
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the coupled channel: card, CPU and eager differ")
+    out["f64 card vs cpu"] = cpu_d
+    out["f64 graph vs eager"] = graph_d
+    out["power_err_f64"] = card[1]
+    return out
+
+
+def big_deck(path, name, n, iters, dt):
+    """A shipped mixture deck at n x n p=2 (its own basis), dt_fixed dt,
+    iters steps, output in build/<name>."""
+    with open(path) as f:
+        text = f.read()
+    for k in ("nx", "ny"):
+        text = text.replace(f"{k} = 4\n", f"{k} = {n}\n").replace(
+            f"{k} = 6\n", f"{k} = {n}\n")
+    text = text.replace("order = 1", "order = 2")
+    text = text.replace("maxIters = 4", f"maxIters = {iters}")
+    text = text.replace("dt_fixed = 2e-9\n", "")
+    text = text.replace("[time]\n", f"[time]\ndt_fixed = {dt}\n")
+    text = text.replace("[flow]\n", "[flow]\ntimingFreq = 100000\n", 1)
+    for old in ("outdirBase = /tmp/tps_tpu_argon_full",
+                "outdirBase = /tmp/tps_tpu_argon_inout_output"):
+        text = text.replace(old, f"outdirBase = "
+                                 f"{os.path.join(REPO, 'build', name)}")
+    out = os.path.join(REPO, "build", name + ".ini")
+    with open(out, "w") as f:
+        f.write(text)
+    return out
+
+
+def variant_deck(var):
+    """The shipped argon deck (argon_minimal.ini) on the path of a face-sweep
+    variant, through the CLI: argon_3d, the 3-D periodic box 16^3 p=2 GL
+    (110,592 nodes, 7 equations); argon_euler_2d / argon_euler_3d, Euler on
+    64x64 p=2 GL and on the 3-D box; argon_const, constant transport
+    (CONSTANT_PLASMA) on 64x64 p=2 GL.  4 RK4 steps of dt 1e-9, output in
+    build/<var>."""
+    kind = {"argon_3d": "argon_3d", "argon_euler_2d": "argon_euler",
+            "argon_euler_3d": "argon_euler", "argon_const": "argon_const"}[var]
+    text = mixture_text(kind)
+    n = 16 if var.endswith("3d") else 64
+    mesh = (f"generator = box3d\nnx = {n}\nny = {n}\nnz = {n}\nx1 = 0.01\n"
+            f"y1 = 0.01\nz1 = 0.01\nperiodic_x = 1\nperiodic_y = 1\n"
+            f"periodic_z = 1\n") if var.endswith("3d") else (
+            f"generator = box2d\nnx = {n}\nny = {n}\nx1 = 0.01\ny1 = 0.01\n"
+            f"periodic_x = 1\nperiodic_y = 1\n")
+    start = text.index("[mesh]\n") + len("[mesh]\n")
+    text = text[:start] + mesh + text[text.index("\n[time]"):]
+    text = text.replace("order = 1", "order = 2\nbasisType = 0\n"
+                        "integrationRule = 0\ntimingFreq = 100000")
+    text = text.replace("cfl = 0.1", "dt_fixed = 1e-9")
+    text = text.replace("outputFreq = 100", "outputFreq = 100000")
+    text = text.replace("outdirBase = /tmp/tps_tpu_argon_output",
+                        f"outdirBase = {os.path.join(REPO, 'build', var)}")
+    path = os.path.join(REPO, "build", var + ".ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_mixture_decks(dev):
+    """Phase 36: the paths of the variants through the CLI (f32,
+    `variant_deck`): each counts its variant once a stage and no other.
+    tests/inputs/argon_full.ini (six species, the per-pair
+    transport, radiative decay; RK3) and argon_inflow_outflow.ini (the
+    inlet with species, the pressure outlet; RK4) through the CLI as
+    shipped (f32), the launch counts set to 0 before each: its variant
+    (gas_mixture, argon_2d) once a stage, no other; finite.  Then both at
+    64x64 p=2, dt 1e-9, in f64 from their initial states: the solver (the
+    kernel, the step graph) against a plain loop of the same integrator
+    over compute_rhs with the plain face sweep and the species clip, 10
+    steps, within SOLVER_TOL."""
+    from tps_torch.dg.cuda_faces import face_sweep_plain
+    from tps_torch.dg.operators import _clip_species
+    from tps_torch.dg.rhs import compute_rhs
+
+    out = {}
+    for name, var in (("argon_3d", "argon_3d"),
+                      ("argon_euler_2d", "argon_euler"),
+                      ("argon_euler_3d", "argon_euler"),
+                      ("argon_const", "argon_const")):
+        tps = channel_tps(torch.float32, name, path=variant_deck(name))
+        s = tps.solver
+        reset_all_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        counts = launches_by_variant()
+        want = {"face_sweep": 4 * s.iter, f"face_sweep/{var}": 4 * s.iter}
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        finite = bool(torch.isfinite(s.U).all())
+        log(f"  {name} (argon_minimal.ini's plasma, {s.tables_np.ne} "
+            f"elements p=2 GL, f32): {s.iter} steps, launches {counts}, "
+            f"finite {finite}, step graph {s._loop.graph is not None}")
+        if (bad or not finite or tps.get_status() != 0
+                or s._loop.graph is None):
+            raise SystemExit(f"{name}: the CLI run failed its checks "
+                             f"(launches off: {bad})")
+        out[name] = {"launches": counts}
+        del tps, s
+    for name, path, var, stages in (
+            ("argon_full", FULL_DECK, "gas_mixture", 3),
+            ("argon_inflow_outflow", INOUT_DECK, "argon_2d", 4)):
+        tps = channel_tps(torch.float32, name, path=path)
+        s = tps.solver
+        reset_all_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        counts = launches_by_variant()
+        want = {"face_sweep": stages * s.iter,
+                f"face_sweep/{var}": stages * s.iter}
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        finite = bool(torch.isfinite(s.U).all())
+        log(f"  {name} as shipped, f32: {s.iter} steps, launches {counts}, "
+            f"finite {finite}")
+        if bad or not finite or tps.get_status() != 0:
+            raise SystemExit(f"{name}: the CLI run failed its checks "
+                             f"(launches off: {bad})")
+        dt = 1e-9
+        s = channel_tps(torch.float64, f"{name}64", path=big_deck(
+            path, f"{name}64", 64, 10, dt)).solver
+        U0 = s.U.clone()
+        s.solve()
+        U_solver = s.U.clone()
+        plain = functools.partial(face_sweep_plain, s.ctx, s.tables)
+
+        def rhs(U, t):
+            return compute_rhs(s.ctx, s.tables, U, t,
+                               bc_states=s._rhs.bc_states, sweep=plain)
+
+        U, t = U0, 0.0
+        for _ in range(10):
+            U = _clip_species(s.mixture, s._integrator(rhs, U, t, dt)[0])
+            t += dt
+        err = state_rel(U_solver, U, s.mixture)
+        moved = state_rel(U_solver, U0, s.mixture)
+        ok = err <= SOLVER_TOL and moved > 0
+        log(f"  {name} 64x64 p=2 f64, 10 steps: solver vs plain loop "
+            f"{err:.3e} (bar {SOLVER_TOL}); moved {moved:.3e}"
+            + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{name}: solver vs plain loop failed")
+        out[name] = {"launches": counts, "solver_vs_plain": err}
+        del s, U, U0, U_solver
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_channel_timing(turn_steps=5, profiled=1):
+    """Phase 37: ms/step through solve() on the coupled channel (through
+    the coupled solve(), f32 and f64) and on argon_full at 64x64 p=2 (f32,
+    dt 1e-9): after 4 steps (an EM update at 0, the capture), in turns
+    eager, graph, graph, eager of `turn_steps` steps, host clock to a
+    synchronize: steps 4-23, EM updates at 10 and 20, so each kind's two
+    turns hold one, its mean one update per 10 steps (as phase 28);
+    device ms of a profiled graph chunk of `profiled` flow steps, its busy
+    share, the eager one (eager_busy) and launches a step; the EM solve's
+    device ms and its share a step amortised over solve-em-every-n."""
+    out = {}
+    cases = {"channel f32": channel_tps(torch.float32, "channel_t32",
+                                        iters=4).solver,
+             "channel f64": channel_tps(torch.float64, "channel_t64",
+                                        iters=4).solver,
+             "argon_full 64x64 f32": channel_tps(
+                 torch.float32, "full64_t",
+                 path=big_deck(FULL_DECK, "full64_t", 64, 4, 1e-9)).solver}
+    for name, c in cases.items():
+        coupled = hasattr(c, "em")
+        fl = c.flow if coupled else c
+        fl.write_restart = lambda: None
+        c.solve()  # warm-up, capture, the first EM update
+
+        def turn(graphs, n=turn_steps):
+            fl.cuda_graphs = graphs
+            fl.config.max_iters = c.iter + n
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.solve()
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        ms = {True: [], False: []}
+        for graphs in (False, True, True, False):
+            ms[graphs].append(turn(graphs))
+        fl.cuda_graphs = True
+        prof = {"graph": device_share(lambda: fl.solve_chunk(profiled), 1)}
+        dev_ms = prof["graph"].get("device_ms")
+        prof["eager"] = eager_busy(None if dev_ms is None else dev_ms / profiled,
+                                   float(np.mean(ms[False])))
+        res = {"graph_ms_per_step": float(np.mean(ms[True])),
+               "eager_ms_per_step": float(np.mean(ms[False])),
+               "graph_turns": ms[True], "eager_turns": ms[False],
+               "device_ms_per_step": (None if dev_ms is None
+                                      else dev_ms / profiled),
+               "busy_share": {k: v.get("busy_share") for k, v in
+                              prof.items()},
+               "launches_per_step": (None if prof["graph"].get("launches")
+                                     is None else prof["graph"]["launches"]
+                                     / profiled),
+               "replay_launches": fl._loop.per_replay,
+               "capture_s": fl._loop.capture_s,
+               "pool_MiB": fl._loop.pool_bytes / 2**20,
+               "finite": bool(torch.isfinite(fl.U).all()),
+               "top_ms": prof["graph"].get("top_ms")}
+        if coupled:
+            em = device_share(c.em.solve_step, 1)
+            em_dev = em.get("device_ms")
+            res.update({"em_solve_device_ms": em_dev,
+                        "em_solve_launches": em.get("launches"),
+                        "em_per_step_ms": (None if em_dev is None else
+                                           em_dev / c.solve_em_every_n),
+                        "em_dofs": c.em.tab.ndofs})
+        log(f"  {name}: ms/step graph {res['graph_ms_per_step']:.4f} "
+            f"{ms[True]}, eager {res['eager_ms_per_step']:.4f} {ms[False]} "
+            f"({'an EM update in each kind' if coupled else 'no EM'}); device "
+            f"ms/step {res['device_ms_per_step']}, busy share "
+            f"{res['busy_share']}, launches a step "
+            f"{res['launches_per_step']}"
+            + (f"; EM solve device ms {res['em_solve_device_ms']}, "
+               f"{res['em_per_step_ms']} a step amortised over "
+               f"{c.solve_em_every_n}" if coupled else ""))
+        if not res["finite"]:
+            raise SystemExit(f"{name}: the state left the finite range")
+        out[name] = res
+    del cases
+    torch.cuda.empty_cache()
+    return out
+
+
 def run(dev):
     """Every phase on device dev; returns the kernels' record and the
     card's nvidia-smi line."""
@@ -3278,17 +3854,30 @@ def run(dev):
         log(f"{text} [{time.perf_counter() - t_start:.1f} s]")
 
     log_phase("phase 1: build")
-    t0 = time.perf_counter()
-    path = cuda_fused.build_kernels()
-    log(f"  built {os.path.relpath(path, REPO)} in "
-        f"{time.perf_counter() - t0:.1f} s")
+    setup = Setup()
+
+    def build():
+        t0 = time.perf_counter()
+        path = cuda_fused.build_kernels()
+        return path, time.perf_counter() - t0
+
+    # nvcc's processes build the kernels while this thread builds the
+    # numpy tables of phases 2 and 3 (~50 s of host work)
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build)
+        for n, order in KERNEL_GRIDS:
+            setup.tables(n, order)
+        for n, order, basis, walls in FACE_GRIDS:
+            setup.tables(n, order, basis, walls)
+        path, build_s = built.result()
+    log(f"  built {os.path.relpath(path, REPO)} in {build_s:.1f} s")
     for line in cuda_fused._Library.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling" in line:
+        if ("registers" in line or "spill" in line or "Compiling" in line
+                or "compiled in" in line):
             log("  " + line.strip())
     smi = nvidia_smi_line()
     log(f"  card: {smi}")
 
-    setup = Setup()
     log_phase("phase 2: K1/K2 vs plain version (relative to max|plain|)")
     main_err = phase_kernels(setup, dev)
     log_phase("phase 3: face sweep vs plain versions (relative to "
@@ -3451,6 +4040,21 @@ def run(dev):
             log(f"  {key}: the pointwise chain alone, device ms: {chain}")
         reacting_steps.update(res)
         del cases
+    log_phase("phase 34: the face sweep's mixture variants vs plain (3-D "
+              "argon, Euler 2-D and 3-D, constant transport, the six-species "
+              "mixture; each on a small grid and at full width; f64, f32)")
+    mix_faces, mix_err = phase_mixture_faces(dev)
+    log_phase("phase 35: argon_channel_coupled.ini through the CLI (f32, 200 "
+              "steps, EM every 10), then f64 card vs CPU and graph vs eager "
+              "across an EM update")
+    channel = phase_channel_deck(dev)
+    log_phase("phase 36: the variants' decks, argon_full.ini and "
+              "argon_inflow_outflow.ini through the CLI (f32), then the last "
+              "two at 64x64 p=2 vs a plain loop (f64)")
+    mix_decks = phase_mixture_decks(dev)
+    log_phase("phase 37: ms/step through solve() on the coupled channel (f32, "
+              "f64) and argon_full at 64x64 p=2 (f32), graph vs eager")
+    channel_steps = phase_channel_timing()
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -3493,6 +4097,36 @@ def run(dev):
              "ms", "device_ms", "plain_ms", "bound_ms", "bound_by")},
          "argon_f64_max_rel_err": argon_err},
     ]
+    # the mixture variants: launches on their paths' CLI runs (phases 35,
+    # 36), times and bounds at full width (phase 34)
+    variant_launches = {
+        "argon_2d": channel["as shipped f32"]["launches"],
+        "argon_3d": mix_decks["argon_3d"]["launches"],
+        "argon_euler": mix_decks["argon_euler_2d"]["launches"],
+        "argon_euler_3d": mix_decks["argon_euler_3d"]["launches"],
+        "argon_const": mix_decks["argon_const"]["launches"],
+        "gas_mixture": mix_decks["argon_full"]["launches"]}
+    sources = {"argon_3d": "face_sweep_argon3d.cu",
+               "argon_euler": "face_sweep_argon.cu",
+               "argon_euler_3d": "face_sweep_argon3d.cu",
+               "argon_const": "face_sweep_argon_const.cu",
+               "gas_mixture": "face_sweep_gas_mixture.cu"}
+    for key, src in sources.items():
+        var = "argon_euler" if key.startswith("argon_euler") else key
+        rec = mix_faces[key]
+        kernels.append({
+            "name": f"face_sweep/{key}", "route": "cuda",
+            "source": f"tps_torch/csrc/{src}",
+            "replaces": "tools/pallas_face_prototype.py:102",
+            "launches": variant_launches[key][f"face_sweep/{var}"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "grid": rec["grid"],
+            "f64_ms": rec["f64_ms"], "f64_device_ms": rec["f64_device_ms"],
+            "f64_max_rel_err": rec["f64_rel_err"]})
+    kernels[2]["launches_by_path"]["argon_channel_coupled.ini"] = \
+        variant_launches["argon_2d"]["face_sweep/argon_2d"]
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
                                    "plain_ms_per_rhs": v["plain_ms_per_rhs"],
@@ -3531,6 +4165,10 @@ def run(dev):
         "modules card vs CPU (f64)": reacting_mods, "deck": reacting_deck,
         "graph vs eager (f64)": reacting_graphs,
         "coupled": reacting_coupled_out, "solve() ms/step": reacting_steps}
+    summary["compressible argon plasma"] = {
+        "face sweep variants": mix_faces, "variants f64 max rel err": mix_err,
+        "coupled channel": channel, "decks": mix_decks,
+        "solve() ms/step": channel_steps}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

@@ -173,7 +173,8 @@ def test_bc_advance_matches_jax(name, dim):
 
 def test_general_wall_euler_and_refusals():
     """The general wall under Euler is its Riemann flux alone (as in the
-    JAX package); the sheath and multi-species parts are ROADMAP A6."""
+    JAX package), whatever its electron condition; the mixture's and the
+    sheath's viscous parts are held in tests/test_torch_mixture_bc.py."""
     ctx, jctx = _ctxs(2, "euler")
     b, jb = _bcs("general_isothermal", 2)
     d = _data(2, seed=1)
@@ -184,8 +185,10 @@ def test_general_wall_euler_and_refusals():
     jf = jb.flux(jctx, UL, jctx.mixture.primitives(UL), None,
                  jnp.asarray(d["nor"]), None, None, 0.0)
     _close(f.numpy(), jf)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        pbc.GeneralWallBC(electron="sheath")
+    sheath = pbc.GeneralWallBC(electron="sheath", wall_temp=b.wall_temp)
+    fs = sheath.flux(ctx, T["UL"], ctx.mixture.primitives(T["UL"]), None,
+                     T["nor"], T["xyz"], T["delta"], 0.0)
+    _close(fs.numpy(), jf)
 
 
 def test_farfield_well_balanced_annulus():

@@ -25,9 +25,11 @@ cross-mesh interpolator against the JAX package's, on the CPU in f64.
 - examples/cases/torch_axisym_coupled.ini as shipped, maxIters cut to 12,
   through the CLI's entry (`tps_torch.harness.main`, as
   `python -m tps_torch --device cpu` runs it, in f32);
-- refusals of what stays out: the compressible plasma solver under the
-  coupling (ROADMAP A11), a 3-D EM mesh and the `em` solver (A10).  The
-  reacting thermo under the coupling runs: tests/test_torch_reacting.py.
+- refusals of what stays out: the LTE fluid in the compressible plasma
+  solver under the coupling (ROADMAP A6.3), a 3-D EM mesh and the `em`
+  solver (A10).  The reacting thermo under the coupling runs:
+  tests/test_torch_reacting.py; the compressible plasma solver:
+  tests/test_torch_compressible_coupling.py.
 """
 
 import os
@@ -435,23 +437,28 @@ def test_shipped_deck_runs_through_the_cli(tmp_path, capsys):
 
 # -------------------------------------------------------------- refusals
 
+# (ini keys, run-configuration fields, ROADMAP item); the compressible
+# plasma solver under the coupling runs (tests/test_torch_compressible_
+# coupling.py), with the LTE fluid it raises
 REFUSALS = {
     "compressible": ({"cycle-avg-joule-coupled/plasma-solver":
-                      "compressible"}, "A11"),
-    "qms3d": ({"cycle-avg-joule-coupled/axisymmetric": "0"}, "A10"),
-    "em3d": ({"solver/type": "em"}, "A10"),
+                      "compressible"}, {"fluid": "lte_table"}, "A6.3"),
+    "qms3d": ({"cycle-avg-joule-coupled/axisymmetric": "0"}, {}, "A10"),
+    "em3d": ({"solver/type": "em"}, {}, "A10"),
 }
 
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_inputs_outside_the_slice_raise(tmp_path, name):
-    keys, item = REFUSALS[name]
+    keys, fields, item = REFUSALS[name]
     tps = harness.Tps()
     tps.parse_command_line_args(["tps", "--runFile", SHIPPED, "--device",
                                  "cpu"])
     tps.parse_input()
     for k, v in keys.items():
         tps.config.raw.values[k] = v
+    for k, v in fields.items():
+        setattr(tps.config, k, v)
     tps.config.solver_type = tps.config.raw.values["solver/type"]
     tps.config.outdir = str(tmp_path)
     tps.choose_devices()

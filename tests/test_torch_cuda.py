@@ -11,7 +11,10 @@ holds while a dead solver's graphs are collected.  The coupled torch
 deck: step graph == eager steps across an EM update; GMRES on the card
 matches the CPU.  The reacting deck: step graph == eager steps across a
 dense refresh, and inside an interpolated inlet's ramp; a ReactingFlow
-step on the card matches the CPU.
+step on the card matches the CPU.  The face sweep's mixture variants (the
+argon ternary in 3-D and on Euler, with constant transport; the
+six-species mixture) == their plain versions; the coupled compressible
+argon channel's step graph == eager steps across an EM update.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -301,7 +304,14 @@ def test_shared_memory_plans_match_the_kernels(device):
                                        # the argon plasma: neq 6, k 18 (2-D);
                                        # then a 3-D plan of 7 equations
                                        (4, 2, 4, 18, 6), (9, 3, 4, 18, 6),
-                                       (9, 4, 4, 18, 6), (27, 16, 6, 28, 7)):
+                                       (9, 4, 4, 18, 6), (27, 16, 6, 28, 7),
+                                       # the mixture variants: 3-D NS (neq
+                                       # 7, k 28) at p=2 GL; Euler (k =
+                                       # neq) 2-D and 3-D; the six-species
+                                       # mixture (neq 9, k 27) at p=1, 2
+                                       (27, 9, 6, 28, 7), (9, 3, 4, 6, 6),
+                                       (27, 9, 6, 7, 7), (4, 2, 4, 27, 9),
+                                       (9, 3, 4, 27, 9)):
             E, _res, smem = cuda_faces.plan(ndof, nqf, nlf, k, neq, dtype)
             assert lib.tps_face_sweep_smem(ndof, nqf, nlf, k, neq, size,
                                            ctypes.byref(tile)) == smem
@@ -695,6 +705,138 @@ def test_argon_deck_graph_matches_eager(device, f64, tmp_path):
     (Ug, tg, dtg), (Ue, te, dte) = out[True], out[False]
     np.testing.assert_allclose(Ug, Ue, rtol=0, atol=1e-12 * np.max(np.abs(Ue)))
     np.testing.assert_allclose([tg, dtg], [te, dte], rtol=1e-12)
+
+
+# ------------------------------------------------- the mixture variants
+
+INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "inputs")
+CONSTANT_PLASMA = """
+[plasma_models/transport_model/constant]
+viscosity = 2.25e-5
+bulk_viscosity = 0.0
+thermal_conductivity = 0.0175
+electron_thermal_conductivity = 1.5e-5
+diffusivity/species1 = 0.094
+diffusivity/species2 = 4.2e-6
+diffusivity/species3 = 4.2e-6
+momentum_transfer_frequency/species1 = 0.0
+momentum_transfer_frequency/species2 = 4.4e10
+momentum_transfer_frequency/species3 = 4.1e9
+"""
+
+
+def _variant_case(var, n, order, dtype, device):
+    """A face-sweep variant's sweep and input: the argon deck's ternary in
+    3-D (argon_3d), on Euler (argon_euler, 2-D or 3-D by n), with constant
+    transport (argon_const); argon_full.ini's six species (gas_mixture).
+    A periodic box of 0.01 m, a perturbed state (Te != Th, the ion ~1e-3
+    and each other active species ~1e-4 of rho) and its DG gradient."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.physics.plasma_config import build_plasma
+
+    deck = "argon_full.ini" if var == "gas_mixture" else "argon_minimal.ini"
+    text = open(os.path.join(INPUTS, deck)).read()
+    if var == "argon_const":
+        text = text.replace("transport_model = argon_minimal",
+                            "transport_model = constant") + CONSTANT_PLASMA
+    path = os.path.join(os.environ.get("TMPDIR", "/tmp"), f"{var}.ini")
+    with open(path, "w") as f:
+        f.write(text)
+    dim = len(n)
+    pl = build_plasma(IniInput.read(path), dim, dim)
+    mix = pl.mixture
+    eq = "euler" if var == "argon_euler" else "navier-stokes"
+    fl = Fluxes(mixture=mix, transport=None if eq == "euler" else pl.transport,
+                eq_system=eq)
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    mesh = (box_3d(*n, bounds=((0.0, 0.01),) * 3, periodic=(True,) * 3)
+            if dim == 3 else box_2d(*n, x1=0.01, y1=0.01, periodic_x=True,
+                                    periodic_y=True))
+    tab_np = build_tables(mesh, order)
+    xyz = tab_np.xyz_dof
+    k = 2 * np.pi / 0.01
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    Up = np.zeros(xyz.shape[:-1] + (mix.num_equations,))
+    Up[..., 0] = 1.6 * (1 + 0.05 * wave)
+    Up[..., 1], Up[..., 2] = 10.0 + 3.0 * wave, -2.0 * wave
+    Up[..., dim + 1] = 1800.0 * (1 + 0.05 * wave)
+    for sp in range(mix.num_active_species):
+        frac = 1e-3 if sp == 0 else 1e-4
+        Up[..., dim + 2 + sp] = frac * 1.6 / mix.mw[sp] * (1 + 0.1 * wave)
+    Up[..., -1] = 9000.0 * (1 - 0.1 * wave)
+    tab = tab_np.to_torch(torch.float64, device)
+    U = mix.conservatives(torch.as_tensor(Up, device=device))
+    X = U
+    if eq != "euler":
+        G = dg_gradient(tab, mix.primitives(U))
+        X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    return build_face_sweep(tab_np.to_torch(dtype, device), ctx), \
+        X.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("var,n,order", [
+    ("argon_3d", (4, 4, 4), 2), ("argon_euler", (8, 8), 2),
+    ("argon_euler", (4, 4, 4), 2), ("argon_const", (8, 8), 2),
+    ("gas_mixture", (4, 4), 1), ("gas_mixture", (8, 8), 2)])
+def test_face_sweep_variants_match_plain(device, var, n, order, dtype):
+    """Each mixture variant against its plain version: f64 1e-11 of
+    max|plain|; f32 within 5e-5, or no farther from the f64 plain result
+    than twice the f32 plain version; one launch, counted under its
+    variant."""
+    sw, X = _variant_case(var, n, order, dtype, device)
+    assert sw.variant == var
+    cuda_faces.reset_launches()
+    z = sw(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    assert cuda_faces.variant_launches[var] == 1
+    plain = sw.plain(X)
+    if dtype == torch.float64:
+        assert _rel(z, plain) <= TOL[dtype]
+    else:
+        sw64, _ = _variant_case(var, n, order, torch.float64, device)
+        ref = sw64.plain(X.double())
+        assert (_rel(z, plain) <= TOL[dtype]
+                or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
+
+
+def test_coupled_channel_graph_matches_eager(device, f64, tmp_path):
+    """tps_torch/tools/argon_channel_coupled.ini cut to 8x8 p=2 and 12 steps
+    (EM updates at 0 and 10, the second between two replays): graph
+    replays == eager steps (f64, 1e-12 of max|U|), 48 launches of the 2-D
+    argon sweep each way, the Joule heating the same tensor throughout."""
+    from tps_torch import harness
+
+    deck = os.path.join(os.path.dirname(INPUTS), "..", "tps_torch", "tools",
+                        "argon_channel_coupled.ini")
+    text = open(deck).read().replace("nx = 64", "nx = 8").replace(
+        "ny = 64", "ny = 8").replace("maxIters = 200", "maxIters = 12")
+    out = {}
+    for graphs in (True, False):
+        path = tmp_path / f"channel_{graphs}.ini"
+        path.write_text(text.replace(
+            "outdirBase = output/argon_channel_coupled",
+            f"outdirBase = {tmp_path / str(graphs)}"))
+        tps = harness.Tps()
+        tps.parse_command_line_args(["tps", "--runFile", str(path)])
+        tps.parse_input()
+        tps.choose_devices()
+        tps.choose_solver()
+        tps.initialize()
+        c = tps.solver
+        c.flow.cuda_graphs = graphs
+        ptr = c.flow.joule_heating.data_ptr()
+        cuda_faces.reset_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        assert cuda_faces.variant_launches["argon_2d"] == 48
+        assert cuda_faces.launches["face_sweep"] == 48
+        assert c.flow.joule_heating.data_ptr() == ptr
+        assert len(c.em_log) == 2
+        out[graphs] = c.flow.state_global()
+    np.testing.assert_allclose(out[True], out[False], rtol=0,
+                               atol=1e-12 * np.max(np.abs(out[False])))
 
 
 # ---------------------------------------------------------------- low-Mach

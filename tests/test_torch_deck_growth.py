@@ -1,5 +1,8 @@
 """max|u| of examples/cases/torch_axisym_coupled.ini as shipped (or, with
---deck reacting, of tps_torch/tools/lomach_reacting.ini), step by step,
+--deck reacting, of tps_torch/tools/lomach_reacting.ini; with --deck
+channel, of the compressible coupled channel
+tps_torch/tools/argon_channel_coupled.ini, its peak T the electrons'),
+step by step,
 in the JAX package and in tps_torch side by side: a diagnostic of the
 deck's growth, run as a script.  It holds no test function, so
 pytest collects nothing from it.
@@ -19,6 +22,8 @@ non-finite is reported and dropped; the other carries on.
     python tests/test_torch_deck_growth.py --f32 --steps 50
     python tests/test_torch_deck_growth.py --plain-lomach   # no Joule
     python tests/test_torch_deck_growth.py --deck reacting --f32 --steps 30
+    python tests/test_torch_deck_growth.py --deck channel --steps 200 \
+        --every 10 --dt 2e-9      # the channel's time step, its power
 
 --plain-lomach runs the same deck as a plain `loMach` run (solver/type
 loMach: the flow alone, no Joule heating).  --against-f64 first runs
@@ -45,12 +50,21 @@ REPO = os.path.dirname(HERE)
 DECKS = {"torch": os.path.join(REPO, "examples", "cases",
                                "torch_axisym_coupled.ini"),
          "reacting": os.path.join(REPO, "tps_torch", "tools",
-                                  "lomach_reacting.ini")}
+                                  "lomach_reacting.ini"),
+         "channel": os.path.join(REPO, "tps_torch", "tools",
+                                 "argon_channel_coupled.ini")}
 
 
-def deck_text(deck, steps, plain, outdir):
+def deck_text(deck, steps, plain, outdir, dt=None, power=None):
     with open(DECKS[deck]) as f:
         txt = f.read()
+    if dt is not None:
+        txt = txt.replace("dt_fixed = 1e-9", f"dt_fixed = {dt}")
+    if power is not None:
+        txt = txt.replace("input-power = 0.5", f"input-power = {power}")
+    txt = txt.replace("outdirBase = output/argon_channel_coupled",
+                      f"outdirBase = {outdir}")
+    txt = txt.replace("maxIters = 200", f"maxIters = {steps}")
     txt = txt.replace("maxIters = 1000", f"maxIters = {steps}")
     txt = txt.replace("maxIters = 100\n", f"maxIters = {steps}\n")
     txt = txt.replace("outdirBase = output/lomach_reacting",
@@ -81,6 +95,11 @@ def parts(s):
 
 
 def fields(s, np_of):
+    if hasattr(getattr(s, "flow", None), "mixture"):  # compressible
+        mix = s.flow.mixture
+        Up = np_of(mix.primitives(s.flow.U))
+        return (Up[..., 1:1 + mix.dim], Up[..., mix.i_te],
+                s.em.total_joule_heating())
     th, fl = parts(s)
     if hasattr(s, "em"):
         return np_of(fl.u), np_of(th.T), s.em.total_joule_heating()
@@ -98,6 +117,9 @@ def main():
     ap.add_argument("--plain-lomach", action="store_true")
     ap.add_argument("--deck", default="torch", choices=tuple(DECKS))
     ap.add_argument("--against-f64", action="store_true")
+    # the channel deck's dt_fixed and input-power
+    ap.add_argument("--dt", type=float)
+    ap.add_argument("--power", type=float)
     # the child of --against-f64: the JAX package alone, its u and T at
     # each reported step saved to this .npz
     ap.add_argument("--dump", help=argparse.SUPPRESS)
@@ -111,7 +133,10 @@ def main():
         subprocess.run(
             [sys.executable, os.path.abspath(__file__), "--deck", a.deck,
              "--steps", str(a.steps), "--every", str(a.every), "--dump",
-             path] + (["--plain-lomach"] if a.plain_lomach else []),
+             path] + (["--plain-lomach"] if a.plain_lomach else [])
+            + sum((["--" + k, str(v)] for k, v in (("dt", a.dt),
+                                                    ("power", a.power))
+                   if v is not None), []),
             check=True)
         ref = np.load(path)
     import jax
@@ -131,7 +156,7 @@ def main():
         path = os.path.join(out, f"{name}.ini")
         with open(path, "w") as f:
             f.write(deck_text(a.deck, a.steps, a.plain_lomach,
-                              os.path.join(out, name)))
+                              os.path.join(out, name), a.dt, a.power))
         t0 = time.perf_counter()
         runs[name] = make(mod.Tps(), argv, path)
         print(f"{name}: set up in {time.perf_counter() - t0:.1f} s",

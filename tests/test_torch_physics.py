@@ -120,6 +120,6 @@ def test_unported_branches_raise():
         Fluxes(mixture=mix, axisymmetric=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         Fluxes(mixture=mix, sgs_model=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
         Fluxes(mixture=DryAir(dim=3, nvel=3, n_passive=1),
                eq_system="ns-passive")

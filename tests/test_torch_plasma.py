@@ -162,8 +162,13 @@ def test_perfect_mixture_matches_jax():
                jmix.mole_fraction_gradient(jnp.asarray(n_sp), Gj))
     _rel_close(mix.mass_fraction_gradient(Ut[:, 0], n_sp, Gt),
                jmix.mass_fraction_gradient(Uj[:, 0], jnp.asarray(n_sp), Gj))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.2"):
-        mix.pressure_derivative(Gt[..., 0], Ut)
+    # the BC helpers (tests/test_torch_mixture_bc.py holds them on more
+    # mixtures)
+    _rel_close(mix.pressure_derivative(Gt[..., 0], Ut),
+               jmix.pressure_derivative(Gj[..., 0], Uj))
+    p = mix.pressure(Ut) * 1.1
+    _rel_close(mix.modify_energy_for_pressure(Ut, p),
+               jmix.modify_energy_for_pressure(Uj, jnp.asarray(p.numpy())))
 
 
 @pytest.mark.parametrize("third_order", [True, False])
@@ -339,23 +344,28 @@ def test_face_sweep_gate_and_packed_constants():
     assert re.search(r"MIX_FLAGS = (\d+);", text).group(1) == "14"
     phys = mixture_phys(ctx)
     assert phys[14:16] == [1.0, 1.0] and 0 < min(phys[23:31])
-    # outside the gate: other transport, Euler, one temperature
+    # outside the gate: a transport without species diffusion, one
+    # temperature
     import dataclasses
 
     for fl in (Fluxes(mixture=ctx.mixture, transport=ConstantTransport(
                    1e-5, 0.0, 0.02)),
-               Fluxes(mixture=ctx.mixture, eq_system="euler"),
                Fluxes(mixture=dataclasses.replace(ctx.mixture,
                                                   two_temperature=False),
                       transport=ctx.fluxes.transport)):
         assert not face_sweep_supported(
             tab_np, RHSContext(fluxes=fl, riemann=Rusanov(fl)))
-    # 3-D: the mixture kernel is built for 2-D only
+    # Euler (no transport) and 3-D: their own instantiations
+    fle = Fluxes(mixture=ctx.mixture, eq_system="euler")
+    ctxe = RHSContext(fluxes=fle, riemann=Rusanov(fle))
+    assert face_sweep_supported(tab_np, ctxe)
+    assert cuda_faces.variant(ctxe, 2) == "argon_euler"
     port3 = _plasmas(3)[0]
     fl3 = Fluxes(mixture=port3.mixture, transport=port3.transport)
+    ctx3 = RHSContext(fluxes=fl3, riemann=Rusanov(fl3))
     tab3 = build_tables(box_3d(2, 2, 2, periodic=(True, True, True)), 1)
-    assert not face_sweep_supported(
-        tab3, RHSContext(fluxes=fl3, riemann=Rusanov(fl3)))
+    assert face_sweep_supported(tab3, ctx3)
+    assert cuda_faces.variant(ctx3, 3) == "argon_3d"
 
 
 def _emulate_argon(sw, ctx, X):

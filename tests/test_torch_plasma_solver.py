@@ -10,7 +10,11 @@ the CPU.
    through tools/soln_differ.py with the flags of
    tests/test_statistics_restart.py::test_golden_argon_regression.
 3. Each plasma input outside the slice raises NotImplementedError naming
-   its ROADMAP item.
+   its ROADMAP item: the LTE fluid (A6.3), LTE restarts (A6.4), passive
+   scalars (A5.4), axisymmetric flow (A5.3) and the injected `bte` rates
+   (A11.3).  The mixture decks with boundaries, general and constant
+   transport run: tests/test_torch_mixture_bc.py and
+   tests/test_torch_gas_mixture.py.
 """
 
 import dataclasses
@@ -28,6 +32,7 @@ torch.set_num_threads(1)
 
 from tps_torch import harness  # noqa: E402
 from tps_torch.dg import cuda_faces  # noqa: E402
+from tps_torch.dg.forcing import JouleHeating  # noqa: E402
 from tps_torch.dg.rhs import compute_rhs  # noqa: E402
 from tps_torch.dg.source_term import SourceTerm  # noqa: E402
 from tps_tpu.config.ini import IniInput as JIniInput  # noqa: E402
@@ -68,7 +73,8 @@ def _solver(path, outdir):
 def test_rhs_matches_jax_with_the_source_term(f64, tmp_path):
     s = _solver(DECK, tmp_path).solver
     assert type(s._rhs).__name__ == "SlotRHS"
-    assert [type(f) for f in s.ctx.forcings] == [SourceTerm]
+    assert [type(f) for f in s.ctx.forcings] == [SourceTerm, JouleHeating]
+    assert float(torch.max(torch.abs(s.get_joule_heating()))) == 0.0
     mix = s.mixture
     # the deck's uniform state, perturbed (dU/dt = 0 would hide faults):
     # ion fraction ~1e-3 (as the deck's 1e-7 leaves diffusion negligible),
@@ -136,18 +142,14 @@ def _deck(tmp_path, edit):
 
 
 @pytest.mark.parametrize("edit,item", [
-    (lambda t: t.replace("transport_model = argon_minimal",
-                         "transport_model = argon_mixture"), "A6.3"),
-    (lambda t: t.replace("transport_model = argon_minimal",
-                         "transport_model = constant"), "A6.2"),
     (lambda t: t.replace("[io]\n", "[io]\nrestartFromLTE = 1\n"), "A6.4"),
-    (lambda t: t.replace("model = arrhenius", "model = tabulated"), "A6.3"),
-    (lambda t: t.replace("chemistry_model = 'mass_action_law'",
-                         "radiation_model = net_emission"), "A6.3"),
-    (lambda t: t.replace("equation_system = navier-stokes",
-                         "equation_system = euler"), "A6.2"),
     (lambda t: t.replace("fluid = user_defined", "fluid = lte_table"),
      "A6.3"),
+    (lambda t: t.replace("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n"),
+     "A5.4"),
+    (lambda t: t.replace("axisymmetric = False", "axisymmetric = True"),
+     "A5.3"),
+    (lambda t: t.replace("model = arrhenius", "model = bte"), "A11.3"),
 ])
 def test_unported_plasma_inputs_raise(tmp_path, edit, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -155,7 +157,18 @@ def test_unported_plasma_inputs_raise(tmp_path, edit, item):
 
 
 def test_mixture_boundaries_raise(tmp_path):
-    """The inflow/outflow argon deck: the mixture BCs are A6.2."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A6.2"):
-        _solver(os.path.join(HERE, "inputs", "argon_inflow_outflow.ini"),
-                tmp_path)
+    """The inflow/outflow argon deck runs (tests/test_torch_mixture_bc.py
+    holds it against the JAX package); what still waits on it raises: the
+    LTE fluid (ROADMAP A6.3) and passive scalars (A5.4)."""
+    path = os.path.join(HERE, "inputs", "argon_inflow_outflow.ini")
+    s = _solver(path, tmp_path).solver
+    assert len(s.bc_slices) == 2
+    with open(path) as f:
+        text = f.read()
+    for old, new, item in (
+            ("fluid = user_defined", "fluid = lte_table", "A6.3"),
+            ("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n", "A5.4")):
+        deck = tmp_path / "deck.ini"
+        deck.write_text(text.replace(old, new))
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            _solver(str(deck), tmp_path)

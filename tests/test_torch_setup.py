@@ -3,6 +3,9 @@
 tps_torch carries its own numpy mesh / DG-table / config code because the
 JAX package cannot be imported without jax.  These tests pin the copy to
 the original bit for bit, and check that the port imports with jax absent.
+The parsed plasma of the compressible decks too: species order and
+constants, the general transport's pair table, the radiative decays'
+level data and models, and the boundary conditions' input states.
 """
 
 import dataclasses
@@ -95,6 +98,7 @@ def test_import_without_jax():
         "import tps_torch.dg.bc, tps_torch.io.h5lite, tps_torch.io.restart\n"
         "import tps_torch.io.visualization, tps_torch.mesh.mfem_reader\n"
         "import tps_torch.mesh.refine, tps_torch.dg.source_term\n"
+        "import tps_torch.dg.forcing, tps_torch.physics.radiative_decay\n"
         "import tps_torch.physics.collision_integrals\n"
         "import tps_torch.physics.perfect_mixture\n"
         "import tps_torch.physics.gas_transport, tps_torch.physics.chemistry\n"
@@ -145,3 +149,77 @@ def test_no_module_imports_jax_h5py_or_the_jax_package():
             bad += [(os.path.relpath(path, REPO), n) for n in names
                     if n.split(".")[0] in ("jax", "jaxlib", "h5py", "tps_tpu")]
     assert len(paths) > 30 and not bad, bad
+
+
+PLASMA_DECKS = {
+    "argon_full": os.path.join(REPO, "tests", "inputs", "argon_full.ini"),
+    "inflow_outflow": os.path.join(REPO, "tests", "inputs",
+                                   "argon_inflow_outflow.ini"),
+    "channel_coupled": os.path.join(REPO, "tps_torch", "tools",
+                                    "argon_channel_coupled.ini"),
+}
+
+
+@pytest.mark.parametrize("name", list(PLASMA_DECKS))
+def test_parsed_plasma_equal(name, tmp_path):
+    """Each deck's plasma as both packages parse it: species order and
+    per-species constants, the transport (GasMixtureTransport's pair
+    table: the same fit functions per pair), the reactions' models (the
+    radiative decays' states, indices and radius, and their level data),
+    and the BCs' input states (the solvers' BC objects)."""
+    from tps_torch.physics import radiative_decay as prd
+    from tps_torch.physics.plasma_config import build_plasma
+    from tps_tpu.physics import gas_transport as jgt
+    from tps_tpu.physics import radiative_decay as jrd
+    from tps_tpu.physics.plasma_config import build_plasma as jbuild_plasma
+
+    path = PLASMA_DECKS[name]
+    ours = build_plasma(IniInput.read(path), 2, 2)
+    ref = jbuild_plasma(JIniInput.read(path), 2, 2)
+    assert ours.species_names == ref.species_names
+    assert np.array_equal(ours.input_to_mixture, ref.input_to_mixture)
+    assert np.array_equal(ours.initial_mass_fractions,
+                          ref.initial_mass_fractions)
+    for f in ("mw", "charges", "formation_energy", "molar_cv_over_R",
+              "degeneracy", "ambipolar", "two_temperature"):
+        assert getattr(ours.mixture, f) == getattr(ref.mixture, f), f
+    assert type(ours.transport).__name__ == type(ref.transport).__name__
+    if isinstance(ref.transport, jgt.GasMixtureTransport):
+        assert ours.transport.species_names == ref.transport.species_names
+        for pair, kind in ours.transport.pair_kinds.items():
+            tag, fns = ref.transport._pair_table[pair]
+            table = jgt._CLMB if tag == "CLMB" else jgt._NEUTRAL_KINDS
+            assert fns is table[kind], pair
+    chem, jchem = ours.chemistry, ref.chemistry
+    assert np.array_equal(chem.reactant_stoich, jchem.reactant_stoich)
+    assert np.array_equal(chem.product_stoich, jchem.product_stoich)
+    assert chem.reaction_energies == jchem.reaction_energies
+    for m, jm in zip(chem.models, jchem.models):
+        assert type(m).__name__ == type(jm).__name__
+        if isinstance(jm, jrd.RadiativeDecay):
+            assert (m.upper, m.lower, m.i_upper, m.i_lower, m.radius) == (
+                jm.upper, jm.lower, jm.i_upper, jm.i_lower, jm.radius)
+    for table in ("E_LVL", "G_LVL", "AJI"):
+        ours_t, ref_t = getattr(prd, table), getattr(jrd, table)
+        assert ours_t.keys() == ref_t.keys()
+        for k in ref_t:
+            assert np.array_equal(ours_t[k], ref_t[k]), (table, k)
+    assert prd.M_AR == jrd.M_AR
+    # the BCs' input states, from both solvers' BC builders
+    from tps_torch.solvers.compressible import CompressibleSolver
+    from tps_tpu.solvers.compressible import \
+        CompressibleSolver as JCompressibleSolver
+
+    rc = parse_run_configuration(IniInput.read(path))
+    jrc = jparse(JIniInput.read(path))
+    mine, theirs = CompressibleSolver(rc, device="cpu"), \
+        JCompressibleSolver(jrc)
+    mine.mixture, mine.plasma = ours.mixture, ours
+    theirs.mixture, theirs.plasma = ref.mixture, ref
+    for spec, jspec in zip(rc.bcs, jrc.bcs):
+        b, jb = mine._make_bc(spec), theirs._make_bc(jspec)
+        assert type(b).__name__ == type(jb).__name__
+        for f in ("input_state", "pressure", "heavy", "electron",
+                  "wall_temp", "wall_temp_e", "kind"):
+            if hasattr(jb, f):
+                assert getattr(b, f) == getattr(jb, f), (spec.kind, f)

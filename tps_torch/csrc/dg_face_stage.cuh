@@ -357,7 +357,8 @@ __device__ __forceinline__ T other_lane(T v) {  // the pair partner's value
 // The face flux at every point of the tile: F = m * (Rusanov of the two
 // traces minus, for Navier-Stokes, the mean of the two one-sided viscous
 // normal fluxes) into Fl[el*fs + s*NEQ + q], with the physics of policy P
-// (dg_pointwise.cuh::DryAirPhysics, dg_mixture.cuh::ArgonMixture).
+// (dg_pointwise.cuh::DryAirPhysics, dg_mixture.cuh::ArgonMixture,
+// dg_gas_mixture.cuh::GasMixture).
 // m[el] == 0 (a boundary slot or no element) writes 0.  Normal of (el,
 // s): nor[(e0+el)*nor_e + s*DIM].  Where the tile has at most half as
 // many points as the block threads, a lane pair takes a point, each lane

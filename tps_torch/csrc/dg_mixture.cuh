@@ -155,9 +155,15 @@ struct ArgonMixture {
       f[q] = T(0.5) * (f1[q] + f2[q]) - lam * (clipped(u2, q) - clipped(u1, q));
   }
 
-  // One-sided viscous normal flux of a traced state and its traced
-  // gradient gt[eq * DIM + d] (fluxes.py::viscous with
-  // ArgonMinimalTransport.flux_properties); fv[0] is not written.
+  // The one-sided viscous normal flux of a traced state and its traced
+  // gradient gt[eq * DIM + d] (fluxes.py::viscous with the transport's
+  // flux_properties).  In T but for the parts that cancel most of float's
+  // digits, which are formed in double whatever T, as the plain version
+  // forms them (physics/gas_transport.py::_f64): the species fractions
+  // (the background's 1 - Y), the e-Ar log T fits, Devoto's third-order
+  // electron conductivity and the diffusion block (the ambipolar field
+  // cancels the electron's drift against the ion's).  fv[0] is not
+  // written.
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
@@ -165,11 +171,23 @@ struct ArgonMixture {
     State<T> s;
     state(u, m, s);
     const T th = s.th, te = s.te;
-    const T ntot = s.n[0] + s.n[1] + s.n[2];
-    T X[3], Y[3];
+    // species in double (gas_transport.py::_species)
+    double nd[3], Xd[3], Yd[3];
+    {
+      const double rho = u[0];
+      const double ui = u[IS] > T(0) ? double(u[IS]) : 0.0;
+      const double ni = ui / m.mw[0];
+      const double zn = ni * m.z[0];
+      nd[0] = ni;
+      nd[1] = zn > 0.0 ? zn : 0.0;
+      nd[2] = (rho - ni * m.mw[0] - nd[1] * m.mw[1]) / m.mw[2];
+    }
+    const double ntd = nd[0] + nd[1] + nd[2];
+    T X[3];
     for (int i = 0; i < 3; ++i) {
-      X[i] = s.n[i] / ntot;
-      Y[i] = s.n[i] * T(m.mw[i]) / s.rho;
+      Xd[i] = nd[i] / ntd;
+      Yd[i] = nd[i] * m.mw[i] / double(u[0]);
+      X[i] = T(Xd[i]);
     }
     // collision inputs (gas_transport.py::_collision_inputs)
     const T xeps = T(m.xeps);
@@ -185,13 +203,13 @@ struct ArgonMixture {
     const T kap = (X[0] * (vis_i * T(m.koe_i)) + X[2] * (vis_n * T(m.koe_n))) *
                   T(m.kappa_mult);
     // e-heavy integrals: e-Ar+ (1, r) by the attractive fits, e-Ar by the
-    // log T fits
-    const T lte = log(te);
+    // log T fits (in double)
+    const double lte = log(double(te));
     const T q_ie = screened(m.scr[3], nd_te) * dc;
-    const T q_ea = log_t_fit(m.ear[0], lte);
+    const double q_ea = log_t_fit(m.ear[0], lte);
     T kape;
     if (m.third != 0.0) {  // Devoto's third order (_third_order_ke)
-      T q2[3], q1i[5], q1n[5];
+      double q2[3], q1i[5], q1n[5];
       for (int r = 0; r < 3; ++r) q2[r] = dc * screened(m.scr[r], nd_te);
       q1i[0] = q_ie;
       q1n[0] = q_ea;
@@ -199,69 +217,74 @@ struct ArgonMixture {
         q1i[r] = dc * screened(m.scr[3 + r], nd_te);
         q1n[r] = log_t_fit(m.ear[r], lte);
       }
-      const T s2 = T(1.4142135623730951) * X[1];
-      auto l11 = [&](const T* q) {
-        return T(6.25) * q[0] - T(15) * q[1] + T(12) * q[2];
+      const double s2 = 1.4142135623730951 * Xd[1];
+      auto l11 = [&](const double* q) {
+        return 6.25 * q[0] - 15.0 * q[1] + 12.0 * q[2];
       };
-      auto l12 = [&](const T* q) {
-        return T(10.9375) * q[0] - T(39.375) * q[1] + T(57) * q[2] -
-               T(30) * q[3];
+      auto l12 = [&](const double* q) {
+        return 10.9375 * q[0] - 39.375 * q[1] + 57.0 * q[2] - 30.0 * q[3];
       };
-      auto l22 = [&](const T* q) {
-        return T(19.140625) * q[0] - T(91.875) * q[1] + T(199.5) * q[2] -
-               T(210) * q[3] + T(90) * q[4];
+      auto l22 = [&](const double* q) {
+        return 19.140625 * q[0] - 91.875 * q[1] + 199.5 * q[2] -
+               210.0 * q[3] + 90.0 * q[4];
       };
-      const T a11 = s2 * q2[0] + X[0] * l11(q1i) + X[2] * l11(q1n);
-      const T a12 = s2 * (T(1.75) * q2[0] - T(2) * q2[1]) + X[0] * l12(q1i) +
-                    X[2] * l12(q1n);
-      const T a22 = s2 * (T(4.8125) * q2[0] - T(7) * q2[1] + T(5) * q2[2]) +
-                    X[0] * l22(q1i) + X[2] * l22(q1n);
-      kape = T(m.ke3) * ste * X[1] / (a11 - a12 * (a12 / a22));
+      const double a11 = s2 * q2[0] + Xd[0] * l11(q1i) + Xd[2] * l11(q1n);
+      const double a12 = s2 * (1.75 * q2[0] - 2.0 * q2[1]) +
+                         Xd[0] * l12(q1i) + Xd[2] * l12(q1n);
+      const double a22 = s2 * (4.8125 * q2[0] - 7.0 * q2[1] + 5.0 * q2[2]) +
+                         Xd[0] * l22(q1i) + Xd[2] * l22(q1n);
+      kape = T(m.ke3 * sqrt(double(te)) * Xd[1] / (a11 - a12 * (a12 / a22)));
     } else {
       kape = T(m.ke1) * ste * X[1] / (screened(m.scr[0], nd_te) * dc);
     }
     kape *= T(m.kappa_e_mult);
-    // binary and Curtiss-Hirschfelder diffusivities, mobilities
-    const T d_en = T(m.d_en) * ste / ntot / q_ea;
-    const T d_ni = T(m.d_ni) * sth / ntot / (T(m.ar1p11[0]) * pow(th, T(m.ar1p11[1])));
-    const T d_ei = T(m.d_ei) * ste / ntot / q_ie;
-    const T xe = X[1] + xeps, xi = X[0] + xeps, xn = X[2] + xeps;
-    T D[3];
-    D[0] = (T(1) - Y[0]) / (xe / d_ei + xn / d_ni) * T(m.diff_mult);
-    D[1] = (T(1) - Y[1]) / (xi / d_ei + xn / d_en) * T(m.diff_mult);
-    D[2] = (T(1) - Y[2]) / (xi / d_ni + xe / d_en) * T(m.diff_mult);
-    T mob[3];
-    const T tsp[3] = {th, te, th};
+    // the diffusion block, in double: binary and Curtiss-Hirschfelder
+    // diffusivities, mobilities
+    const double thd = th, ted = te;
+    const double d_en = m.d_en * sqrt(ted) / ntd / q_ea;
+    const double d_ni =
+        m.d_ni * sqrt(thd) / ntd /
+        double(T(m.ar1p11[0]) * pow(th, T(m.ar1p11[1])));
+    const double d_ei = m.d_ei * sqrt(ted) / ntd / double(q_ie);
+    const double xe = Xd[1] + m.xeps, xi = Xd[0] + m.xeps,
+                 xn = Xd[2] + m.xeps;
+    double D[3];
+    D[0] = (1.0 - Yd[0]) / (xe / d_ei + xn / d_ni) * m.diff_mult;
+    D[1] = (1.0 - Yd[1]) / (xi / d_ei + xn / d_en) * m.diff_mult;
+    D[2] = (1.0 - Yd[2]) / (xi / d_ni + xe / d_en) * m.diff_mult;
+    double mob[3];
+    const double tsp[3] = {thd, ted, thd};
     for (int i = 0; i < 3; ++i)
-      mob[i] = T(m.qe_kb) * T(m.z[i]) / tsp[i] * D[i] * T(m.mobil_mult);
+      mob[i] = m.qe_kb * m.z[i] / tsp[i] * D[i] * m.mobil_mult;
     // species gradients (perfect_mixture.py::mole_fraction_gradient) and
     // the diffusion velocities, ambipolar field and mass correction
-    T dv[3][DIM];
-    T mho = T(0);
-    for (int i = 0; i < 3; ++i) mho += mob[i] * s.n[i] * T(m.z[i]);
-    T ambe[DIM];
+    double dv[3][DIM];
+    double mho = 0.0;
+    for (int i = 0; i < 3; ++i) mho += mob[i] * nd[i] * m.z[i];
+    double ambe[DIM];
     for (int d = 0; d < DIM; ++d) {
-      const T gi = gt[IS * DIM + d];
-      const T ge = gi * T(m.z[0]);
-      const T gb = (gt[d] - gi * T(m.mw[0]) - T(m.mw[1]) * ge) / T(m.mw[2]);
-      const T gtot = gi + gb + ge;
-      const T gn[3] = {gi, ge, gb};
-      T amb = T(0);
+      const double gi = gt[IS * DIM + d];
+      const double ge = gi * m.z[0];
+      const double gb =
+          (double(gt[d]) - gi * m.mw[0] - m.mw[1] * ge) / m.mw[2];
+      const double gtot = gi + gb + ge;
+      const double gn[3] = {gi, ge, gb};
+      double amb = 0.0;
       for (int i = 0; i < 3; ++i) {
-        const T gx = gn[i] / ntot - s.n[i] / (ntot * ntot) * gtot;
-        dv[i][d] = -D[i] * gx / (X[i] + xeps);
-        amb += dv[i][d] * s.n[i] * T(m.z[i]);
+        const double gx = gn[i] / ntd - nd[i] / (ntd * ntd) * gtot;
+        dv[i][d] = -D[i] * gx / (Xd[i] + m.xeps);
+        amb += dv[i][d] * nd[i] * m.z[i];
       }
-      ambe[d] = -amb / (mho + xeps);
+      ambe[d] = -amb / (mho + m.xeps);
     }
     T dvn[3] = {T(0), T(0), T(0)};
     for (int d = 0; d < DIM; ++d) {
-      T vc = T(0);
+      double vc = 0.0;
       for (int i = 0; i < 3; ++i) {
         dv[i][d] += mob[i] * ambe[d];
-        vc += Y[i] * dv[i][d];
+        vc += Yd[i] * dv[i][d];
       }
-      for (int i = 0; i < 3; ++i) dvn[i] += (dv[i][d] - vc) * n[d];
+      for (int i = 0; i < 3; ++i) dvn[i] += T(dv[i][d] - vc) * n[d];
     }
     // stress (bulk viscosity 0: -2/3 mu), heat fluxes, diffusion
     const T bulk = -T(2) / T(3) * mu;

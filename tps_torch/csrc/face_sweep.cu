@@ -1,22 +1,31 @@
 // The face sweep (face_sweep.cuh) on DryAir: prototype mode (3-D Euler)
 // and slot mode (2-D and 3-D, Euler and Navier-Stokes), f32 and f64, and
-// the kernel's shared-memory plan.  The argon plasma's instantiations are
-// in face_sweep_argon.cu, reached through dispatch_argon.
+// the kernel's shared-memory plan.  The mixtures' instantiations are in
+// face_sweep_argon.cu, face_sweep_argon_const.cu and
+// face_sweep_gas_mixture.cu (each its own nvcc process), reached through
+// their dispatch functions.
 
 #include "face_sweep.cuh"
 
-// the `physics` argument of the C entries
-constexpr int PHYSICS_DRY_AIR = 0;  // dg_pointwise.cuh::DryAirPhysics
-constexpr int PHYSICS_ARGON = 1;    // dg_mixture.cuh::ArgonMixture
+// the `physics` argument of the C entries (dg/cuda_faces.py::PHYSICS_ID)
+constexpr int PHYSICS_DRY_AIR = 0;      // dg_pointwise.cuh::DryAirPhysics
+constexpr int PHYSICS_ARGON = 1;        // dg_mixture.cuh::ArgonMixture
+constexpr int PHYSICS_ARGON_CONST = 2;  // GasMixture<2, 3, true>
+constexpr int PHYSICS_GAS_MIXTURE = 3;  // GasMixture<2, 6, false>
 
-// face_sweep_argon.cu: slot mode, Navier-Stokes, 2-D; `p` as in
-// dg_mixture.cuh::make_mix_phys (MIX_PHYS_LEN values)
-template <typename T>
-int dispatch_argon(const T* X, const T* B, const int* cf, const int* cp,
-                   const int* nbr, const T* N, const T* M, T* Y, int ne,
-                   int ndof, int nqf, int nlf, int n_combo, long long nor_lf,
-                   long long nor_e, double sign, int dim, const double* p,
-                   void* stream);
+// slot mode; `p` as in dg_mixture.cuh::make_mix_phys (argon: 2-D and 3-D,
+// Navier-Stokes and Euler) or dg_gas_mixture.cuh::make_gas_phys (the
+// others: 2-D Navier-Stokes)
+#define TPS_DISPATCH(name)                                                  \
+  template <typename T>                                                     \
+  int name(const T* X, const T* B, const int* cf, const int* cp,            \
+           const int* nbr, const T* N, const T* M, T* Y, int ne, int ndof,  \
+           int nqf, int nlf, int n_combo, long long nor_lf, long long nor_e, \
+           double sign, int dim, int viscous, const double* p, void* stream);
+TPS_DISPATCH(dispatch_argon)
+TPS_DISPATCH(dispatch_argon_const)
+TPS_DISPATCH(dispatch_gas_mixture)
+#undef TPS_DISPATCH
 
 namespace {
 
@@ -26,12 +35,15 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
              int nqf, int nlf, int n_combo, long long nor_lf, long long nor_e,
              double sign, int dim, int viscous, int prototype, int physics,
              const double* p, void* stream) {
-  if (physics == PHYSICS_ARGON) {
-    if (!viscous || prototype) return (int)cudaErrorInvalidValue;
-    return dispatch_argon<T>(X, B, cf, cp, nbr, N, M, Y, ne, ndof, nqf, nlf,
-                             n_combo, nor_lf, nor_e, sign, dim, p, stream);
+  if (physics != PHYSICS_DRY_AIR) {
+    auto fn = physics == PHYSICS_ARGON         ? dispatch_argon<T>
+              : physics == PHYSICS_ARGON_CONST ? dispatch_argon_const<T>
+              : physics == PHYSICS_GAS_MIXTURE ? dispatch_gas_mixture<T>
+                                               : nullptr;
+    if (fn == nullptr || prototype) return (int)cudaErrorInvalidValue;
+    return fn(X, B, cf, cp, nbr, N, M, Y, ne, ndof, nqf, nlf, n_combo, nor_lf,
+              nor_e, sign, dim, viscous, p, stream);
   }
-  if (physics != PHYSICS_DRY_AIR) return (int)cudaErrorInvalidValue;
   using A2 = DryAirPhysics<2>;
   using A3 = DryAirPhysics<3>;
   if (prototype) {
@@ -64,9 +76,10 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
 // Plain C interface for ctypes.  Normal of (lf, e, point s, d) at
 // N[lf * nor_lf + e * nor_e + s * dim + d]; `mask` may be null (all
 // slots interior); `physics` PHYSICS_DRY_AIR with `phys` as in
-// dg_pointwise.cuh::make_phys, or PHYSICS_ARGON with `phys` as in
-// dg_mixture.cuh::make_mix_phys.  Each returns the cudaError_t of its
-// launch.
+// dg_pointwise.cuh::make_phys, PHYSICS_ARGON with `phys` as in
+// dg_mixture.cuh::make_mix_phys, or PHYSICS_ARGON_CONST /
+// PHYSICS_GAS_MIXTURE with `phys` as in dg_gas_mixture.cuh::make_gas_phys.
+// Each returns the cudaError_t of its launch.
 extern "C" {
 
 int tps_face_sweep_f32(const float* X, const float* B, const int* cface,

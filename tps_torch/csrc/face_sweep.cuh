@@ -23,9 +23,14 @@
 //
 // The pointwise physics is a policy of the kernel template: DryAir
 // (dg_pointwise.cuh::DryAirPhysics, instantiated in face_sweep.cu, both
-// modes) and the two-temperature argon plasma (dg_mixture.cuh::
-// ArgonMixture, NEQ = DIM + 4, slot mode, 2-D, instantiated in
-// face_sweep_argon.cu so that nvcc builds the two files side by side).
+// modes); in slot mode the two-temperature ambipolar mixtures, each
+// instantiated in a file of its own so that nvcc builds them side by
+// side: the argon ternary (dg_mixture.cuh::ArgonMixture, NEQ = DIM + 4,
+// Navier-Stokes and Euler, face_sweep_argon.cu in 2-D and
+// face_sweep_argon3d.cu in 3-D), the ternary with constant transport and
+// the six-species argon with collision-integral transport
+// (dg_gas_mixture.cuh::GasMixture, NEQ = DIM + NS + 1,
+// face_sweep_argon_const.cu and face_sweep_gas_mixture.cu, 2-D).
 //
 // Neighbours are decoded from nbr_row.  Combo c's rows are face block
 // combo_face[c]'s rows in another order: Btr_or[c][combo_perm[c][s]] =
@@ -82,8 +87,9 @@ Plan face_plan(int ndof, int nqf, int nlf, int k, int neq, size_t ts) {
 }
 
 // P: the physics policy (dg_pointwise.cuh::DryAirPhysics,
-// dg_mixture.cuh::ArgonMixture).  RES: the trace blocks are resident in
-// shared memory (then every operand load is a shared-memory load).
+// dg_mixture.cuh::ArgonMixture, dg_gas_mixture.cuh::GasMixture).  RES:
+// the trace blocks are resident in shared memory (then every operand load
+// is a shared-memory load).
 template <typename T, class P, bool VISCOUS, bool PROTO, bool RES>
 __global__ void __launch_bounds__(THREADS_MAX)
 face_sweep(const T* __restrict__ X,          // [ne][ndof][K]

@@ -5,8 +5,10 @@ slice of the (attribute-sorted) boundary faces and produces the boundary
 normal flux at its face quadrature points.  Mirrors reference behavior:
   walls:   src/wallBC.cpp:205-560 (inviscid mirror, viscous adiabatic,
            viscous isothermal via ghost states + one-sided viscous fluxes;
-           the general wall VISC_GNRL for a single species)
-  inlets:  src/inletBC.cpp:729-756 (subsonic reflecting density-velocity),
+           the general wall VISC_GNRL with its species, electron-energy
+           and sheath fluxes)
+  inlets:  src/inletBC.cpp:729-756 (subsonic reflecting density-velocity,
+           with species mass fractions on a mixture),
            :453-520 (face-based), the characteristic inlets :756-900
   outlets: src/outletBC.cpp:731-737 (subsonic reflecting pressure), the
            characteristic outlets :594-1010
@@ -21,9 +23,10 @@ patches of one and the same BC in one call.  The characteristic BCs
 states in its step loop's buffers (solvers/step_graph.py).  Patch means
 are device reductions: nothing here reads a value back to the host.
 
-Not ported: the multi-species and two-temperature parts of the general
-wall (ROADMAP A6) and the interpolated inlet, which needs
-interop/ext_data.py (ROADMAP A5).
+On a species mixture every BC goes through the mixture's BC helpers
+(physics/perfect_mixture.py: modify_energy_for_pressure,
+pressure_derivative, sound_speed_from_T), as in the JAX package.  Not
+ported: the interpolated inlet (ROADMAP A5.2).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ import math
 from dataclasses import dataclass
 
 import torch
+
+from ..constants import PI, UNIVERSAL_GAS_CONSTANT
 
 
 def _unit(nor):
@@ -206,7 +211,7 @@ class WallBC:
 class InletBC:
     """Subsonic reflecting density-velocity inlet (src/inletBC.cpp:729-756).
 
-    input_state = (rho, u, v[, w])
+    input_state = (rho, u, v[, w], Y_1..Y_nactive)
     """
 
     input_state: tuple
@@ -218,17 +223,23 @@ class InletBC:
     def flux(self, ctx, UL, UpL, gradL, nor, xyz, delta, t, state=None, wts=None):
         mix = ctx.fluxes.mixture
         nvel = mix.nvel
-        if mix.num_active_species:
-            raise NotImplementedError("multi-species inlets are not ported "
-                                      "to tps_torch yet (ROADMAP A6)")
+        nact = getattr(mix, "num_active_species", 0)
         p = mix.pressure(UL)
         rho = self.input_state[0]
-        # Python floats filled on the device: no host-to-device copy per call
-        ghost = torch.cat([torch.full_like(UL[..., :1], rho)]
-                          + [torch.full_like(UL[..., :1], rho * self.input_state[1 + d])
-                             for d in range(nvel)]
-                          + [UL[..., 1 + nvel :]], dim=-1)
-        # keep the interior pressure
+
+        def fill(v):
+            # a Python float filled on the device: no host-to-device copy
+            return torch.full_like(UL[..., :1], v)
+
+        ghost = torch.cat(
+            [fill(rho)] + [fill(rho * self.input_state[1 + d])
+                           for d in range(nvel)]
+            + [UL[..., 1 + nvel : 2 + nvel]]
+            + [fill(self.input_state[1 + nvel + sp] * rho)
+               for sp in range(nact)]
+            + [UL[..., 2 + nvel + nact :]], dim=-1)
+        # keep the interior pressure; on a mixture this rebuilds the
+        # energies from the species' heats and formation energies
         ghost = mix.modify_energy_for_pressure(ghost, p)
         return ctx.riemann(UL, ghost, nor)
 
@@ -261,11 +272,6 @@ class OutletBC:
         return ctx.riemann(UL, ghost, nor)
 
 
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to tps_torch yet "
-                               f"(ROADMAP {item})")
-
-
 def _stress_dot_n(props, grad, nhat, dim):
     """(mu (grad u + grad u^T) + (bulk - 2/3 mu) div u I) . nhat."""
     visc = props["visc"]
@@ -280,10 +286,17 @@ def _stress_dot_n(props, grad, nhat, dim):
 
 @dataclass(frozen=True)
 class GeneralWallBC:
-    """No-slip wall with a prescribed heavy-species thermal condition
-    (reference: WallType VISC_GNRL, src/wallBC.cpp:100-141,510-560), for a
-    single-species gas: heavy = "isothermal" | "adiabatic".  The species
-    fluxes, the electron energy and the sheath are ROADMAP A6."""
+    """No-slip wall with independently prescribed heavy and electron
+    thermal conditions (reference: WallType VISC_GNRL, src/wallBC.cpp:
+    100-141,510-560).
+
+    heavy:    "isothermal" | "adiabatic"
+    electron: "isothermal" | "adiabatic" | "sheath"
+    The sheath prescribes the Bohm outflow of positive ions, the
+    current-balancing electron flux, a fully catalytic background influx
+    and the sheath's electron energy flux (reference:
+    PerfectMixture::computeSheathBdrFlux, src/equation_of_state.cpp:
+    1909-1945)."""
 
     heavy: str = "isothermal"
     electron: str = "isothermal"
@@ -291,42 +304,131 @@ class GeneralWallBC:
     wall_temp_e: float = 300.0
     pointwise = True
 
-    def __post_init__(self):
-        if self.electron == "sheath":
-            raise _not_ported("the sheath wall", "A6")
-
     def ghost_primitive(self, mixture, UpL):
         nvel, ith = mixture.nvel, mixture.i_th
         T = (torch.full_like(UpL[..., :1], self.wall_temp)
              if self.heavy == "isothermal" else UpL[..., ith : ith + 1])
-        return torch.cat([UpL[..., :1], torch.zeros_like(UpL[..., 1 : 1 + nvel]),
-                          T, UpL[..., ith + 1 :]], dim=-1)
+        out = torch.cat([UpL[..., :1], torch.zeros_like(UpL[..., 1 : 1 + nvel]),
+                         T, UpL[..., ith + 1 :]], dim=-1)
+        if getattr(mixture, "two_temperature", False) \
+                and self.electron == "isothermal":
+            out = torch.cat([out[..., : mixture.i_te],
+                             torch.full_like(UpL[..., :1], self.wall_temp_e)],
+                            dim=-1)
+        return out
+
+    def _wall_state(self, mix, UL, UpL):
+        """The no-slip wall state at the prescribed temperatures: (U, Up)."""
+        Upw = self.ghost_primitive(mix, UpL)
+        return mix.conservatives(Upw), Upw
+
+    def _sheath_flux(self, mix, Uw, Upw):
+        """The prescribed normal diffusion velocities [..., nsp] and the
+        electron energy flux."""
+        R = UNIVERSAL_GAS_CONSTANT
+        _X, _Y, n_sp = mix.species_primitives(Uw)
+        Th = Upw[..., mix.i_th]
+        Te = Upw[..., mix.i_te] if mix.two_temperature else Th
+        nsp = mix.num_species
+        ie, ib = mix.i_electron, nsp - 1
+        Vn = [torch.zeros_like(Th) for _ in range(nsp)]
+        flux_e = torch.zeros_like(Th)  # sum Z n V_B
+        mass_bg = torch.zeros_like(Th)  # -sum m n V_B
+        for sp in range(nsp):
+            z = mix.charges[sp]
+            if z > 0.0:
+                VB = torch.sqrt((Th + z * Te) * R / mix.mw[sp])
+                Vn[sp] = VB
+                flux_e = flux_e + z * n_sp[..., sp] * VB
+                mass_bg = mass_bg - mix.mw[sp] * n_sp[..., sp] * VB
+        ne = n_sp[..., ie] + 1e-100
+        Vn[ie] = flux_e / ne
+        mass_bg = mass_bg - mix.mw[ie] * ne * Vn[ie]
+        Vn[ib] = mass_bg / (mix.mw[ib] * (n_sp[..., ib] + 1e-100))
+        q_sheath = None
+        if mix.two_temperature:
+            vTe = torch.sqrt(8.0 * R * Te / PI / mix.mw[ie])
+            gam = -torch.log(torch.clamp(4.0 / vTe * Vn[ie], min=1e-100))
+            q_sheath = Vn[ie] * (gam + 2.0) * ne * R * Te
+        return torch.stack(Vn, dim=-1), q_sheath
 
     def flux(self, ctx, UL, UpL, gradL, nor, xyz, delta, t, state=None, wts=None):
         mix = ctx.fluxes.mixture
-        if mix.num_active_species or mix.two_temperature:
-            raise _not_ported("the multi-species general wall", "A6")
         nhat, mag = _unit(nor)
-        Upw = self.ghost_primitive(mix, UpL)
-        Uw = mix.conservatives(Upw)
+        Uw, Upw = self._wall_state(mix, UL, UpL)
         flux = ctx.riemann(UL, Uw, nor)
         if ctx.fluxes.eq_system == "euler":
             return flux
+        if getattr(mix, "num_active_species", 0) or getattr(
+                mix, "two_temperature", False):
+            fv_wall = self._wall_visc_general(ctx, Uw, Upw, gradL, nhat, xyz,
+                                              delta)
+        else:
+            fv_wall = self._wall_visc_single(ctx, Uw, Upw, gradL, nhat)
+        fv_in = _interior_visc_dot_n(ctx.fluxes, UL, UpL, gradL, nor, xyz, delta)
+        return _sub_tail(flux, 0.5 * (fv_wall * mag[..., None] + fv_in))
+
+    def _wall_visc_single(self, ctx, Uw, Upw, grad, nhat):
+        """The one-sided wall viscous normal flux of a single-species gas."""
+        mix = ctx.fluxes.mixture
         dim = mix.dim
-        props = ctx.fluxes.transport.flux_properties(mix, Uw, Upw, gradL)
-        sn = _stress_dot_n(props, gradL, nhat, dim)
+        props = ctx.fluxes.transport.flux_properties(mix, Uw, Upw, grad)
+        sn = _stress_dot_n(props, grad, nhat, dim)
         if self.heavy == "adiabatic":
             heat = torch.zeros_like(sn[..., 0])
         else:
             # -q_h with q_h = -kappa dT/dn (the wall is no-slip: sn . u = 0)
-            heat = props["kappa"] * _dot(gradL[..., mix.i_th, :], nhat)
+            heat = props["kappa"] * _dot(grad[..., mix.i_th, :], nhat)
         parts = [torch.zeros_like(heat[..., None]), sn]
         if mix.nvel > dim:
             parts.append(torch.zeros_like(Uw[..., 1 + dim : 1 + mix.nvel]))
         parts.append(heat[..., None])
-        fv_wall = torch.cat(parts, dim=-1)
-        fv_in = _interior_visc_dot_n(ctx.fluxes, UL, UpL, gradL, nor, xyz, delta)
-        return _sub_tail(flux, 0.5 * (fv_wall * mag[..., None] + fv_in))
+        return torch.cat(parts, dim=-1)
+
+    def _wall_visc_general(self, ctx, Uw, Upw, grad, nhat, xyz, delta):
+        """The one-sided wall viscous normal flux with the prescribed
+        primitive fluxes of a mixture (reference:
+        Fluxes::ComputeBdrViscousFluxes)."""
+        mix = ctx.fluxes.mixture
+        dim, nvel, neq = mix.dim, mix.nvel, mix.num_equations
+        nsp, nact, ie = mix.num_species, mix.num_active_species, mix.i_electron
+        props = ctx.fluxes.transport.flux_properties(mix, Uw, Upw, grad)
+        visc = props["visc"]
+        sn = _stress_dot_n(props, grad, nhat, dim)
+        # the prescribed species normal diffusion velocities
+        if self.electron == "sheath":
+            Vn, q_sheath = self._sheath_flux(mix, Uw, Upw)
+        else:
+            Vn = torch.zeros(Uw.shape[:-1] + (nsp,), dtype=Uw.dtype,
+                             device=Uw.device)
+            q_sheath = torch.zeros_like(visc)
+        h_sp = mix.species_enthalpies(Uw)
+        # heavy heat slot: -k dTh/dn + sum_{sp != e} h_sp Vn_sp
+        if self.heavy == "adiabatic":
+            q_h = torch.zeros_like(visc)
+        else:
+            q_h = -props["kappa"] * _dot(grad[..., mix.i_th, :], nhat)
+            for sp in range(nsp):
+                if mix.two_temperature and sp == ie:
+                    continue
+                q_h = q_h + h_sp[..., sp] * Vn[..., sp]
+        # electron heat slot
+        if not mix.two_temperature or self.electron == "adiabatic":
+            q_e = torch.zeros_like(visc)
+        elif self.electron == "isothermal":
+            q_e = (-props["kappa_e"] * _dot(grad[..., neq - 1, :], nhat)
+                   + h_sp[..., ie] * Vn[..., ie])
+        else:  # sheath
+            q_e = q_sheath
+        # the wall state is no-slip: sn . u = 0
+        parts = [torch.zeros_like(visc[..., None]), sn]
+        if nvel > dim:
+            parts.append(torch.zeros_like(Uw[..., 1 + dim : 1 + nvel]))
+        parts.append((-q_h - q_e)[..., None])
+        parts.append(-Uw[..., nvel + 2 : nvel + 2 + nact] * Vn[..., :nact])
+        if mix.two_temperature:
+            parts.append(-q_e[..., None])
+        return torch.cat(parts, dim=-1)
 
 
 @dataclass(frozen=True)

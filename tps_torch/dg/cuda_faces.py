@@ -19,10 +19,16 @@ csrc/face_sweep.cu::face_plan).  Two modes:
 - slot (`build_face_sweep`): the package Rusanov minus the mean one-sided
   viscous normal flux, normals nor_wpf, mask interior_mask, sign -1; its
   plain version is dg/operators.py's `face_sweep_plain`.  The solver's slot
-  path runs it on every right-hand side.  Its pointwise physics is DryAir
-  (`kernel_phys`, csrc/face_sweep.cu) or the two-temperature ambipolar
-  argon plasma (`mixture_phys`, csrc/dg_mixture.cuh in
-  csrc/face_sweep_argon.cu).
+  path runs it on every right-hand side.  Its pointwise physics is a
+  policy of the kernel template, one `PHYSICS_ID` each (`face_physics`):
+  DryAir (`kernel_phys`, csrc/face_sweep.cu); the two-temperature
+  ambipolar ternary argon plasma with argon_minimal transport, 2-D or
+  3-D, and on Euler any such ternary mixture (`mixture_phys`,
+  csrc/dg_mixture.cuh in csrc/face_sweep_argon.cu); the ternary with
+  constant transport (csrc/face_sweep_argon_const.cu) and the six-species
+  argon with the per-pair collision-integral transport
+  (csrc/face_sweep_gas_mixture.cu), both `gas_mixture_phys` of
+  csrc/dg_gas_mixture.cuh.
 - prototype (`build_prototype_sweep`): Euler, the prototype's own
   Rusanov (per side |u.n| + c|n|), the uniform normals wts*nor shared by
   every element, mask 1, sign +1; its plain version is
@@ -30,8 +36,9 @@ csrc/face_sweep.cu::face_plan).  Two modes:
   `python -m tps_torch.tools.face_prototype`.
 
 The wrapper `CudaFaceSweep` launches the kernel for CUDA tensors and counts
-the launch in `launches`; for CPU tensors it runs its plain version and
-nothing else.  There is no fallback from a CUDA tensor to the plain
+the launch in `launches["face_sweep"]` and under its variant in
+`variant_launches` (`VARIANTS`); for CPU tensors it runs its plain version
+and nothing else.  There is no fallback from a CUDA tensor to the plain
 version: a missing compiler, a failed build, a configuration outside
 `face_sweep_supported` or a refused launch raises.  The kernel is built
 with K1/K2 by dg/cuda_fused.py::build_kernels, on first use.
@@ -55,23 +62,34 @@ from .cuda_fused import (SHARED_LIMIT, _al4, _Library, build_kernels,
                          support_values, tile_plan)
 from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version)
 
-# kernel launches since the last reset_launches()
+# the kernel's pointwise physics policies (csrc/face_sweep.cu's PHYSICS_*)
+PHYSICS_ID = {"dry_air": 0, "argon": 1, "argon_const": 2, "gas_mixture": 3}
+# the instantiations, each counted on its own: DryAir; the argon plasma's
+# Navier-Stokes in 2-D and 3-D and its Euler form; the constant-transport
+# ternary; the six-species collision-integral mixture
+VARIANTS = ("dry_air", "argon_2d", "argon_3d", "argon_euler", "argon_const",
+            "gas_mixture")
+# kernel launches since the last reset_launches(), and each variant's
 launches = {"face_sweep": 0}
-# the kernel's pointwise physics (csrc/face_sweep.cu's PHYSICS_*)
-PHYSICS_ID = {"dry_air": 0, "argon": 1}
+variant_launches = {v: 0 for v in VARIANTS}
+# the species of the gas_mixture instantiation (face_sweep_gas_mixture.cu)
+GAS_MIXTURE_NS = 6
+# GasMixtureTransport's pair kinds -> csrc/dg_gas_mixture.cuh's KIND_*
+PAIR_KIND = {"CLMB_ATT": 0, "CLMB_REP": 1, "AR_AR": 2, "AR_AR1P": 3,
+             "AR_E": 4}
 
 
 def reset_launches():
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, variant_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def face_sweep_supported(tab_np, ctx) -> bool:
     """Preconditions of the kernel in slot mode: neighbor-slot tables,
     2-D or 3-D, one velocity per dimension, Rusanov, planar, single
-    device, and one of its two physics: DryAir, Euler or Navier-Stokes
-    with Sutherland or constant transport; or the argon plasma in 2-D
-    (`argon_supported`)."""
+    device, and one of its physics: DryAir, Euler or Navier-Stokes with
+    Sutherland or constant transport; or a mixture of `mixture_physics`."""
     t = tab_np
     if t.nbr_row is None or t.dim not in (2, 3):
         return False
@@ -88,29 +106,61 @@ def face_sweep_supported(tab_np, ctx) -> bool:
     if mix.nvel != t.dim:
         return False
     if type(mix).__name__ == "PerfectMixture":
-        return t.dim == 2 and argon_supported(ctx)
+        return mixture_physics(ctx, t.dim) is not None
     if type(mix).__name__ != "DryAir" or mix.n_passive:
         return False
     return fl.eq_system == "euler" or kernel_transport(fl.transport)
 
 
-def argon_supported(ctx) -> bool:
-    """The argon plasma the kernel computes (csrc/dg_mixture.cuh): the
-    ternary [Ar+, e, Ar] perfect mixture, ambipolar, two temperatures,
-    Navier-Stokes with argon_minimal transport (csrc/face_sweep_argon.cu
-    builds it for 2-D only)."""
+def mixture_physics(ctx, dim):
+    """The kernel's policy for a species mixture, or None outside them:
+    each is the two-temperature ambipolar mixture, and
+      "argon": the ternary [Ar+, e, Ar] with argon_minimal transport in
+        2-D or 3-D, and on Euler any such ternary (no transport);
+      "argon_const": the ternary with ConstantPlasmaTransport, 2-D;
+      "gas_mixture": GAS_MIXTURE_NS species (the ion first, neutral
+        states, the electron, the background) with GasMixtureTransport on
+        the argon pairs, 2-D."""
     mix, fl = ctx.mixture, ctx.fluxes
-    return (fl.eq_system == "navier-stokes"
-            and type(fl.transport).__name__ == "ArgonMinimalTransport"
-            and mix.num_species == 3 and mix.ambipolar
-            and mix.two_temperature)
+    if not (mix.ambipolar and mix.two_temperature):
+        return None
+    ns = mix.num_species
+    if fl.eq_system == "euler":
+        return "argon" if ns == 3 else None
+    kind = type(fl.transport).__name__
+    if kind == "ArgonMinimalTransport" and ns == 3:
+        return "argon"
+    if kind == "ConstantPlasmaTransport" and ns == 3 and dim == 2:
+        return "argon_const"
+    if (kind == "GasMixtureTransport" and ns == GAS_MIXTURE_NS and dim == 2
+            and set(fl.transport.pair_kinds.values()) <= set(PAIR_KIND)
+            and mix.charges[0] > 0.0
+            and all(mix.charges[i] == 0.0 for i in range(1, ns - 2))):
+        return "gas_mixture"
+    return None
+
+
+def variant(ctx, dim):
+    """The instantiation (`VARIANTS`) the kernel runs for ctx."""
+    if type(ctx.mixture).__name__ != "PerfectMixture":
+        return "dry_air"
+    physics = mixture_physics(ctx, dim)
+    if physics != "argon":
+        return physics
+    if ctx.fluxes.eq_system == "euler":
+        return "argon_euler"
+    return f"argon_{dim}d"
 
 
 def mixture_phys(ctx):
     """The argon plasma's constants in the order of
     csrc/dg_mixture.cuh::MixPhys, every mass combination formed here in
-    double (a product of two per-molecule masses is below float's range)."""
+    double (a product of two per-molecule masses is below float's range).
+    On Euler (no transport) the transport's fields are argon_minimal's
+    defaults, which the kernel does not read."""
     mix, tr = ctx.mixture, ctx.fluxes.transport
+    if type(tr).__name__ != "ArgonMinimalTransport":
+        tr = gt.ArgonMinimalTransport(mixture=mix)
     R = UNIVERSAL_GAS_CONSTANT
     m = tr.masses()
     cv = [c * R for c in mix.molar_cv_over_R]
@@ -138,12 +188,58 @@ def mixture_phys(ctx):
     return [float(v) for v in vals]
 
 
-def face_physics(ctx):
+def gas_mixture_phys(ctx):
+    """The constants of csrc/dg_gas_mixture.cuh::GasPhys for ctx's mixture
+    (ConstantPlasmaTransport or GasMixtureTransport), in its order; every
+    mass combination formed here in double.  The fields of the other
+    transport are 0."""
+    mix, tr = ctx.mixture, ctx.fluxes.transport
+    ns = mix.num_species
+    R = UNIVERSAL_GAS_CONSTANT
+    m = np.asarray(mix.mw) / AVOGADRO_NUMBER
+    cv = [c * R for c in mix.molar_cv_over_R]
+    vf, koe, dfac = (gt.VISCOSITY_FACTOR, gt.K_OVER_ETA_FACTOR,
+                     gt.DIFFUSIVITY_FACTOR)
+    if type(tr).__name__ == "ConstantPlasmaTransport":
+        ctr = [tr.visc, tr.bulk_visc, tr.kappa, tr.kappa_e, *tr.diffusivity]
+        kinds = [0.0] * (ns * ns)
+        mults = [1.0] * 5 + [0.0]
+    else:
+        ctr = [0.0] * (4 + ns)
+        kinds = [float(PAIR_KIND[tr.pair_kinds[(min(i, j), max(i, j))]])
+                 for i in range(ns) for j in range(ns)]
+        mults = [tr.visc_mult, tr.kappa_mult, tr.kappa_e_mult, tr.diff_mult,
+                 tr.mobil_mult,
+                 float(tr.third_order_electron_thermal_conductivity)]
+    ie = mix.i_electron
+    pair = [0.0 if i == j else dfac / np.sqrt(m[i] * m[j] / (m[i] + m[j]))
+            for i in range(ns) for j in range(ns)]
+    fits = [ci.SCREENED[f"{kind}{l}{r}"][k]
+            for kind in ("att", "rep")
+            for l, r in ((1, 1), (1, 2), (1, 3), (1, 4), (1, 5), (2, 2),
+                         (2, 3), (2, 4))
+            for k in range(4)]
+    vals = [float(ns), *mix.mw, *mix.charges, *cv, *[c + R for c in cv],
+            *mix.formation_energy, R, pm._TINY, gt._XEPS, *ctr,
+            gt._DEBYE_FACTOR / AVOGADRO_NUMBER, 4.0 * PI * gt._DEBYE_FACTOR,
+            PI, *[vf * np.sqrt(mi) for mi in m], *[koe / mi for mi in m],
+            vf * koe * np.sqrt(2.0 / m[ie]), vf * koe * np.sqrt(1.0 / m[ie]),
+            *pair, gt._QE_OVER_KB, *mults, *kinds, *fits,
+            *ci.POWER_FITS["ArAr11"], *ci.POWER_FITS["ArAr22"],
+            *ci.POWER_FITS["ArAr1P11"], *ci.EAR_COEFFS.reshape(-1)]
+    return [float(v) for v in vals]
+
+
+def face_physics(ctx, dim):
     """(physics, packed constants) of the kernel for ctx: "dry_air"
-    (cuda_fused.kernel_phys) or "argon" (`mixture_phys`)."""
-    if type(ctx.mixture).__name__ == "PerfectMixture":
-        return "argon", mixture_phys(ctx)
-    return "dry_air", kernel_phys(ctx)
+    (cuda_fused.kernel_phys), "argon" (`mixture_phys`), "argon_const" or
+    "gas_mixture" (`gas_mixture_phys`)."""
+    if type(ctx.mixture).__name__ != "PerfectMixture":
+        return "dry_air", kernel_phys(ctx)
+    physics = mixture_physics(ctx, dim)
+    if physics == "argon":
+        return physics, mixture_phys(ctx)
+    return physics, gas_mixture_phys(ctx)
 
 
 def plan(ndof, nqf, nlf, k, neq, dtype):
@@ -259,8 +355,10 @@ class CudaFaceSweep:
     nor_lf: int
     nor_e: int
     sign: float
-    physics: str  # "dry_air" or "argon" (`face_physics`)
-    phys: object  # ctypes doubles: kernel_phys or mixture_phys
+    physics: str  # a PHYSICS_ID key (`face_physics`)
+    phys: object  # ctypes doubles: kernel_phys, mixture_phys or
+    # gas_mixture_phys
+    variant: str = "dry_air"  # its instantiation (`VARIANTS`)
 
     @property
     def k(self):
@@ -295,6 +393,7 @@ class CudaFaceSweep:
         if err:
             raise RuntimeError(f"face_sweep launch failed: CUDA error {err}")
         launches["face_sweep"] += 1
+        variant_launches[self.variant] += 1
         return Y
 
 
@@ -334,7 +433,8 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         _check_cuda(tab, viscous, dtype, device, neq)
     # outside the preconditions (the CPU only) the plain version runs and
     # the kernel's constants are not needed
-    physics, phys = face_physics(ctx) if supported else ("none", [])
+    physics, phys = (face_physics(ctx, tab.dim) if supported
+                     else ("none", []))
     nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
     cface, cperm = _combo_tensors(tab.Btr_or.cpu().numpy(), nlf, nqf, device)
     return CudaFaceSweep(
@@ -347,6 +447,7 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         neq=neq, viscous=viscous, prototype=False,
         nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0, physics=physics,
         phys=(ctypes.c_double * len(phys))(*phys),
+        variant=variant(ctx, dim) if supported else "none",
     )
 
 

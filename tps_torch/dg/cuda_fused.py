@@ -54,6 +54,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -138,12 +139,28 @@ def build_kernels():
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             srcs = _csrc_files(".cu")
             objs = [os.path.join(tmp, os.path.basename(s) + ".o") for s in srcs]
-            procs = [subprocess.Popen([nvcc, *COMPILE_FLAGS, "-o", o, s],
-                                      stdout=subprocess.PIPE,
-                                      stderr=subprocess.STDOUT, text=True)
-                     for s, o in zip(srcs, objs)]
-            _Library.build_log = "".join(p.communicate()[0] for p in procs)
-            if any(p.returncode for p in procs):
+            logs = [o + ".log" for o in objs]
+            t0 = time.perf_counter()
+            procs = []
+            for src, o, lg in zip(srcs, objs, logs):
+                with open(lg, "w") as out:
+                    procs.append(subprocess.Popen(
+                        [nvcc, *COMPILE_FLAGS, "-o", o, src], stdout=out,
+                        stderr=subprocess.STDOUT))
+            # each source's compile time, polled (they run side by side)
+            secs = [None] * len(procs)
+            while any(s is None for s in secs):
+                for i, proc in enumerate(procs):
+                    if secs[i] is None and proc.poll() is not None:
+                        secs[i] = time.perf_counter() - t0
+                time.sleep(0.05)
+            parts = []
+            for src, lg, sec in zip(srcs, logs, secs):
+                with open(lg) as fh:
+                    parts.append(f"{os.path.basename(src)}: compiled in "
+                                 f"{sec:.1f} s\n" + fh.read())
+            _Library.build_log = "".join(parts)
+            if any(proc.returncode for proc in procs):
                 raise RuntimeError(f"nvcc failed:\n{_Library.build_log}")
             lib_tmp = os.path.join(tmp, "lib.so")
             res = subprocess.run([nvcc, *LINK_FLAGS, "-o", lib_tmp, *objs],

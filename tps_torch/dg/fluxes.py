@@ -40,10 +40,10 @@ class Fluxes:
         if self.eq_system not in ("euler", "navier-stokes"):
             raise NotImplementedError(
                 f"equation system '{self.eq_system}' is not ported yet "
-                "(ROADMAP A6.2)")
+                "(ROADMAP A5.4)")
         if getattr(self.mixture, "n_passive", 0):
             raise NotImplementedError(
-                "passive scalars are not ported yet (ROADMAP A6.2)")
+                "passive scalars are not ported yet (ROADMAP A5.4)")
 
     @property
     def dim(self):

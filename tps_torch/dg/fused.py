@@ -37,7 +37,9 @@ def fusable(tab_np, ctx) -> bool:
     """Preconditions for the fused path (see module docstring).
 
     The JAX package's fused path also takes pointwise forcings (chemistry
-    SourceTerm, JouleHeating); none is ported yet (ROADMAP A6)."""
+    SourceTerm, JouleHeating).  Both are ported on the slot path
+    (dg/rhs.py), and this path still turns every forcing down: a deck with
+    one runs the slot path."""
     t = tab_np
     if t.roll_info is None or t.nfb or ctx.bcs or ctx.forcings:
         return False

@@ -16,8 +16,9 @@ PyTorch, as the JAX package leaves them to XLA.
 The characteristic BCs' ghost states (init_bc_states, advance_bc_states)
 are the JAX package's; the solver holds them in its step loop's buffers.
 Pointwise forcings are added to dU/dt after the inverse mass, as the JAX
-package adds them; this port carries one, the plasma source term
-(dg/source_term.py).  Not ported here: the other forcings (ROADMAP A5),
+package adds them; this port carries two, the plasma source term
+(dg/source_term.py) and the Joule heating (dg/forcing.py).  Not ported
+here: the other forcings (ROADMAP A5.4),
 the sharded RHS and the legacy point-permutation branch (A8) and boundary
 states in the gradient (useBCinGrad, A5).
 """
@@ -32,6 +33,7 @@ import torch
 from .cuda_faces import build_face_sweep
 from .operators import _clip_species, _not_ported, _scatter_kron, _trace_kron
 from .operators import apply_minv2, dg_gradient, volume_weak_div
+from .forcing import JouleHeating
 from .source_term import SourceTerm
 
 
@@ -179,8 +181,10 @@ def compute_rhs(ctx: RHSContext, tab, U, t=0.0, fields=None, bc_states=None,
     preconditions."""
     if ctx.axis_name is not None:
         raise _not_ported("the sharded right-hand side", "A8")
-    if any(not isinstance(f, SourceTerm) for f in ctx.forcings):
-        raise _not_ported("forcings other than the plasma source term", "A5")
+    if any(not isinstance(f, (SourceTerm, JouleHeating))
+           for f in ctx.forcings):
+        raise _not_ported("forcings other than the plasma source term and "
+                          "the Joule heating", "A5.4")
     if tab.nbr_row is None:
         raise _not_ported("the legacy (sharded-table) face sweep", "A8")
     mix = ctx.mixture

@@ -8,14 +8,17 @@ electron-pressure work, elastic electron-heavy energy exchange).  A
 forcing `(t, tab, U, Up, grad_up, fields) -> dU/dt [..., neq]` that
 dg/rhs.py adds after the DG part.
 
+With a radiation model (physics/radiation.py::NetEmission) the energy
+equation also takes its sink; `efield` (a tensor [..., nvel], or None)
+adds the charged species' drift in an external field to the diffusion
+velocities.  `plasma_conductivity` is the sigma field the Joule coupling
+reads (solvers/compressible.py::evaluate_plasma_conductivity).
+
 Every loop runs over Python constants (species, reactions) and every
 constant tensor is made once (physics/perfect_mixture.py::const), so the
 step that calls it stays capturable as a CUDA graph: no host sync, no copy
-from the host.
-
-Not here: the radiation sink (NetEmission, ROADMAP A6.3), the external
-electric field and injected rates (the EM and Boltzmann coupling, ROADMAP
-A10/A11) and the plasma conductivity field they read.
+from the host.  Not here: the rates injected by the Boltzmann coupling
+(ROADMAP A11.3).
 """
 
 from __future__ import annotations
@@ -32,6 +35,8 @@ class SourceTerm:
     mixture: object
     transport: object  # needs .source_properties
     chemistry: object | None = None
+    radiation: object | None = None
+    efield: object | None = None  # [..., nvel] external electric field
 
     def __call__(self, t, tab, U, Up, grad_up, fields=None):
         mix = self.mixture
@@ -49,7 +54,9 @@ class SourceTerm:
                               X[..., hi:]], dim=-1)
 
         Uc, Upc = clip(U), clip(Up)
-        props = self.transport.source_properties(Uc, Upc, grad_up)
+        efield = (fields or {}).get("efield", self.efield)
+        props = self.transport.source_properties(Uc, Upc, grad_up,
+                                                 efield=efield)
         n_sp = props["n_sp"]
         Th = Upc[..., mix.i_th]
         Te = Upc[..., mix.i_te] if mix.two_temperature else Th
@@ -96,6 +103,17 @@ class SourceTerm:
                 e_src = e_src + (-energy)
 
         cols = [zero] * (nvel + 2) + creation
+        if self.radiation is not None:
+            cols[mix.i_th] = self.radiation.energy_sink(Th)
         if mix.two_temperature:
             cols.append(e_src)
         return torch.stack(cols, dim=-1)
+
+    def plasma_conductivity(self, U, Up, grad_up=None):
+        """The sigma field [...] the EM coupling reads (reference:
+        plasma_conductivity_ in SourceTerm::updateTerms)."""
+        mix = self.mixture
+        if grad_up is None:
+            grad_up = torch.zeros(U.shape[:-1] + (mix.num_equations, mix.dim),
+                                  dtype=U.dtype, device=U.device)
+        return self.transport.source_properties(U, Up, grad_up)["sigma"]

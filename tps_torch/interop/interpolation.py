@@ -59,11 +59,12 @@ class FieldInterpolator:
     elem_ids: np.ndarray  # [np] containing element (source mesh)
     weights: np.ndarray  # [np, ndof_el] basis values at the point
     found: np.ndarray  # [np] bool
+    src_tab: object = None  # __call__'s source: an H1 table, None: DG
     _dev: dict = field(default_factory=dict, repr=False)
 
     @classmethod
     def build(cls, src_mesh: Mesh, src_order: int, src_basis: str,
-              points: np.ndarray, tol=1e-8, chunk=2048):
+              points: np.ndarray, tol=1e-8, chunk=2048, src_tab=None):
         ref = ReferenceElement(geom=src_mesh.geom, order=src_order,
                                basis=src_basis)
         pts = np.atleast_2d(np.asarray(points, dtype=np.float64))
@@ -92,7 +93,8 @@ class FieldInterpolator:
         weights = np.zeros((npt, ref.ndof))
         if found.any():
             weights[found] = ref.eval_basis(np.clip(ref_coords[found], 0, 1))
-        return cls(elem_ids=elem_ids, weights=weights, found=found)
+        return cls(elem_ids=elem_ids, weights=weights, found=found,
+                   src_tab=src_tab)
 
     # -- run time ----------------------------------------------------------
     def _tensors(self, dtype, device, tab=None):
@@ -121,6 +123,13 @@ class FieldInterpolator:
         rows, w = self._tensors(U_el.dtype, U_el.device)
         vals = U_el.index_select(0, rows)  # [np, ndof_el(, k)]
         return torch.einsum("pd,pd...->p...", w, vals)
+
+    def __call__(self, u):
+        """A source field in the layout build() was given (H1 global with
+        src_tab, else DG) -> values at the points."""
+        if self.src_tab is None:
+            return self.from_dg(u)
+        return self.from_h1(self.src_tab, u)
 
     def from_h1(self, tab, u):
         """Source field in H1 global layout [ndofs(, k)] -> values at the

@@ -10,10 +10,9 @@ in mass units.  The (static, small) reaction list is unrolled in Python
 over constants, so a step that runs it stays capturable as a CUDA graph.
 
 TabulatedRate reads a 1-D table in temperature (physics/tables.py); the
-low-Mach reacting thermo takes it, the compressible mixture does not yet
-(solvers/compressible.py raises, ROADMAP A6.3).  Not here: radiative decay
-(ROADMAP A6.3) and the externally injected `bte` rates for the Boltzmann
-coupling (ROADMAP A11); physics/plasma_config.py raises for each.
+escape-factor radiative decay is physics/radiative_decay.py.  Not here:
+the externally injected `bte` rates of the Boltzmann coupling (ROADMAP
+A11.3); physics/plasma_config.py raises for them.
 """
 
 from __future__ import annotations

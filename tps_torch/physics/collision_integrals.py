@@ -11,7 +11,7 @@ with the same published fits (reference: src/collision_integrals.cpp:
     & Glass (1978), Devoto (1973).
   * e-Ar integrals from a shifted-MERT model fit over the BSR LXCat dataset.
   * the nitrogen system's log-polynomial fits (used by the general
-    mixture transport, ROADMAP A6.3).
+    mixture transport, gas_transport.py::GasMixtureTransport).
 
 csrc/dg_pointwise.cuh evaluates the argon fits on the card with the same
 coefficients (dg/cuda_faces.py packs them).

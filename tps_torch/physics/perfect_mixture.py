@@ -14,11 +14,11 @@ State layout:
   U  = [rho, rho*u (nvel), rho*E, rho_s = MW_s n_s (active), rho*e_e (2T)]
   Up = [rho, u (nvel), T_h, n_s (active number densities), T_e (2T)]
 
-Not here: the BC helpers (pressure_derivative,
-conserved_from_convective_flux, stagnant_state_with_temp,
-modify_energy_for_pressure) wait for the mixture BCs (ROADMAP A6.2) and
-raise; the LTE initialisation (saha_ionization_fraction, species_from_lte,
-state_from_lte) is ROADMAP A6.4.
+The BC helpers (pressure_derivative, conserved_from_convective_flux,
+stagnant_state_with_temp, modify_energy_for_pressure, sound_speed_from_T)
+serve dg/bc.py's walls, inlets and outlets on a mixture.  Not here: the
+LTE initialisation (saha_ionization_fraction, species_from_lte,
+state_from_lte), ROADMAP A6.4.
 """
 
 from __future__ import annotations
@@ -32,11 +32,6 @@ from ..constants import UNIVERSAL_GAS_CONSTANT
 
 _R = UNIVERSAL_GAS_CONSTANT
 _TINY = 1.0e-30
-
-
-def _not_ported(what, item):
-    return NotImplementedError(f"{what} is not ported to tps_torch yet "
-                               f"(ROADMAP {item})")
 
 
 @dataclass(frozen=True, eq=False)
@@ -330,18 +325,142 @@ class PerfectMixture:
         return ((mw[:, None] * gn_all) / r
                 - ((mw * n_sp)[..., None] / r**2) * grho[..., None, :])
 
-    # -- BC helpers: the mixture BCs are ROADMAP A6.2 ------------------------
+    # -- BC helpers (tps_tpu/physics/perfect_mixture.py:284-530) ---------
+    def sound_speed_from_T(self, T):
+        """The background gas's sound speed at T (the characteristic BCs'
+        patch-mean c)."""
+        return torch.sqrt(self.specific_heat_ratio * self.gas_constant * T)
+
     def pressure_derivative(self, dUp_dn, U):
-        raise _not_ported("the mixture's pressure derivative (mixture BCs)",
-                          "A6.2")
+        """Directional dp/dn from primitive derivatives along a direction
+        (reference: PerfectMixture::ComputePressureDerivative): p = R (n_h
+        Th + n_e Te), the electron and background density derivatives by
+        quasineutrality and mass."""
+        nvel, na = self.nvel, self.num_active_species
+        mw = self._arr(self.mw, U)
+        n_sp = self.number_densities(U)
+        Th, Te = self.temperatures(U, n_sp)
+        gn_active = dUp_dn[..., nvel + 2 : nvel + 2 + na]
+        if self.ambipolar:
+            z = self._arr(self.charges, U)[:na]
+            ne_grad = torch.einsum("...s,s->...", gn_active, z)
+        else:
+            ne_grad = gn_active[..., self.i_electron]
+        nB_grad = dUp_dn[..., 0] - torch.einsum("...s,s->...", gn_active,
+                                                mw[:na])
+        if self.ambipolar:
+            nB_grad = nB_grad - mw[self.i_electron] * ne_grad
+        nB_grad = nB_grad / mw[self.i_background]
+        # heavies: every species but the electron
+        nh_grad = torch.sum(gn_active, dim=-1) + nB_grad
+        if not self.ambipolar:
+            nh_grad = nh_grad - ne_grad
+        n_h = torch.einsum("...s,s->...", n_sp, self._heavy_mask(U))
+        ne = n_sp[..., self.i_electron]
+        dTh = dUp_dn[..., self.i_th]
+        if self.two_temperature:
+            dp = (nh_grad * Th + n_h * dTh + ne_grad * Te
+                  + ne * dUp_dn[..., self.i_te])
+        else:
+            dp = (nh_grad + ne_grad) * Th + (n_h + ne) * dTh
+        return _R * dp
 
     def conserved_from_convective_flux(self, mean_flux, normal):
-        raise _not_ported("the mixture's mixed-out state (mixture BCs)",
-                          "A6.2")
+        """Mixed-out conserved state [neq] whose convective normal flux is
+        `mean_flux` [neq] along the unit `normal` (reference:
+        PerfectMixture::computeConservedStateFromConvectiveFlux,
+        src/equation_of_state.cpp:1744-1824): the species number-density
+        fluxes, the pressure from its quadratic, then the primitives."""
+        nvel, na, nsp = self.nvel, self.num_active_species, self.num_species
+        mw = self._arr(self.mw, mean_flux)
+        hf = self._arr(self.formation_energy, mean_flux)
+        cp = self.molar_cp(mean_flux)
+        ie, ib = self.i_electron, self.i_background
+        mdot = mean_flux[0]
+        n_flux = mean_flux[nvel + 2 : nvel + 2 + na] / mw[:na]
+        form_flux = torch.sum(n_flux * hf[:na])
+        nB_flux = mdot - torch.sum(mean_flux[nvel + 2 : nvel + 2 + na])
+        if self.ambipolar:
+            ne_flux = torch.sum(n_flux * self._arr(self.charges,
+                                                   mean_flux)[:na])
+            form_flux = form_flux + ne_flux * hf[ie]
+            nB_flux = nB_flux - ne_flux * mw[ie]
+        else:
+            ne_flux = n_flux[ie]
+        nB_flux = nB_flux / mw[ib]
+        form_flux = form_flux + nB_flux * hf[ib]
+        Te = None
+        if self.two_temperature:
+            Te = mean_flux[self.i_te] / cp[ie] / ne_flux
+        # the heavies' molar heat capacity from the fluxes (the electron's
+        # only with one temperature)
+        k = nsp - 2
+        n_mix = torch.sum(n_flux[:k]) + nB_flux
+        cp_mix = torch.sum(n_flux[:k] * cp[:k]) + nB_flux * cp[ib]
+        if not self.two_temperature:
+            n_mix = n_mix + ne_flux
+            cp_mix = cp_mix + ne_flux * cp[ie]
+        cp_mix = cp_mix / n_mix
+        mom_n = torch.sum(mean_flux[1 : 1 + self.dim] * normal[: self.dim])
+        A = 1.0 - 2.0 * cp_mix / _R
+        B = 2.0 * mom_n * (cp_mix / _R - 1.0)
+        C = -2.0 * mdot * mean_flux[self.i_th] + torch.sum(
+            mean_flux[1 : 1 + nvel] ** 2)
+        if self.two_temperature:
+            C = C + 2.0 * mdot * ne_flux * (cp[ie] - cp_mix) * Te
+        C = C + 2.0 * mdot * form_flux
+        p = (-B - torch.sqrt(B * B - 4.0 * A * C)) / (2.0 * A)
+        Th = (mom_n - p) / mdot * p / _R
+        if self.two_temperature:
+            Th = Th - ne_flux * Te
+        Th = Th / n_mix
+        rho = mdot * mdot / (mom_n - p)
+        n_full = torch.cat([normal[: self.dim],
+                            torch.zeros(nvel - self.dim, dtype=mean_flux.dtype,
+                                        device=mean_flux.device)])
+        vel = (mean_flux[1 : 1 + nvel] - p * n_full) / mdot
+        parts = [rho[None], vel, Th[None], n_flux * mdot / (mom_n - p)]
+        if self.two_temperature:
+            parts.append(Te[None])
+        return self.conservatives(torch.cat(parts))
 
     def stagnant_state_with_temp(self, U, T_wall):
-        raise _not_ported("the mixture's wall state (mixture BCs)", "A6.2")
+        """Zero-velocity state at the wall temperature, Th = Te = T_wall
+        (computeStagnantStateWithTemp)."""
+        n_sp = self.number_densities(U)
+        ne = n_sp[..., self.i_electron]
+        Ue = ne * self.molar_cv_over_R[self.i_electron] * _R * T_wall
+        e_tot = self._heavies_cv(n_sp) * T_wall + Ue + self._formation(n_sp)
+        parts = [U[..., :1], torch.zeros_like(U[..., 1 : 1 + self.nvel]),
+                 e_tot[..., None], U[..., self.i_th + 1 :]]
+        out = torch.cat(parts, dim=-1)
+        if self.two_temperature:
+            out = torch.cat([out[..., : self.i_te], Ue[..., None]], dim=-1)
+        return out
 
     def modify_energy_for_pressure(self, U, p, modify_electron_energy=False):
-        raise _not_ported("the mixture's pressure-set energy (mixture BCs)",
-                          "A6.2")
+        """U with the energies set so that its pressure is p
+        (modifyEnergyForPressure); p a number or a tensor."""
+        n_sp = self.number_densities(U)
+        ne = n_sp[..., self.i_electron]
+        cv_e = self.molar_cv_over_R[self.i_electron] * _R
+        if self.two_temperature and not modify_electron_energy:
+            Te = U[..., self.i_te] / (ne + _TINY) / cv_e
+            pe = ne * _R * Te
+            n_for_T = torch.sum(n_sp, dim=-1) - ne
+        else:
+            pe = torch.zeros_like(ne)
+            n_for_T = torch.sum(n_sp, dim=-1)
+        Th = (p - pe) / (n_for_T * _R)
+        if self.two_temperature and not modify_electron_energy:
+            Ue = U[..., self.i_te]
+        else:
+            Ue = ne * cv_e * Th
+        rE = (self._heavies_cv(n_sp) * Th + Ue
+              + 0.5 * torch.sum(U[..., 1 : 1 + self.nvel] ** 2, dim=-1)
+              / U[..., 0] + self._formation(n_sp))
+        out = torch.cat([U[..., : self.i_th], rE[..., None],
+                         U[..., self.i_th + 1 :]], dim=-1)
+        if self.two_temperature:
+            out = torch.cat([out[..., : self.i_te], Ue[..., None]], dim=-1)
+        return out

@@ -10,16 +10,20 @@ reordered to [others..., electron, background].  Its species and reaction
 readers (`read_species`, `parse_reactions`) also serve the reacting
 low-Mach thermo's simple tier, which keeps the input order.
 
+Transport: argon_minimal, the general per-pair model (`argon_mixture`,
+GasMixtureTransport, its collision types taken from each species'
+composition, so the lumped excited states use ground-state argon's data),
+and `constant` (ConstantPlasmaTransport with per-species diffusivities, or
+physics/transport.py::ConstantTransport without).  Reactions: Arrhenius,
+Hoffert-Lien, tabulated and escape-factor radiative decay
+(physics/radiative_decay.py).
+
 `read_table_input` reads a table from an HDF5 file (through io/h5lite.py)
-or from inline x/f lists: the low-Mach LTE thermo's net-emission table, a
-`tabulated` reaction rate, the reacting thermo's net emission.  With
-`loMach/reactingFlow/ramp-chem`, `[reactions_base/reactionN]` gives the
-baseline chemistry the reacting thermo blends from (`chemistry_base`).
-The compressible mixture takes neither tabulated rates nor net emission
-yet (solvers/compressible.py raises, ROADMAP A6.3).  Not here, each
-raising with its ROADMAP item: radiative decay (A6.3), the general
-per-pair transport (`argon_mixture`, A6.3), constant transport with
-species (A6.2) and the externally injected `bte` rates (A11).
+or from inline x/f lists: the LTE thermo's and the mixture's net-emission
+table, a `tabulated` reaction rate.  With `loMach/reactingFlow/ramp-chem`,
+`[reactions_base/reactionN]` gives the baseline chemistry the reacting
+thermo blends from (`chemistry_base`).  Not here: the externally injected
+`bte` rates of the Boltzmann coupling (ROADMAP A11.3), which raise.
 """
 
 from __future__ import annotations
@@ -31,10 +35,13 @@ import numpy as np
 
 from ..io import h5lite
 from .chemistry import Arrhenius, Chemistry, HoffertLien, TabulatedRate
-from .gas_transport import ArgonMinimalTransport
+from .gas_transport import (ArgonMinimalTransport, ConstantPlasmaTransport,
+                            GasMixtureTransport)
 from .perfect_mixture import PerfectMixture
 from .radiation import NetEmission
+from .radiative_decay import RadiativeDecay
 from .tables import LinearTable
+from .transport import ConstantTransport
 
 
 def _not_ported(what, item):
@@ -79,11 +86,12 @@ def read_table_input(inp, prefix: str):
     )
 
 
-def read_species(inp, default_cv: float):
+def read_species(inp, default_cv: float, compositions=None):
     """[atoms] and [species] in input order: the names, molar masses,
     charges, heats of formation, molar cv / R (`default_cv` where a
     species gives none), initial mass fractions and level degeneracies,
-    one list each."""
+    one list each; each species' composition appended to `compositions`
+    where given."""
     atoms = {}
     for a in range(1, inp.get("atoms/numAtoms", 0) + 1):
         atoms[inp.get_required(f"atoms/atom{a}/name")] = inp.get_required(
@@ -94,6 +102,8 @@ def read_species(inp, default_cv: float):
         base = f"species/species{s}"
         name = inp.get_required(f"{base}/name")
         comp = _parse_composition(inp.get(f"{base}/composition", "{}"))
+        if compositions is not None:
+            compositions.append(comp)
         names.append(name)
         mws.append(sum(atoms[a] * c for a, c in comp.items()))
         charges.append(-comp.get("E", 0.0) if name != "E" else -1.0)
@@ -105,7 +115,10 @@ def read_species(inp, default_cv: float):
     return names, mws, charges, hf, cv, imf, degen
 
 
-def _rate_model(inp, base):
+def _rate_model(inp, base, decay_states=None):
+    """The rate model of [base]; decay_states: (upper name, lower name,
+    upper index, lower index) of a radiative decay, in the mixture's
+    order."""
     model = inp.get(f"{base}/model", "arrhenius")
     if model in ("arrhenius", "hoffert_lien"):
         rate = Arrhenius if model == "arrhenius" else HoffertLien
@@ -115,17 +128,23 @@ def _rate_model(inp, base):
     if model == "tabulated":
         return TabulatedRate(read_table_input(inp, f"{base}/tabulated"))
     if model == "radiative_decay":
-        raise _not_ported("the radiative-decay reaction model", "A6.3")
+        # (reference: src/reactingFlow.cpp:562-566)
+        upper, lower, iu, il = decay_states
+        return RadiativeDecay(upper=upper, lower=lower, i_upper=iu,
+                              i_lower=il, radius=inp.get_required(
+                                  f"{base}/radius", float))
     if model == "bte":
-        raise _not_ported("externally injected (bte) reaction rates", "A11")
+        raise _not_ported("externally injected (bte) reaction rates "
+                          "(the Boltzmann coupling)", "A11.3")
     raise NotImplementedError(f"reaction model '{model}'")
 
 
 def parse_reactions(inp, nsp: int, mixture, to_mixture=None,
-                    baseline=False):
+                    baseline=False, species_names=None):
     """The Chemistry of [reactions] over `mixture`, or None without
     reactions.  `to_mixture` maps input species to the mixture's order
-    (identity if None).  With `baseline`, ramp-chem's baseline chemistry:
+    (identity if None); `species_names` in the mixture's order name a
+    radiative decay's states.  With `baseline`, ramp-chem's baseline chemistry:
     the same reactions, stoichiometry and equilibria, the rate models (and
     the energies, where given) from [reactions_base/reactionN] (reference:
     src/reactingFlow.cpp:658-682)."""
@@ -144,12 +163,17 @@ def parse_reactions(inp, nsp: int, mixture, to_mixture=None,
         p_stoich[r - 1, to_mixture] = inp.get_vec(
             f"{base}/product_stoichiometry", nsp)
         energy = inp.get(f"{base}/reaction_energy", 0.0)
+        decay = None
+        if species_names is not None:
+            iu = int(np.argmax(r_stoich[r - 1]))
+            il = int(np.argmax(p_stoich[r - 1]))
+            decay = (species_names[iu], species_names[il], iu, il)
         if baseline:
             base_b = f"reactions_base/reaction{r}"
-            models.append(_rate_model(inp, base_b))
+            models.append(_rate_model(inp, base_b, decay))
             energies.append(inp.get(f"{base_b}/reaction_energy", energy))
         else:
-            models.append(_rate_model(inp, base))
+            models.append(_rate_model(inp, base, decay))
             energies.append(energy)
         db = bool(inp.get(f"{base}/detailed_balance", 0))
         balances.append(db)
@@ -169,7 +193,8 @@ def parse_reactions(inp, nsp: int, mixture, to_mixture=None,
 
 
 def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
-    names, mws, charges, hf, cv, imf, degen = read_species(inp, 1.5)
+    comps = []
+    names, mws, charges, hf, cv, imf, degen = read_species(inp, 1.5, comps)
     nsp = len(names)
     bg_input = inp.get_required("species/background_index", int)  # 1-based
 
@@ -211,20 +236,51 @@ def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
             third_order_electron_thermal_conductivity=third_order,
         )
     elif tmodel in ("argon_mixture", "gas_mixture", "mixture"):
-        raise _not_ported(f"the '{tmodel}' transport model "
-                          "(GasMixtureTransport)", "A6.3")
+        # the collision types follow each species' composition, so lumped
+        # excited states (Ar_m, Ar_r, Ar_p) take ground-state argon's data
+        # (reference: identifySpeciesType, src/M2ulPhyS.cpp:3860-3923)
+        def canonical(i):
+            heavy = [a for a in comps[i] if a != "E"]
+            if not heavy:
+                return "E"
+            return f"{heavy[0]}.+1" if charges[i] > 0 else heavy[0]
+
+        transport = GasMixtureTransport(
+            mixture=mixture,
+            species_names=tuple(canonical(i) for i in order),
+            third_order_electron_thermal_conductivity=third_order)
     elif tmodel == "constant":
-        raise _not_ported("constant transport of a species mixture "
-                          "(ConstantPlasmaTransport)", "A6.2")
+        pre = "plasma_models/transport_model/constant"
+        common = dict(visc=inp.get(f"{pre}/viscosity", 0.0),
+                      bulk_visc=inp.get(f"{pre}/bulk_viscosity", 0.0),
+                      kappa=inp.get(f"{pre}/thermal_conductivity", 0.0),
+                      kappa_e=inp.get(
+                          f"{pre}/electron_thermal_conductivity", 0.0))
+        if inp.has(f"{pre}/diffusivity/species1"):
+            # per-species diffusivities and momentum-transfer frequencies
+            # in input order, reordered to the mixture's (reference:
+            # ConstantTransport, transport_properties.cpp:303-332)
+            diff_in = [inp.get(f"{pre}/diffusivity/species{s + 1}", 0.0)
+                       for s in range(nsp)]
+            mtf_in = [inp.get(f"{pre}/momentum_transfer_frequency/"
+                              f"species{s + 1}", 0.0) for s in range(nsp)]
+            transport = ConstantPlasmaTransport(
+                mixture=mixture, diffusivity=tuple(diff_in[i] for i in order),
+                mt_freq=tuple(mtf_in[i] for i in order), **common)
+        else:
+            transport = ConstantTransport(**common)
     else:
         raise NotImplementedError(f"transport model '{tmodel}'")
 
     # ---- reactions (and ramp-chem's baseline) ----
-    chemistry = parse_reactions(inp, nsp, mixture, input_to_mixture)
+    names_mix = [names[i] for i in order]
+    chemistry = parse_reactions(inp, nsp, mixture, input_to_mixture,
+                                species_names=names_mix)
     chemistry_base = None
     if chemistry is not None and inp.get("loMach/reactingFlow/ramp-chem", 0):
         chemistry_base = parse_reactions(inp, nsp, mixture, input_to_mixture,
-                                         baseline=True)
+                                         baseline=True,
+                                         species_names=names_mix)
 
     # ---- radiation ----
     radiation = None
@@ -240,7 +296,7 @@ def build_plasma(inp, dim: int, nvel: int) -> PlasmaSetup:
         transport=transport,
         chemistry=chemistry,
         radiation=radiation,
-        species_names=[names[i] for i in order],
+        species_names=names_mix,
         input_to_mixture=input_to_mixture,
         initial_mass_fractions=np.array([imf[i] for i in order]),
         chemistry_base=chemistry_base,

@@ -3,11 +3,14 @@
 This slice carries single-device runs on generated boxes and O-grids
 (mesh generators) and on MFEM / Gmsh mesh files (mesh/mfem_reader.py,
 with uniform refinement, [periodicity] and refLength scaling), DryAir with
-Sutherland or constant transport, the two-temperature argon plasma
-(`fluid = user_defined`: physics/plasma_config.py's perfect mixture with
-argon_minimal transport and mass-action chemistry, its source term
-dg/source_term.py a forcing of the RHS, the species undershoot clip
-inside the step), Rusanov, explicit RK, and two right-hand sides:
+Sutherland or constant transport, the species mixture (`fluid =
+user_defined`: physics/plasma_config.py's perfect mixture, 2-D or 3-D,
+Euler or Navier-Stokes, with argon_minimal, general per-pair or constant
+transport; mass-action chemistry with Arrhenius, tabulated and
+radiative-decay rates, net emission; its source term dg/source_term.py
+and the Joule heating dg/forcing.py forcings of the RHS; the mixture's
+walls, inlets and outlets; the species undershoot clip inside the step),
+Rusanov, explicit RK, and two right-hand sides:
 
 - the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
   CUDA device the two hand-written kernels of dg/cuda_fused.py, on the
@@ -20,7 +23,10 @@ inside the step), Rusanov, explicit RK, and two right-hand sides:
   the CPU.
 
 Every input key outside the slice raises NotImplementedError naming the
-ROADMAP item that ports it.
+ROADMAP item that ports it.  The coupling side (evaluate_plasma_
+conductivity, set_joule_heating, set_efield) serves
+solvers/coupling.py::CycleAvgJouleCoupling: each setter copies into a
+device tensor the captured step reads.
 
 Mirrors the reference solver's structure (reference: src/M2ulPhyS.cpp):
 CFL timestep control uses dt = CFL * hmin / max_char_speed / dim
@@ -55,6 +61,7 @@ from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
 from ..dg.fluxes import Fluxes
+from ..dg.forcing import JouleHeating
 from ..dg.fused import maybe_build_fused
 from ..dg.operators import _clip_species
 from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
@@ -175,7 +182,7 @@ _UNPORTED_KEYS = (
     ("flow/enablePressureForcing", "pressure forcing", "A5"),
     ("heatSource/numHeatSources", "heat sources", "A5"),
     ("spongezone/numSpongeZones", "sponge zones", "A5"),
-    ("passiveScalars/numScalars", "passive scalars", "A6.2"),
+    ("passiveScalars/numScalars", "passive scalars", "A5.4"),
     ("mms/isEnabled", "manufactured solutions", "A5"),
 )
 
@@ -194,45 +201,14 @@ _OUTLET_KINDS = ("subsonicPressure", "nonReflectingPressure",
 _BC_KINDS = _WALL_KINDS + _INLET_KINDS + _OUTLET_KINDS
 
 
-def _check_plasma(rc: RunConfiguration):
-    """The plasma this slice runs: a perfect mixture with argon_minimal
-    transport, no boundaries (the mixture BCs are A6.2)."""
-    raw = rc.raw
-    gas = str(raw.get("plasma_models/gas_model", "perfect_mixture"))
-    if gas != "perfect_mixture":
-        raise _not_ported(f"the '{gas}' gas model", "A6.3")
-    tmodel = str(raw.get("plasma_models/transport_model", "argon_minimal"))
-    if tmodel == "constant":
-        raise _not_ported("constant transport of a species mixture "
-                          "(ConstantPlasmaTransport)", "A6.2")
-    if tmodel != "argon_minimal":
-        raise _not_ported(f"the '{tmodel}' transport model", "A6.3")
-    if rc.bcs:
-        raise _not_ported("boundary conditions of a species mixture", "A6.2")
-    if rc.equation_system == "euler":
-        # the face-sweep kernel's mixture policy is Navier-Stokes only
-        raise _not_ported("Euler on a species mixture", "A6.2")
-    # physics/plasma_config.py builds both for the low-Mach reacting
-    # thermo; the mixture's source term (dg/source_term.py) takes neither
-    n_react = raw.get("reactions/numberOfReactions",
-                      raw.get("reactions/number_of_reactions", 0))
-    for r in range(1, n_react + 1):
-        if raw.get(f"reactions/reaction{r}/model", "arrhenius") \
-                == "tabulated":
-            raise _not_ported("tabulated reaction rates in the "
-                              "compressible mixture", "A6.3")
-    if raw.get("plasma_models/radiation_model", "none") == "net_emission":
-        raise _not_ported("the net-emission radiation model in the "
-                          "compressible mixture", "A6.3")
-
-
 def check_slice(rc: RunConfiguration):
     """Raise NotImplementedError for any input this slice does not run."""
     if rc.fluid == "user_defined":
+        # the species mixture runs whole; physics/plasma_config.py raises
+        # for the `bte` rates of the Boltzmann coupling (ROADMAP A11.3)
         if rc.raw is None:
             raise ValueError("fluid 'user_defined' is read from the input "
                              "file's [plasma_models] and [species]")
-        _check_plasma(rc)
     elif rc.fluid == "lte_table":
         raise _not_ported("the LTE-table fluid (physics/lte.py)", "A6.3")
     elif rc.fluid != "dry_air":
@@ -240,13 +216,14 @@ def check_slice(rc: RunConfiguration):
         raise ValueError(f"fluid '{rc.fluid}': the fluids are dry_air, "
                          f"user_defined and lte_table")
     if rc.equation_system not in ("euler", "navier-stokes"):
-        raise _not_ported(f"equation system '{rc.equation_system}'", "A6.2")
+        raise _not_ported(f"equation system '{rc.equation_system}' "
+                          "(passive scalars)", "A5.4")
     if rc.use_roe:
-        raise _not_ported("the Roe flux", "A1")
+        raise _not_ported("the Roe flux", "A5.3")
     if rc.axisymmetric:
-        raise _not_ported("axisymmetric flow", "A5")
+        raise _not_ported("axisymmetric flow", "A5.3")
     if rc.sgs_model != "none":
-        raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5")
+        raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5.3")
     for spec in rc.bcs:
         if spec.kind == "interpolate":
             raise _not_ported("the interpolated inlet (needs "
@@ -307,6 +284,13 @@ class CompressibleSolver(PlasmaSolver):
         self.tables_np = build_tables(self.mesh, order=rc.order, basis=basis,
                                       **quad_kw)
         self.tables = self.tables_np.to_torch(self.dtype, self.device)
+        # the coupling's fields on the solution nodes [ne, ndof]: the Joule
+        # heating the forcing adds and the E-field amplitude (the
+        # Boltzmann bus's), filled in place by set_joule_heating/set_efield
+        shape = self.tables.xyz_dof.shape[:-1]
+        self.joule_heating = torch.zeros(shape, dtype=self.dtype,
+                                         device=self.device)
+        self.efield = torch.zeros(shape, dtype=self.dtype, device=self.device)
 
         dim = self.mesh.dim
         forcings = self._build_physics(dim, dim)
@@ -329,22 +313,25 @@ class CompressibleSolver(PlasmaSolver):
     # ------------------------------------------------------------------
     def _build_physics(self, dim, nvel):
         """Mixture, transport, fluxes and Riemann solver; returns the
-        forcings (the plasma's source term)."""
+        forcings (the plasma's source term and Joule heating)."""
         rc = self.config
         self.plasma = None
+        self._source_term = None
         forcings = []
         if rc.fluid == "user_defined":
-            # the plasma (tps_tpu solvers/compressible.py:271-288).  Its
-            # Joule heating contributes zero without EM fields
-            # (tps_tpu dg/forcing.py:283-288) and is left out until the EM
-            # and coupling slices supply them (ROADMAP A10/A11)
+            # the plasma (tps_tpu solvers/compressible.py:271-288)
             self.plasma = build_plasma(rc.raw, dim, nvel)
             self.mixture = self.plasma.mixture
+            self.transport = self.plasma.transport
+            self._source_term = SourceTerm(
+                mixture=self.mixture, transport=self.transport,
+                chemistry=self.plasma.chemistry,
+                radiation=self.plasma.radiation)
+            forcings += [self._source_term,
+                         JouleHeating(mixture=self.mixture,
+                                      heating=self.joule_heating)]
             transport = (None if rc.equation_system == "euler"
-                         else self.plasma.transport)
-            forcings.append(SourceTerm(mixture=self.mixture,
-                                       transport=self.plasma.transport,
-                                       chemistry=self.plasma.chemistry))
+                         else self.transport)
             self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
                                  eq_system=rc.equation_system)
             self.riemann = Rusanov(self.fluxes)
@@ -366,6 +353,7 @@ class CompressibleSolver(PlasmaSolver):
                 visc_mult=rc.visc_mult,
                 bulk_visc_mult=rc.bulk_visc_mult,
             )
+        self.transport = transport
         self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
                              eq_system=rc.equation_system)
         self.riemann = Rusanov(self.fluxes)
@@ -411,6 +399,18 @@ class CompressibleSolver(PlasmaSolver):
             return [float(x) for x in
                     str(p.get("uvw", "0 0 0")).strip().strip("'\"").split()]
 
+        multi = self.plasma is not None
+        if multi and kind == "viscous_isothermal":
+            # a mixture's VISC_ISOTH is the general wall with both thermal
+            # conditions isothermal at Tw and no species flux (reference:
+            # src/wallBC.cpp:96-112)
+            Tw = fget("temperature", 300.0)
+            return bcs.GeneralWallBC(heavy="isothermal", electron="isothermal",
+                                     wall_temp=Tw, wall_temp_e=Tw)
+        if multi and kind == "viscous_adiabatic":
+            # VISC_ADIAB: the general wall with no heat or species flux
+            # (src/wallBC.cpp:86-95)
+            return bcs.GeneralWallBC(heavy="adiabatic", electron="adiabatic")
         if kind in ("inviscid", "slip", "viscous_adiabatic",
                     "viscous_isothermal"):
             return bcs.WallBC(kind=kind, wall_temp=fget("temperature", 300.0))
@@ -422,7 +422,8 @@ class CompressibleSolver(PlasmaSolver):
                                    "isothermal")),
                 wall_temp=Th, wall_temp_e=fget("electron_temperature", Th))
         if kind == "subsonic":
-            return bcs.InletBC(input_state=(fget("density"), *uvw()[:nvel]))
+            return bcs.InletBC(input_state=(fget("density"), *uvw()[:nvel],
+                                            *self._bc_mass_fractions(p)))
         if kind in ("subsonicFaceBasedX", "subsonicFaceBasedY",
                     "subsonicFaceBasedZ"):
             return bcs.FaceInletBC(
@@ -452,6 +453,23 @@ class CompressibleSolver(PlasmaSolver):
                 area=fget("area", self._patch_area(spec)),
                 ref_length=self.config.ref_length)
         raise NotImplementedError(f"boundary condition type '{kind}'")
+
+    def _bc_mass_fractions(self, params):
+        """A mixture inlet's active-species mass fractions, in the
+        mixture's order, from its mass_fraction/speciesN keys (input
+        numbering; reference: src/M2ulPhyS.cpp:3629-3641)."""
+        if self.plasma is None:
+            return ()
+        i2m = self.plasma.input_to_mixture
+        ys = []
+        for sp in range(self.mixture.num_active_species):
+            key = f"mass_fraction/species{int(np.where(i2m == sp)[0][0]) + 1}"
+            if key not in params:
+                raise ValueError(
+                    f"multi-species inlet needs {key} (mass fraction of "
+                    f"'{self.plasma.species_names[sp]}')")
+            ys.append(float(str(params[key]).strip("'\"")))
+        return tuple(ys)
 
     def _report_bc_patches(self):
         """Per-patch surface area / face-count report at BC init, matching
@@ -501,7 +519,8 @@ class CompressibleSolver(PlasmaSolver):
         # from here on; the RHS reads the ghost states there
         self._loop = StepLoop(self._step_body, U, dt, bc_states,
                               counters=(cuda_fused.launches,
-                                        cuda_faces.launches))
+                                        cuda_faces.launches,
+                                        cuda_faces.variant_launches))
         if self.ctx.bcs:
             self._rhs.bc_states = self._loop.bc_states
         self.U, self.time, self.dt = self._loop.U, self._loop.t, self._loop.dt
@@ -729,6 +748,48 @@ class CompressibleSolver(PlasmaSolver):
         self._loop.U.copy_(torch.as_tensor(np.ascontiguousarray(Ug),
                                            dtype=self.dtype))
         self.U = self._loop.U
+
+    # -- the plasma-coupling contract (reference: src/solver.hpp:121-144;
+    #    tps_tpu solvers/compressible.py:1763-1829) ----------------------
+    def coupling_nodes(self):
+        """The FieldInterpolator.build arguments of the fields the coupling
+        exchanges (DG dof fields [ne, ndof]), and their points [n, dim]."""
+        return ({"src_mesh": self.mesh, "src_order": self.config.order,
+                 "src_basis": "gauss-legendre" if self.config.basis_type == 0
+                 else "gauss-lobatto"},
+                np.asarray(self.tables_np.xyz_dof).reshape(-1, self.mesh.dim))
+
+    def evaluate_plasma_conductivity(self):
+        """sigma at the solution nodes [ne, ndof] (reference:
+        M2ulPhyS::evaluatePlasmaConductivityGF, src/M2ulPhyS.cpp:4265);
+        0 for dry air."""
+        if self._source_term is None:
+            return torch.zeros_like(self.joule_heating)
+        return self._source_term.plasma_conductivity(
+            self.U, self.mixture.primitives(self.U))
+
+    def get_plasma_conductivity(self):
+        return self.evaluate_plasma_conductivity()
+
+    def get_joule_heating(self):
+        return self.joule_heating
+
+    def set_joule_heating(self, qj):
+        """The Joule heating at the solution nodes [ne, ndof], copied into
+        the tensor the forcing (and a captured step) reads."""
+        self.joule_heating.copy_(torch.as_tensor(qj).reshape(
+            self.joule_heating.shape))
+
+    def get_efield(self):
+        return self.efield
+
+    def set_efield(self, e):
+        """The EM E-field amplitude at the solution nodes [ne, ndof]
+        (reference: interpElectricFieldFromEMToFlow,
+        src/cycle_avg_joule_coupling.cpp:290-330), copied in place; the
+        Boltzmann bus reads it, the flow's source term does not (as in the
+        JAX package)."""
+        self.efield.copy_(torch.as_tensor(e).reshape(self.efield.shape))
 
     def set_time(self, t, dt):
         """Copy t and dt into the step loop's buffers."""

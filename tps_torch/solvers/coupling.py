@@ -8,9 +8,13 @@ evaluate the plasma conductivity on the flow mesh, interpolate it to the
 EM mesh, solve the quasimagnetostatic system, rescale the Joule heating
 toward a target power (power control, constant or oscillating), and
 interpolate the heating (and the E-field amplitude) back to the flow mesh,
-where it enters the energy equation.  The EM update runs between flow
-steps, outside the flow's step graphs, and hands its fields over with
-`copy_` into the tensors the captured steps read.  Host reads: the EM
+where it enters the energy equation.  The plasma solver is the
+compressible DG solver (`plasma-solver = compressible`, the reference's
+default: DG dof fields, the heating a forcing of its RHS) or the low-Mach
+one (`lomach`: H1 nodal fields, the heating a term of its thermo).  The
+EM update runs between flow steps, outside the flow's step graphs, and
+hands its fields over with `copy_` into the tensors the captured steps
+read.  Host reads: the EM
 solve's own (one on the dense path, one a restart cycle on GMRES), and
 one of the total Joule heating and magnetic energy after the solve and
 after the rescaling; nothing is read inside a flow step.
@@ -18,9 +22,7 @@ after the rescaling; nothing is read inside a flow step.
 IndependentCoupling (reference: src/independent_coupling.cpp): runs the
 compressible flow and the EM solver with no data exchange.
 
-Not here: the compressible plasma solver under the Joule coupling (it
-needs a DG Joule-heating forcing, ROADMAP A11) and a 3-D EM mesh
-(`qms3d`, ROADMAP A10).
+Not here: a 3-D EM mesh (`qms3d`, ROADMAP A10.2).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 
 from ..interop.interpolation import FieldInterpolator
 from .base import Solver, create_solver, register_solver
+from .compressible import CompressibleSolver
 from .em.qms import QuasiMagnetostaticSolverAxiSym
 from .lomach.solver import LoMachSolver
 
@@ -64,14 +67,11 @@ class CycleAvgJouleCoupling(Solver):
 
         # plasma (flow) solver (reference: plasma-solver :58-85)
         self.plasma_kind = inp.get(f"{key}/plasma-solver", "compressible")
-        if self.plasma_kind != "lomach":
-            raise _not_ported(
-                f"the Joule coupling with plasma-solver = "
-                f"{self.plasma_kind} (a DG Joule-heating forcing)", "A11")
         if not bool(inp.get(f"{key}/axisymmetric", 1)):
-            raise _not_ported("the 3-D EM solver (qms3d)", "A10")
-        self.flow = LoMachSolver(self.config, tps=self.tps,
-                                 device=self.device)
+            raise _not_ported("the 3-D EM solver (qms3d)", "A10.2")
+        flow_cls = (LoMachSolver if self.plasma_kind == "lomach"
+                    else CompressibleSolver)
+        self.flow = flow_cls(self.config, tps=self.tps, device=self.device)
         self.flow.initialize()
         if self._em_in is not None:
             self.em = self._em_in
@@ -90,23 +90,21 @@ class CycleAvgJouleCoupling(Solver):
         t0 = time.perf_counter()
         self._build_interpolators()
         self.interp_build_s = time.perf_counter() - t0
-        # the E-field amplitude on the flow mesh (the Boltzmann bus reads
-        # it), updated in place at each EM solve
-        self.flow.efield = torch.zeros_like(self.flow.thermo.T)
         self.em_log = []  # one dict per EM solve
         self.iter = 0
         self.time = 0.0
 
     def _build_interpolators(self):
         """Static cross-mesh interpolation tables (the gslib analog;
-        reference interpConductivityFromFlowToEM :185 etc.)."""
+        reference interpConductivityFromFlowToEM :185 etc.): the flow's
+        fields where its solver keeps them (H1 nodes on the low-Mach
+        solver, DG dofs on the compressible one)."""
         em_tab = self.em.tab_np
-        em_pts = np.asarray(em_tab.xyz)
+        src, flow_pts = self.flow.coupling_nodes()
         self.flow_to_em = FieldInterpolator.build(
-            self.flow.mesh, self.flow.tab_np.order, "gauss-lobatto", em_pts)
+            points=np.asarray(em_tab.xyz), **src)
         self.em_to_flow = FieldInterpolator.build(
-            self.em.mesh, em_tab.order, "gauss-lobatto",
-            np.asarray(self.flow.tab_np.xyz))
+            self.em.mesh, em_tab.order, "gauss-lobatto", flow_pts)
 
     @property
     def max_iters(self):
@@ -121,14 +119,24 @@ class CycleAvgJouleCoupling(Solver):
     def solve(self):
         """The coupled loop (reference: CycleAvgJouleCoupling::solve,
         src/cycle_avg_joule_coupling.cpp:384-520): an EM update every
-        `solve-em-every-n` steps, the flow steps between them one
+        `solve-em-every-n` steps; between them the compressible solver
+        runs chunks of steps (the JAX package's chunked branch: a power of
+        two up to the next EM update), the low-Mach solver one
         `solve_step` each (the JAX package's per-step branch)."""
         ev = max(self.solve_em_every_n, 1)
+        chunked = self.plasma_kind != "lomach"
         while self.iter < self.max_iters and self.status == 0:
             self._maybe_em_update()
             target = min(self.iter + ev - self.iter % ev, self.max_iters)
             while self.flow.iter < target and self.status == 0:
-                self.flow.solve_step()
+                if chunked:
+                    n = min(self.flow._chunk_size(), target - self.flow.iter)
+                    m = 1
+                    while m * 2 <= n:
+                        m *= 2
+                    self.flow.solve_chunk(m)
+                else:
+                    self.flow.solve_step()
                 self.status = getattr(self.flow, "status", 0)
             self.iter = self.flow.iter
             self.time = self.flow.time
@@ -137,12 +145,10 @@ class CycleAvgJouleCoupling(Solver):
     def _maybe_em_update(self):
         if self.iter % self.solve_em_every_n != 0:
             return
-        tab = self.flow.tab
         # 1) sigma on the flow mesh -> EM mesh
         if not self.fixed_conductivity or self.iter == 0:
-            sigma = self.flow.thermo.plasma_conductivity()  # nodal
-            self.em.set_plasma_conductivity(
-                self.flow_to_em.from_h1(tab, sigma))
+            self.em.set_plasma_conductivity(self.flow_to_em(
+                self.flow.evaluate_plasma_conductivity()))
         # 2) EM solve
         self.em.solve_step()
         tot_jh_raw = self.em.total_joule_heating()
@@ -190,15 +196,15 @@ class CycleAvgJouleCoupling(Solver):
         entry["joule"] = self.em.total_joule_heating()
         self.em_log.append(entry)
         # 4) the Joule heating back to the flow (copied into the tensor
-        # the captured thermo step reads)
+        # the captured step reads)
         em_tab = self.em.tab
-        self.flow.thermo.set_joule_heating(
+        self.flow.set_joule_heating(
             self.em_to_flow.from_h1(em_tab, self.em.joule_heating))
         # 5) the E-field amplitude back to the flow (reference:
         # interpElectricFieldFromEMToFlow, :290-330)
         E_re, E_im = self.em.electric_field()
         Eamp = torch.sqrt(E_re ** 2 + E_im ** 2) * efield_scale
-        self.flow.efield.copy_(self.em_to_flow.from_h1(em_tab, Eamp))
+        self.flow.set_efield(self.em_to_flow.from_h1(em_tab, Eamp))
 
     def solve_end(self):
         self.flow.solve_end()

@@ -283,10 +283,10 @@ class ReactingFlow(ThermoChemBase):
     def _transport_props(self, T, Y, p):
         """Per-species rho D [nd, nsp], viscosity, conductivity: from the
         molecular transport model (full tier) or Pr/Sc closures.  The
-        transport runs in double whatever the run's precision: the e-Ar
-        collision integrals' log T fits cancel ~5 digits between their
-        terms and the third-order electron conductivity ~2 more, which
-        leaves float no correct digit of kappa_e at some nodes."""
+        transport forms the parts that cancel in float (the e-Ar log T
+        fits, the third-order electron conductivity, the diffusion block)
+        in double whatever the run's precision (physics/gas_transport.py::
+        _f64)."""
         if self.transport is None or self.mixture is None:
             cp = self._cp_mass(Y)
             mu = _MU0_SIMPLE * (T / 273.0) ** 0.7
@@ -295,14 +295,12 @@ class ReactingFlow(ThermoChemBase):
             return diff, mu, kappa
         mix = self.mixture
         U, Up = self._conserved_state(T, Y, p)
-        zero_grad = U.new_zeros(U.shape[:-1] + (mix.num_equations, mix.dim),
-                                dtype=torch.float64)
-        props = self.transport.flux_properties(mix, U.double(), Up.double(),
-                                               zero_grad)
+        zero_grad = U.new_zeros(U.shape[:-1] + (mix.num_equations, mix.dim))
+        props = self.transport.flux_properties(mix, U, Up, zero_grad)
         rho = p * self._mixture_mw(Y) / (_R * T)
-        diff = rho[:, None] * props["diffusivity"].to(T.dtype)  # rho D_s
+        diff = rho[:, None] * props["diffusivity"]  # rho D_s
         kappa = props["kappa"] + props.get("kappa_e", 0.0)
-        return diff, props["visc"].to(T.dtype), kappa.to(T.dtype)
+        return diff, props["visc"], kappa
 
     def viscosity(self):
         return self._transport_props(self.T, self.Y, self.p_thermo)[1]
@@ -322,9 +320,7 @@ class ReactingFlow(ThermoChemBase):
         if self.transport is None or self.mixture is None:
             return torch.zeros_like(self.T)
         U, Up = self._conserved_state(self.T, self.Y, self.p_thermo)
-        # in double, as _transport_props
-        return self.transport.electric_conductivity(
-            U.double(), Up.double()).to(self.T.dtype)
+        return self.transport.electric_conductivity(U, Up)
 
     def set_joule_heating(self, qj):
         """The coupling's Joule heating, copied into the tensor the step

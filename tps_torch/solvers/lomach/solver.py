@@ -115,7 +115,7 @@ def _build_reacting_flow(inp, tab, temp_bcs, cg_tol, cg_maxiter, qt_bcs=(),
     names, mws, _, hf, cv, imf, _ = read_species(inp, 2.5)
     chemistry = parse_reactions(
         inp, len(names), SpeciesSet(mws, names.index("E") if "E" in names
-                                    else -1))
+                                    else -1), species_names=names)
     return ReactingFlow(
         tab, species_names=names, mw=tuple(mws), molar_cv_over_R=tuple(cv),
         formation_energy=tuple(hf), chemistry=chemistry,
@@ -386,6 +386,10 @@ class LoMachSolver(Solver):
         self.info_log = []  # the read rows (dicts), newest last
         self.info_reads = 0  # host reads of the ring
         self._wall0 = _time.perf_counter()
+        # the E-field amplitude a coupling sets (set_efield; the Boltzmann
+        # bus reads it)
+        self.efield = torch.zeros(self.tab.ndofs, dtype=self.dtype,
+                                  device=self.device)
 
         self.outdir = self.config.outdir
         if inp.get("io/enableRestart", 0):
@@ -591,6 +595,24 @@ class LoMachSolver(Solver):
     @property
     def max_iters(self):
         return self.max_iters_cfg
+
+    # -- the cycle-averaged Joule coupling's side (solvers/coupling.py), as
+    #    CompressibleSolver's: H1 nodal fields
+    def coupling_nodes(self):
+        """The FieldInterpolator.build arguments of the fields the coupling
+        exchanges, and their points [n, dim]."""
+        return ({"src_mesh": self.mesh, "src_order": self.tab_np.order,
+                 "src_basis": "gauss-lobatto", "src_tab": self.tab},
+                np.asarray(self.tab_np.xyz))
+
+    def evaluate_plasma_conductivity(self):
+        return self.thermo.plasma_conductivity()
+
+    def set_joule_heating(self, qj):
+        self.thermo.set_joule_heating(qj)
+
+    def set_efield(self, e):
+        self.efield.copy_(e)
 
     # -- the step loop ---------------------------------------------------
     def solve(self):
