@@ -53,6 +53,14 @@ sweep 4 times a step), then in f64 on the card against the CPU and graph
 against eager steps across an EM update; each variant's deck, argon_full.ini
 and argon_inflow_outflow.ini through the CLI, the last two at 64x64 p=2
 against plain loops; ms/step on the channel and on argon_full at 64x64.
+The LTE-table plasma (phases 38-40): the face sweep's eight LTE variants
+(2-D and 3-D, 1-D and 2-D tables, Navier-Stokes and Euler) against their
+plain versions and each on its path through the CLI;
+tps_torch/tools/lte_channel_coupled.ini through the CLI (its 2-D LTE sweep
+4 times a step), graph against eager steps and the card against the CPU
+in f64 across an EM update, ms/step; its f64 checkpoint converted by the
+LTE restart into argon_full.ini's six-species state on the card and on
+the CPU, then continued on the card.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -3685,7 +3693,7 @@ def phase_mixture_decks(dev):
     (gas_mixture, argon_2d) once a stage, no other; finite.  Then both at
     64x64 p=2, dt 1e-9, in f64 from their initial states: the solver (the
     kernel, the step graph) against a plain loop of the same integrator
-    over compute_rhs with the plain face sweep and the species clip, 10
+    over compute_rhs with the plain face sweep and the species clip, 5
     steps, within SOLVER_TOL."""
     from tps_torch.dg.cuda_faces import face_sweep_plain
     from tps_torch.dg.operators import _clip_species
@@ -3734,7 +3742,7 @@ def phase_mixture_decks(dev):
                              f"(launches off: {bad})")
         dt = 1e-9
         s = channel_tps(torch.float64, f"{name}64", path=big_deck(
-            path, f"{name}64", 64, 10, dt)).solver
+            path, f"{name}64", 64, 5, dt)).solver
         U0 = s.U.clone()
         s.solve()
         U_solver = s.U.clone()
@@ -3745,13 +3753,13 @@ def phase_mixture_decks(dev):
                                bc_states=s._rhs.bc_states, sweep=plain)
 
         U, t = U0, 0.0
-        for _ in range(10):
+        for _ in range(5):
             U = _clip_species(s.mixture, s._integrator(rhs, U, t, dt)[0])
             t += dt
         err = state_rel(U_solver, U, s.mixture)
         moved = state_rel(U_solver, U0, s.mixture)
         ok = err <= SOLVER_TOL and moved > 0
-        log(f"  {name} 64x64 p=2 f64, 10 steps: solver vs plain loop "
+        log(f"  {name} 64x64 p=2 f64, 5 steps: solver vs plain loop "
             f"{err:.3e} (bar {SOLVER_TOL}); moved {moved:.3e}"
             + ("" if ok else "  FAIL"))
         if not ok:
@@ -3762,7 +3770,7 @@ def phase_mixture_decks(dev):
     return out
 
 
-def phase_channel_timing(turn_steps=5, profiled=1):
+def phase_channel_timing(cases=None, turn_steps=5, profiled=1):
     """Phase 37: ms/step through solve() on the coupled channel (through
     the coupled solve(), f32 and f64) and on argon_full at 64x64 p=2 (f32,
     dt 1e-9): after 4 steps (an EM update at 0, the capture), in turns
@@ -3773,13 +3781,15 @@ def phase_channel_timing(turn_steps=5, profiled=1):
     share, the eager one (eager_busy) and launches a step; the EM solve's
     device ms and its share a step amortised over solve-em-every-n."""
     out = {}
-    cases = {"channel f32": channel_tps(torch.float32, "channel_t32",
-                                        iters=4).solver,
-             "channel f64": channel_tps(torch.float64, "channel_t64",
-                                        iters=4).solver,
-             "argon_full 64x64 f32": channel_tps(
-                 torch.float32, "full64_t",
-                 path=big_deck(FULL_DECK, "full64_t", 64, 4, 1e-9)).solver}
+    if cases is None:
+        cases = {"channel f32": channel_tps(torch.float32, "channel_t32",
+                                            iters=4).solver,
+                 "channel f64": channel_tps(torch.float64, "channel_t64",
+                                            iters=4).solver,
+                 "argon_full 64x64 f32": channel_tps(
+                     torch.float32, "full64_t",
+                     path=big_deck(FULL_DECK, "full64_t", 64, 4,
+                                   1e-9)).solver}
     for name, c in cases.items():
         coupled = hasattr(c, "em")
         fl = c.flow if coupled else c
@@ -3841,6 +3851,428 @@ def phase_channel_timing(turn_steps=5, profiled=1):
     del cases
     torch.cuda.empty_cache()
     return out
+
+
+# ---------------------------------------------------------------- LTE
+
+# the LTE-table plasma (phases 38-40)
+LTE_DECK = os.path.join(REPO, "tps_torch", "tools", "lte_channel_coupled.ini")
+# f64, an LTE variant against its plain version, relative to max|plain|:
+# the same table lookups and Newton steps, summed in another order
+LTE_F64_TOL = 2.2e-13
+# f64, the LTE channel on the card against the port's CPU run after 12
+# steps across an EM update (U; the Joule heating to CHANNEL_CPU_TOL)
+LTE_CPU_TOL = 1e-11
+# f64, the LTE restart's conversion on the card against the CPU's
+LTE_CONVERT_TOL = 1e-11
+# the converted six-species plasma's dt at 64x64 p=2: a restart keeps the
+# checkpoint's dt (the LTE channel's 4e-9, as in the JAX package), at
+# which the 9,500 K plasma goes NaN within 4 steps on the card (PERF.md);
+# 1e-9 stays finite at 32x32 on the CPU; 16x below 4e-9
+LTE_RESTART_DT = 2.5e-10
+
+
+def _lookup_ops(n):
+    """A 1-D table lookup: the binary search (a comparison and two index
+    operations a step), the clamp and a + b x."""
+    return 3 * int(np.ceil(np.log2(n))) + 4
+
+
+def _lookup2_ops(nx, ny):
+    """A 2-D lookup: two clamps and searches, the weights, bilinear."""
+    return 3 * int(np.ceil(np.log2(nx)) + np.ceil(np.log2(ny))) + 25
+
+
+def lte_ops(dim, table_dim, euler, newton=20):
+    """The LTE face flux per point, counted from csrc/dg_lte.cuh as
+    MIX_OPS is (the least the function needs: each side's temperature
+    once): per side the energy, the T(e) guess and `newton` Newton steps
+    (three lookups of e and 11 operations each), p and c (a lookup each),
+    the convective flux, and on Navier-Stokes mu, kappa and the viscous
+    normal flux; per point the Rusanov combination and the viscous mean.
+    The tables: lte_argon_tables.py's (800 temperatures; 2-D: 200 x 12,
+    the inversion 300 x 12)."""
+    L = _lookup_ops(800) if table_dim == 1 else _lookup2_ops(200, 12)
+    Lg = _lookup_ops(800) if table_dim == 1 else _lookup2_ops(300, 12)
+    neq = dim + 2
+    temp = 2 * dim + 4 + Lg + newton * (3 * L + 11)
+    conv = 4 * dim + 3 * dim + 3 + (L + 2) + (L + 4)
+    visc = 0 if euler else 2 * L + 3 * dim * dim + dim * (4 * dim + 3) + 2
+    point = 2 * dim + 2 + 5 * neq + (0 if euler else 3 * (neq - 1))
+    return 2 * (temp + conv + visc) + point
+
+
+# (variant, table dim, grid): each LTE variant at the width of its path
+# (phases 38-39: the 64x64 channel, the 32x32 box with 2-D tables, the
+# 16^3 box) or, the 3-D forms that no shipped deck takes, at 8^3
+LTE_FACE_CASES = (
+    ("lte_2d", 1, (64, 64)), ("lte_2d_euler", 1, (64, 64)),
+    ("lte_2d_t2", 2, (32, 32)), ("lte_2d_t2_euler", 2, (32, 32)),
+    ("lte_3d", 1, (16, 16, 16)), ("lte_3d_euler", 1, (8, 8, 8)),
+    ("lte_3d_t2", 2, (8, 8, 8)), ("lte_3d_t2_euler", 2, (8, 8, 8)),
+)
+
+
+def lte_ctx(table_dim, dim, euler):
+    """(RHS context) of the LTE fluid on lte_argon_tables.py's tables (the
+    2-D ones written into build/)."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.dg.fluxes import Fluxes
+    from tps_torch.dg.rhs import RHSContext
+    from tps_torch.dg.riemann import Rusanov
+    from tps_torch.physics.lte import load_lte_setup
+    from tps_torch.tools.lte_argon_tables import lte_keys
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    mix, tr = load_lte_setup(IniInput.parse(lte_keys(table_dim, build)),
+                             dim, dim)
+    fl = Fluxes(mixture=mix, transport=tr,
+                eq_system="euler" if euler else "navier-stokes")
+    return RHSContext(fluxes=fl, riemann=Rusanov(fl))
+
+
+def lte_U(mix, xyz, dtype, device, L=0.01):
+    """A hot LTE state on an L box: rho 0.05, u ~10 m/s, T 9,500 K with a
+    20% wave, 2-D or 3-D."""
+    dim = xyz.shape[-1]
+    k = 2 * np.pi / L
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    if dim == 3:
+        wave = wave * np.cos(k * xyz[..., 2])
+    Up = np.zeros(xyz.shape[:-1] + (dim + 2,))
+    Up[..., 0] = 0.05 * (1 + 0.1 * wave)
+    Up[..., 1] = 10.0 + 30.0 * wave
+    Up[..., 2:1 + dim] = -5.0 * wave[..., None]
+    Up[..., -1] = 9500.0 * (1 + 0.2 * wave)
+    U = mix.conservatives(torch.as_tensor(Up, dtype=torch.float64))
+    return U.to(dtype=dtype, device=device).contiguous()
+
+
+def lte_deck_text(name, n, table_dim=1, dim=2, euler=False, iters=4):
+    """A path of an LTE variant through the CLI: the shipped channel's flow
+    keys on a periodic n^dim p=2 GL box (`type = flow`, no coil), 1-D or
+    2-D tables, NS or Euler, `iters` steps of dt 4e-9, output in
+    build/<name>."""
+    with open(LTE_DECK) as f:
+        text = f.read()
+    from tps_torch.tools.lte_argon_tables import lte_keys
+
+    start = text.index("[flow/lte]")
+    end = text.index("[plasma_models]")
+    text = text[:start] + lte_keys(table_dim, os.path.join(
+        REPO, "build")) + "\n" + text[end:]
+    text = text.replace("type = cycle-avg-joule-coupled", "type = flow", 1)
+    mesh = "".join(f"n{a} = {n}\n{a}1 = 0.01\nperiodic_{a} = 1\n"
+                   for a in "xyz"[:dim])
+    start = text.index("[mesh]\n") + len("[mesh]\n")
+    text = (text[:start] + f"generator = box{dim}d\n" + mesh
+            + text[text.index("\n[time]"):])
+    bstart = text.index("[boundaryConditions]")
+    text = text[:bstart] + text[text.index("[em]"):]
+    if euler:
+        text = text.replace("equation_system = navier-stokes",
+                            "equation_system = euler")
+    text = text.replace("maxIters = 200", f"maxIters = {iters}")
+    text = text.replace("examples/cases/nec_table.h5",
+                        os.path.join(REPO, "examples", "cases",
+                                     "nec_table.h5"))
+    text = text.replace("outdirBase = output/lte_channel_coupled",
+                        f"outdirBase = {os.path.join(REPO, 'build', name)}")
+    path = os.path.join(REPO, "build", name + ".ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def lte_channel_deck(name, n=64, iters=200):
+    """tps_torch/tools/lte_channel_coupled.ini with its tables named by
+    absolute path (it names them from the repository root), its flow mesh
+    n x n and `iters` steps, output in build/<name>."""
+    with open(LTE_DECK) as f:
+        text = f.read()
+    for rel in ("tps_torch/tools/lte_argon_thermo.h5",
+                "tps_torch/tools/lte_argon_trans.h5",
+                "examples/cases/nec_table.h5"):
+        text = text.replace(rel, os.path.join(REPO, rel))
+    text = text.replace("nx = 64", f"nx = {n}").replace("ny = 64",
+                                                          f"ny = {n}")
+    text = text.replace("maxIters = 200", f"maxIters = {iters}")
+    text = text.replace("outdirBase = output/lte_channel_coupled",
+                        f"outdirBase = {os.path.join(REPO, 'build', name)}")
+    path = os.path.join(REPO, "build", name + ".ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_lte_faces(dev, cases=LTE_FACE_CASES):
+    """Phase 38: the face sweep's LTE variants against their plain
+    versions, f64 within LTE_F64_TOL and f32 by TOL's rule, each at the
+    width of its path, timed in f32 (kernel, plain, kernel) and f64 (CUDA
+    events and on the device) with its bound; then each variant's path
+    but the headline's (phase 39) through the CLI, 2 steps in f32: its
+    variant once a stage, no other.  Returns {variant: record} and the
+    largest f64 error."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+    from tps_torch.dg.discretization import build_tables
+    from tps_torch.mesh.generators import box_2d, box_3d
+
+    failures, out, worst = [], {}, 0.0
+    for var, td, n in cases:
+        t0 = time.perf_counter()
+        dim, euler = len(n), var.endswith("euler")
+        ctx = lte_ctx(td, dim, euler)
+        if dim == 3:
+            mesh = box_3d(*n, bounds=((0.0, 0.01),) * 3, periodic=(True,) * 3)
+        else:  # the channel's mesh: periodic along y, walls at x
+            mesh = box_2d(*n, x1=0.01, y1=0.01, periodic_x=td == 2,
+                          periodic_y=True)
+        tab_np = build_tables(mesh, 2)
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        tab32 = tab_np.to_torch(torch.float32, dev)
+        sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+        X64 = face_input(ctx, tab64, lte_U(ctx.mixture, tab_np.xyz_dof,
+                                           torch.float64, dev))
+        X32 = X64.float()
+        y64, p64 = sw64(X64), sw64.plain(X64)
+        r64 = rel(y64, p64)
+        k32, p32 = sw32(X32), sw32.plain(X32)
+        ref = sw64.plain(X32.double())
+        r32 = rel(k32, p32)
+        dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+        name = f"{var} {'x'.join(map(str, n))} p=2 gl"
+        ok = (r64 <= LTE_F64_TOL and sw64.variant == var
+              and (r32 <= TOL[torch.float32] or dk <= 2 * dp))
+        log(f"  {name} (NEQ {sw64.neq}, k {sw64.k}, {tab_np.ne} elements, "
+            f"set-up {time.perf_counter() - t0:.1f} s): f64 {r64:.3e} (bar "
+            f"{LTE_F64_TOL}); f32 {r32:.3e} (bar {TOL[torch.float32]}, or "
+            f"f64 dist: kernel {dk:.3e} <= 2 x plain {dp:.3e})"
+            + ("" if ok else "  FAIL"))
+        worst = max(worst, r64)
+        if not ok:
+            failures.append(name)
+        ms = [cuda_ms(lambda: sw32(X32), 30), cuda_ms(lambda: sw32.plain(X32), 1),
+              cuda_ms(lambda: sw32(X32), 30)]
+        b = face_bound(tab_np, ctx.fluxes.eq_system, "gl", neq=sw64.neq,
+                       flux_ops=lte_ops(dim, td, euler))
+        out[var] = {
+            "grid": name, "neq": sw64.neq, "nodes": tab_np.ne * tab_np.ndof,
+            "ms": (ms[0] + ms[2]) / 2, "plain_ms": ms[1],
+            "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep", 10),
+            "f64_ms": cuda_ms(lambda: sw64(X64), 20),
+            "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+            "bytes_ms": b[3], "ops_per_point": lte_ops(dim, td, euler),
+            "f64_rel_err": r64,
+            "max_abs_err": float(torch.max(torch.abs(k32 - p32))),
+            "f32_rel": r32, "f32_f64_dist": dk, "plain_f32_f64_dist": dp,
+            "turns": ms}
+        log(f"  timing {name} f32: {out[var]}")
+        del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"face sweep parity on the LTE fluid failed: "
+                         f"{failures}")
+    for var, td, n in cases:
+        if var == "lte_2d":
+            continue  # the headline deck's, phase 39
+        dim = len(n)
+        path = lte_deck_text(f"deck_{var}", n[0], td, dim,
+                             var.endswith("euler"), iters=2)
+        tps = channel_tps(torch.float32, f"deck_{var}", path=path)
+        s = tps.solver
+        reset_all_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        counts = launches_by_variant()
+        want = {"face_sweep": 4 * s.iter, f"face_sweep/{var}": 4 * s.iter}
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        finite = bool(torch.isfinite(s.U).all())
+        log(f"  {var}'s path ({s.tables_np.ne} elements p=2 GL, f32): "
+            f"{s.iter} steps, launches {counts}, finite {finite}, step "
+            f"graph {s._loop.graph is not None}")
+        if (bad or not finite or tps.get_status() != 0
+                or s._loop.graph is None):
+            raise SystemExit(f"{var}: the CLI run failed its checks "
+                             f"(launches off: {bad})")
+        out[var]["launches"] = counts[f"face_sweep/{var}"]
+        del tps, s
+    return out, worst
+
+
+def phase_lte_channel(dev):
+    """Phase 39: tps_torch/tools/lte_channel_coupled.ini (the LTE-table
+    plasma under the Joule coupling, 64x64 p=2 GL, EM every 10 steps)
+    through the CLI as shipped (f32, 200 steps) with the launch counts set
+    to 0 before it: the 2-D LTE sweep 4 times a step, no other variant;
+    finite; the steps replayed the step graph; the power on target at
+    each EM solve.  Then 12 f64 steps (EM updates at 0 and 10): at 64x64
+    through the step graph (its checkpoint is phase 40's), and at 8x8
+    the step graph against eager steps within GRAPH_TOL and the card
+    against the port's CPU run, U within LTE_CPU_TOL and the Joule
+    heating within CHANNEL_CPU_TOL; the power within POWER_TOL.  Then
+    ms/step graph and eager through the coupled solve() on the shipped
+    f32 run's solver (phase 37's turns, from step 200)."""
+    tps = channel_tps(torch.float32, "lte_channel",
+                      path=lte_channel_deck("lte_channel"))
+    c = tps.solver
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches_by_variant()
+    steps = c.flow.iter
+    want = {"face_sweep": 4 * steps, "face_sweep/lte_2d": 4 * steps}
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    finite = all(bool(torch.isfinite(v).all())
+                 for v in channel_state(c).values())
+    power32 = channel_power(c)
+    T = c.flow.mixture.temperature(c.flow.U)
+    log(f"  as shipped, f32: {steps} steps in {wall:.1f} s, {len(c.em_log)} "
+        f"EM solves; launches {counts}; finite {finite}; |Joule after "
+        f"control / target - 1| <= {power32:.2e} (f32); T {float(T.min()):.2f}"
+        f"-{float(T.max()):.2f} K; step graph {c.flow._loop.graph is not None}"
+        f", launches a replay {c.flow._loop.per_replay}")
+    if (bad or not finite or tps.get_status() != 0 or steps != 200
+            or len(c.em_log) != 20 or c.flow._loop.graph is None):
+        raise SystemExit(f"the LTE channel's CLI run failed its checks "
+                         f"(launches off: {bad})")
+    out = {"as shipped f32": {"steps": steps, "wall_s": wall,
+                              "launches": counts, "power_err_f32": power32}}
+    shipped = c
+    del tps
+    runs = {}
+    for name, n, device, graphs in (("graph", 64, "cuda", True),
+                                    ("card8", 8, "cuda", True),
+                                    ("eager8", 8, "cuda", False),
+                                    ("cpu8", 8, "cpu", True)):
+        tps = channel_tps(torch.float64, f"lte_{name}", device=device,
+                          path=lte_channel_deck(f"lte_{name}", n, 12))
+        c = tps.solver
+        c.flow.cuda_graphs = graphs
+        tps.solve()
+        runs[name] = ({k: v.double().cpu().clone()
+                       for k, v in channel_state(c).items()},
+                      channel_power(c), len(c.em_log))
+    graph_d = {k: (state_rel(runs["card8"][0][k], runs["eager8"][0][k])
+                   if k == "U" else lrel(runs["card8"][0][k],
+                                         runs["eager8"][0][k]))
+               for k in runs["card8"][0]}
+    cpu_d = {k: (state_rel(runs["card8"][0][k], runs["cpu8"][0][k])
+                 if k == "U" else lrel(runs["card8"][0][k],
+                                       runs["cpu8"][0][k]))
+             for k in runs["card8"][0]}
+    power = max(r[1] for r in runs.values())
+    ok = (max(graph_d.values()) <= GRAPH_TOL and cpu_d["U"] <= LTE_CPU_TOL
+          and max(cpu_d.values()) <= CHANNEL_CPU_TOL and power <= POWER_TOL
+          and all(r[2] == 2 for r in runs.values()))
+    log(f"  f64, 12 steps (EM updates at 0 and 10), 8x8: graph vs eager "
+        f"{graph_d} (bar {GRAPH_TOL}); card vs the port's CPU run "
+        f"{cpu_d} (bars U {LTE_CPU_TOL}, fields {CHANNEL_CPU_TOL}); "
+        f"|Joule / target - 1| <= {power:.2e} (bar {POWER_TOL})"
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the LTE channel: card, CPU and eager differ")
+    out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu 8x8": cpu_d,
+                "power_err_f64": power})
+    # the shipped run's solver, its graph captured, times on from step 200
+    out["solve() ms/step"] = phase_channel_timing({"lte channel f32":
+                                                   shipped})
+    return out
+
+
+def lte_restart_deck(name, ckpt, n=64, iters=4):
+    """tests/inputs/argon_full.ini at n x n p=2 GL (the LTE channel's mesh
+    and basis) with io/restartFromLTE: the checkpoint `ckpt` copied into
+    build/<name>, converted at its iteration, `iters` steps to run (RK3,
+    f64: the radiative decay needs it)."""
+    import shutil
+
+    from tps_torch.io import h5lite
+
+    outdir = os.path.join(REPO, "build", name)
+    os.makedirs(outdir, exist_ok=True)
+    shutil.copy(ckpt, os.path.join(outdir, "restart_output.sol.h5"))
+    it0 = int(h5lite.read(ckpt).attrs["iteration"])
+    with open(FULL_DECK) as f:
+        text = f.read()
+    text = text.replace("nx = 4\n", f"nx = {n}\n").replace(
+        "ny = 4\n", f"ny = {n}\n")
+    text = text.replace("order = 1", "order = 2\nbasisType = 0\n"
+                        "integrationRule = 0\ntimingFreq = 100000")
+    text = text.replace("maxIters = 4", f"maxIters = {it0 + iters}")
+    text = text.replace("outputFreq = 10", "outputFreq = 100000")
+    text = text.replace("outdirBase = /tmp/tps_tpu_argon_full",
+                        f"outdirBase = {outdir}")
+    text += "\nrestartFromLTE = 1\nenableRestart = 1\n"
+    path = os.path.join(REPO, "build", name + ".ini")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def phase_lte_restart(dev):
+    """Phase 40: phase 39's 64x64 f64 checkpoint (12 steps of the LTE
+    channel) converted by tests/inputs/argon_full.ini with restartFromLTE
+    into the six-species two-temperature state, on the card and on the
+    CPU: the two within LTE_CONVERT_TOL, mass, momentum and energy kept,
+    the converted T against the LTE run's (the tables' interpolation
+    error, reported), the converted restart written at once with the
+    reference's dataset names; then 4 steps of LTE_RESTART_DT on the card
+    (RK3, f64), the six-species sweep once a stage and no other variant,
+    finite."""
+    from tps_torch.io import h5lite
+
+    ckpt = os.path.join(REPO, "build", "lte_graph", "restart_output.sol.h5")
+    f = h5lite.read(ckpt)
+    ne = int(f.attrs["ne_global"])
+    U_lte = torch.as_tensor(np.stack([np.asarray(f["solution"][k]).reshape(
+        ne, -1) for k in ("density", "x-mom", "y-mom", "rho-E")], -1))
+    T_lte = lte_ctx(1, 2, False).mixture.temperature(U_lte)
+    conv = {}
+    t0 = time.perf_counter()
+    for device in ("cuda", "cpu"):
+        tps = channel_tps(torch.float64, f"lte_convert_{device}",
+                          device=device, path=lte_restart_deck(
+                              f"lte_convert_{device}", ckpt))
+        conv[device] = tps
+    s, s_cpu = conv["cuda"].solver, conv["cpu"].solver
+    U_card, U_cpu = s.U.double().cpu().clone(), s_cpu.U.double().clone()
+    conv_s = time.perf_counter() - t0
+    d_cpu = state_rel(U_card, U_cpu)
+    kept = state_rel(U_card[..., :4], U_lte)
+    T_conv = s_cpu.mixture.temperatures(U_cpu)[0]
+    dT = float(torch.max(torch.abs(T_conv - T_lte)))
+    written = h5lite.read(os.path.join(REPO, "build", "lte_convert_cuda",
+                                       "restart_output.sol.h5"))
+    want_names = {"density", "x-mom", "y-mom", "rho-E", "rho-Y_Ar.+1",
+                  "rho-Y_Ar_m", "rho-Y_Ar_r", "rho-Y_Ar_p", "rhoE_e"}
+    s.set_time(float(s.time), LTE_RESTART_DT)
+    reset_all_launches()
+    it0 = s.iter
+    conv["cuda"].solve()
+    torch.cuda.synchronize()
+    counts = launches_by_variant()
+    steps = s.iter - it0
+    want = {"face_sweep": 3 * steps, "face_sweep/gas_mixture": 3 * steps}
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    finite = bool(torch.isfinite(s.U).all())
+    ok = (d_cpu <= LTE_CONVERT_TOL and kept <= LTE_CONVERT_TOL
+          and set(written["solution"].keys()) == want_names
+          and not bad and finite and steps == 4)
+    log(f"  converted {ne} elements ({conv_s:.1f} s, card and CPU): card vs "
+        f"CPU {d_cpu:.3e} (bar {LTE_CONVERT_TOL}); bulk fields kept "
+        f"{kept:.3e}; |T converted - T of the LTE run| max {dT:.4e} K (T "
+        f"{float(T_lte.min()):.2f}-{float(T_lte.max()):.2f} K); datasets "
+        f"{sorted(written['solution'].keys())}; then {steps} steps: launches "
+        f"{counts}, finite {finite}" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit(f"the LTE restart failed its checks (launches off: "
+                         f"{bad})")
+    return {"card_vs_cpu": d_cpu, "bulk_kept": kept, "max_dT_K": dT,
+            "launches": counts, "convert_s": conv_s}
 
 
 def run(dev):
@@ -4055,6 +4487,18 @@ def run(dev):
     log_phase("phase 37: ms/step through solve() on the coupled channel (f32, "
               "f64) and argon_full at 64x64 p=2 (f32), graph vs eager")
     channel_steps = phase_channel_timing()
+    log_phase("phase 38: the face sweep's LTE variants vs plain (2-D and "
+              "3-D, 1-D and 2-D tables, NS and Euler; f64, f32), then each "
+              "variant's path through the CLI (f32, 2 steps)")
+    lte_faces, lte_err = phase_lte_faces(dev)
+    log_phase("phase 39: lte_channel_coupled.ini through the CLI (f32, 200 "
+              "steps, EM every 10), then f64 graph vs eager and card vs CPU "
+              "across an EM update (8x8), and ms/step (f32)")
+    lte_channel = phase_lte_channel(dev)
+    log_phase("phase 40: the LTE restart: phase 39's f64 checkpoint "
+              "converted into argon_full.ini's state on the card and the "
+              "CPU, then 4 steps (f64)")
+    lte_restart = phase_lte_restart(dev)
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -4127,6 +4571,23 @@ def run(dev):
             "f64_max_rel_err": rec["f64_rel_err"]})
     kernels[2]["launches_by_path"]["argon_channel_coupled.ini"] = \
         variant_launches["argon_2d"]["face_sweep/argon_2d"]
+    # the LTE variants: launches on their paths' CLI runs (phases 38, 39),
+    # times and bounds at the width of those paths (phase 38)
+    lte_launches = lte_channel["as shipped f32"]["launches"][
+        "face_sweep/lte_2d"]
+    kernels[2]["launches_by_path"]["lte_channel_coupled.ini"] = lte_launches
+    for var, rec in lte_faces.items():
+        kernels.append({
+            "name": f"face_sweep/{var}", "route": "cuda",
+            "source": "tps_torch/csrc/face_sweep_lte"
+                      + ("3d" if "_3d" in var else "") + ".cu",
+            "replaces": "tools/pallas_face_prototype.py:102",
+            "launches": lte_launches if var == "lte_2d" else rec["launches"],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "grid": rec["grid"],
+            "f64_ms": rec["f64_ms"], "f64_max_rel_err": rec["f64_rel_err"]})
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
                                    "plain_ms_per_rhs": v["plain_ms_per_rhs"],
@@ -4169,6 +4630,9 @@ def run(dev):
         "face sweep variants": mix_faces, "variants f64 max rel err": mix_err,
         "coupled channel": channel, "decks": mix_decks,
         "solve() ms/step": channel_steps}
+    summary["LTE-table plasma"] = {
+        "face sweep variants": lte_faces, "variants f64 max rel err": lte_err,
+        "coupled channel": lte_channel, "restart": lte_restart}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

@@ -14,12 +14,9 @@ package's, on the CPU in f64.
   initial state): its checks on the port (power on target to 1e-8 at each
   EM solve, the energy rose, the heating reached the flow) and the flow
   state, the Joule heating and the E-field within 1e-9 of tps_tpu's.
-- tps_torch/tools/argon_channel_coupled.ini with its flow mesh cut to 8x8
-  (p=2), its EM mesh to 16x24 and an EM update every 5 steps, 7 steps
-  (updates at 0 and 5): through both packages' API, the state within
-  1e-9 and the power on target to 1e-8; through the CLI entry
-  (`harness.main`, as `python -m tps_torch --device cpu` runs it, f32)
-  to its end.
+
+The coupled channel deck (tps_torch/tools/argon_channel_coupled.ini) is
+held in tests/test_torch_compressible_channel.py.
 """
 
 import os
@@ -32,7 +29,6 @@ torch.set_num_threads(1)
 
 import jax.numpy as jnp  # noqa: E402
 
-from tps_torch import harness  # noqa: E402
 from tps_torch.config.ini import IniInput  # noqa: E402
 from tps_torch.config.run_config import parse_run_configuration  # noqa: E402
 from tps_torch.dg.forcing import JouleHeating  # noqa: E402
@@ -53,7 +49,6 @@ from tps_tpu.solvers.em.qms import \
 HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 MINIMAL = os.path.join(HERE, "inputs", "argon_minimal.ini")
-CHANNEL = os.path.join(REPO, "tps_torch", "tools", "argon_channel_coupled.ini")
 TOL = 1e-12
 DECK_TOL = 1e-9
 POWER_TOL = 1e-8
@@ -233,74 +228,3 @@ def test_cycle_avg_joule_coupling(tmp_path):
     assert _state_rel(c.flow.state_global(), jc.flow.U) <= DECK_TOL
     assert _rel(qj, jc.flow.get_joule_heating()) <= DECK_TOL
     assert _rel(c.flow.get_efield(), jc.flow.get_efield()) <= DECK_TOL
-
-
-# ------------------------------------------------------------ the deck
-
-
-def _channel_small(tmp_path, iters=7):
-    with open(CHANNEL) as f:
-        text = f.read()
-    text = text.replace("nx = 64", "nx = 8").replace("ny = 64", "ny = 8")
-    text = text.replace("nx = 32", "nx = 16").replace("ny = 48", "ny = 24")
-    text = text.replace("solve-em-every-n = 10", "solve-em-every-n = 5")
-    text = text.replace("maxIters = 200", f"maxIters = {iters}")
-    text = text.replace("outdirBase = output/argon_channel_coupled",
-                        f"outdirBase = {tmp_path / 'out'}")
-    path = tmp_path / "channel.ini"
-    path.write_text(text)
-    return str(path)
-
-
-def test_channel_deck_matches_jax(tmp_path):
-    """tps_torch/tools/argon_channel_coupled.ini cut to size (8x8 p=2, EM
-    at steps 0 and 5 of 7): inlet with species, pressure outlet, two
-    general walls and the coil, through both packages' Tps API from
-    tps_tpu's initial state."""
-    from tps_tpu.harness import Tps as JTps
-
-    path = _channel_small(tmp_path)
-    tps = harness.Tps()
-    tps.parse_command_line_args(["tps", "--runFile", path, "--device", "cpu"])
-    tps.parse_input()
-    tps.choose_devices()
-    tps.choose_solver()
-    tps.initialize()
-    c = tps.solver
-    assert isinstance(c, CycleAvgJouleCoupling)
-    assert c.plasma_kind == "compressible"
-    kinds = sorted(type(b.bc).__name__ for b in c.flow.bc_slices)
-    assert kinds == ["GeneralWallBC", "GeneralWallBC", "InletBC", "OutletBC"]
-    jtps = JTps()
-    jtps.input_file = path
-    jtps.parse_input()
-    jtps.choose_devices()
-    jtps.choose_solver()
-    jtps.initialize()
-    jc = jtps.solver
-    c.flow.set_state_global(np.asarray(jc.flow.U))
-    tps.solve()
-    # tps_tpu's coupled loop in its per-step form (its chunked solve()
-    # equals it on the compressible solver)
-    while jc.iter < jc.max_iters:
-        jc.solve_step()
-    assert c.iter == jc.iter == 7 and len(c.em_log) == 2
-    for e in c.em_log:
-        assert abs(e["joule"] / e["target"] - 1.0) < POWER_TOL
-    assert _state_rel(c.flow.state_global(), jc.flow.U) <= DECK_TOL
-    assert _rel(c.flow.get_joule_heating(),
-                jc.flow.get_joule_heating()) <= DECK_TOL
-    Up = c.flow.mixture.primitives(c.flow.U).numpy()
-    assert np.isfinite(Up).all() and Up[..., -1].max() > 300.0
-
-
-def test_channel_deck_through_the_cli(tmp_path, capsys):
-    torch.set_default_dtype(torch.float32)
-    path = _channel_small(tmp_path, iters=10)
-    assert harness.main(["tps", "--runFile", path, "--device", "cpu"]) == 0
-    out = capsys.readouterr().out
-    assert out.count("total input Joule heating") == 2
-    from tps_torch.io import h5lite
-
-    f = h5lite.read(str(tmp_path / "out" / "restart_output.sol.h5"))
-    assert int(f.attrs["iteration"]) == 10

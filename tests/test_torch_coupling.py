@@ -25,11 +25,12 @@ cross-mesh interpolator against the JAX package's, on the CPU in f64.
 - examples/cases/torch_axisym_coupled.ini as shipped, maxIters cut to 12,
   through the CLI's entry (`tps_torch.harness.main`, as
   `python -m tps_torch --device cpu` runs it, in f32);
-- refusals of what stays out: the LTE fluid in the compressible plasma
-  solver under the coupling (ROADMAP A6.3), a 3-D EM mesh and the `em`
-  solver (A10).  The reacting thermo under the coupling runs:
+- refusals of what stays out: axisymmetric flow in the compressible
+  plasma solver under the coupling (ROADMAP A5.3), a 3-D EM mesh and the
+  `em` solver (A10).  The reacting thermo under the coupling runs:
   tests/test_torch_reacting.py; the compressible plasma solver:
-  tests/test_torch_compressible_coupling.py.
+  tests/test_torch_compressible_coupling.py, with the LTE fluid
+  tests/test_torch_lte_coupled.py.
 """
 
 import os
@@ -439,10 +440,12 @@ def test_shipped_deck_runs_through_the_cli(tmp_path, capsys):
 
 # (ini keys, run-configuration fields, ROADMAP item); the compressible
 # plasma solver under the coupling runs (tests/test_torch_compressible_
-# coupling.py), with the LTE fluid it raises
+# coupling.py), with the LTE fluid too (tests/test_torch_lte_coupled.py);
+# with axisymmetric flow it raises
 REFUSALS = {
     "compressible": ({"cycle-avg-joule-coupled/plasma-solver":
-                      "compressible"}, {"fluid": "lte_table"}, "A6.3"),
+                      "compressible"},
+                     {"fluid": "lte_table", "axisymmetric": True}, "A5.3"),
     "qms3d": ({"cycle-avg-joule-coupled/axisymmetric": "0"}, {}, "A10"),
     "em3d": ({"solver/type": "em"}, {}, "A10"),
 }

@@ -14,7 +14,9 @@ dense refresh, and inside an interpolated inlet's ramp; a ReactingFlow
 step on the card matches the CPU.  The face sweep's mixture variants (the
 argon ternary in 3-D and on Euler, with constant transport; the
 six-species mixture) == their plain versions; the coupled compressible
-argon channel's step graph == eager steps across an EM update.
+argon channel's step graph == eager steps across an EM update.  The
+LTE-table fluid's eight variants == their plain versions (f64 2.2e-13);
+the LTE channel's step graph == eager steps across an EM update.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -833,6 +835,115 @@ def test_coupled_channel_graph_matches_eager(device, f64, tmp_path):
         assert cuda_faces.variant_launches["argon_2d"] == 48
         assert cuda_faces.launches["face_sweep"] == 48
         assert c.flow.joule_heating.data_ptr() == ptr
+        assert len(c.em_log) == 2
+        out[graphs] = c.flow.state_global()
+    np.testing.assert_allclose(out[True], out[False], rtol=0,
+                               atol=1e-12 * np.max(np.abs(out[False])))
+
+
+# ---------------------------------------------------------------- LTE
+
+
+def _lte_case(var, n, dtype, device, tmp):
+    """An LTE variant's sweep and input: the LTE fluid on
+    tps_torch/tools/lte_argon_tables.py's tables (1-D, or 2-D written into
+    tmp, "_t2"), Navier-Stokes or Euler ("_euler"), 2-D or 3-D by n; a
+    periodic box of 0.01 m, a hot state (T 9,500 K with a 20% wave) and its
+    DG gradient."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.physics.lte import load_lte_setup
+    from tps_torch.tools.lte_argon_tables import lte_keys
+
+    dim, euler = len(n), var.endswith("euler")
+    mix, tr = load_lte_setup(IniInput.parse(lte_keys(
+        2 if "_t2" in var else 1, str(tmp))), dim, dim)
+    fl = Fluxes(mixture=mix, transport=tr,
+                eq_system="euler" if euler else "navier-stokes")
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    mesh = (box_3d(*n, bounds=((0.0, 0.01),) * 3, periodic=(True,) * 3)
+            if dim == 3 else box_2d(*n, x1=0.01, y1=0.01, periodic_x=True,
+                                    periodic_y=True))
+    tab_np = build_tables(mesh, 2)
+    xyz = tab_np.xyz_dof
+    wave = (np.sin(2 * np.pi / 0.01 * xyz[..., 0])
+            * np.cos(2 * np.pi / 0.01 * xyz[..., 1]))
+    Up = np.zeros(xyz.shape[:-1] + (dim + 2,))
+    Up[..., 0] = 0.05 * (1 + 0.1 * wave)
+    Up[..., 1] = 10.0 + 30.0 * wave
+    Up[..., 2:1 + dim] = -5.0 * wave[..., None]
+    Up[..., -1] = 9500.0 * (1 + 0.2 * wave)
+    tab = tab_np.to_torch(torch.float64, device)
+    U = mix.conservatives(torch.as_tensor(Up, device=device))
+    X = U
+    if not euler:
+        G = dg_gradient(tab, mix.primitives(U))
+        X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    return build_face_sweep(tab_np.to_torch(dtype, device), ctx), \
+        X.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("var,n", [
+    ("lte_2d", (8, 8)), ("lte_2d_euler", (8, 8)), ("lte_2d_t2", (6, 6)),
+    ("lte_2d_t2_euler", (6, 6)), ("lte_3d", (3, 3, 3)),
+    ("lte_3d_euler", (3, 3, 3)), ("lte_3d_t2", (3, 3, 3)),
+    ("lte_3d_t2_euler", (3, 3, 3))])
+def test_face_sweep_lte_variants_match_plain(device, tmp_path, var, n, dtype):
+    """Each LTE variant against its plain version: f64 2.2e-13 of
+    max|plain| (the same lookups and Newton steps); f32 within 5e-5, or no
+    farther from the f64 plain result than twice the f32 plain version;
+    one launch, counted under its variant."""
+    sw, X = _lte_case(var, n, dtype, device, tmp_path)
+    assert sw.variant == var and sw.physics == "lte"
+    cuda_faces.reset_launches()
+    z = sw(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    assert cuda_faces.variant_launches[var] == 1
+    plain = sw.plain(X)
+    if dtype == torch.float64:
+        assert _rel(z, plain) <= 2.2e-13
+    else:
+        sw64, _ = _lte_case(var, n, torch.float64, device, tmp_path)
+        ref = sw64.plain(X.double())
+        assert (_rel(z, plain) <= TOL[dtype]
+                or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
+
+
+def test_lte_channel_graph_matches_eager(device, f64, tmp_path):
+    """tps_torch/tools/lte_channel_coupled.ini cut to 8x8 p=2 and 12 steps
+    (EM updates at 0 and 10): graph replays == eager steps (f64, 1e-12 of
+    max|U|), 48 launches of the 2-D LTE sweep each way."""
+    from tps_torch import harness
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    text = open(os.path.join(repo, "tps_torch", "tools",
+                             "lte_channel_coupled.ini")).read()
+    text = text.replace("nx = 64", "nx = 8").replace(
+        "ny = 64", "ny = 8").replace("maxIters = 200", "maxIters = 12")
+    for rel in ("tps_torch/tools/lte_argon_thermo.h5",
+                "tps_torch/tools/lte_argon_trans.h5",
+                "examples/cases/nec_table.h5"):
+        text = text.replace(rel, os.path.join(repo, rel))
+    out = {}
+    for graphs in (True, False):
+        path = tmp_path / f"lte_{graphs}.ini"
+        path.write_text(text.replace(
+            "outdirBase = output/lte_channel_coupled",
+            f"outdirBase = {tmp_path / str(graphs)}"))
+        tps = harness.Tps()
+        tps.parse_command_line_args(["tps", "--runFile", str(path)])
+        tps.parse_input()
+        tps.choose_devices()
+        tps.choose_solver()
+        tps.initialize()
+        c = tps.solver
+        c.flow.cuda_graphs = graphs
+        cuda_faces.reset_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        assert cuda_faces.variant_launches["lte_2d"] == 48
+        assert cuda_faces.launches["face_sweep"] == 48
         assert len(c.em_log) == 2
         out[graphs] = c.flow.state_global()
     np.testing.assert_allclose(out[True], out[False], rtol=0,

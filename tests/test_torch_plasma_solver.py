@@ -10,11 +10,11 @@ the CPU.
    through tools/soln_differ.py with the flags of
    tests/test_statistics_restart.py::test_golden_argon_regression.
 3. Each plasma input outside the slice raises NotImplementedError naming
-   its ROADMAP item: the LTE fluid (A6.3), LTE restarts (A6.4), passive
-   scalars (A5.4), axisymmetric flow (A5.3) and the injected `bte` rates
-   (A11.3).  The mixture decks with boundaries, general and constant
-   transport run: tests/test_torch_mixture_bc.py and
-   tests/test_torch_gas_mixture.py.
+   its ROADMAP item: passive scalars (A5.4), axisymmetric flow (A5.3) and
+   the injected `bte` rates (A11.3).  The mixture decks with boundaries,
+   general and constant transport run: tests/test_torch_mixture_bc.py and
+   tests/test_torch_gas_mixture.py; the LTE fluid and LTE restarts run:
+   tests/test_torch_lte_fluid.py and tests/test_torch_lte_restart.py.
 """
 
 import dataclasses
@@ -141,15 +141,16 @@ def _deck(tmp_path, edit):
     return str(path)
 
 
+# the ids of the cases the LTE fluid and restart (edit0, edit1) left
 @pytest.mark.parametrize("edit,item", [
-    (lambda t: t.replace("[io]\n", "[io]\nrestartFromLTE = 1\n"), "A6.4"),
-    (lambda t: t.replace("fluid = user_defined", "fluid = lte_table"),
-     "A6.3"),
-    (lambda t: t.replace("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n"),
-     "A5.4"),
-    (lambda t: t.replace("axisymmetric = False", "axisymmetric = True"),
-     "A5.3"),
-    (lambda t: t.replace("model = arrhenius", "model = bte"), "A11.3"),
+    pytest.param(lambda t: t.replace(
+        "[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n"), "A5.4",
+        id="edit2-A5.4"),
+    pytest.param(lambda t: t.replace("axisymmetric = False",
+                                     "axisymmetric = True"), "A5.3",
+                 id="edit3-A5.3"),
+    pytest.param(lambda t: t.replace("model = arrhenius", "model = bte"),
+                 "A11.3", id="edit4-A11.3"),
 ])
 def test_unported_plasma_inputs_raise(tmp_path, edit, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -158,16 +159,15 @@ def test_unported_plasma_inputs_raise(tmp_path, edit, item):
 
 def test_mixture_boundaries_raise(tmp_path):
     """The inflow/outflow argon deck runs (tests/test_torch_mixture_bc.py
-    holds it against the JAX package); what still waits on it raises: the
-    LTE fluid (ROADMAP A6.3) and passive scalars (A5.4)."""
+    holds it against the JAX package); what still waits on it raises:
+    passive scalars (ROADMAP A5.4)."""
     path = os.path.join(HERE, "inputs", "argon_inflow_outflow.ini")
     s = _solver(path, tmp_path).solver
     assert len(s.bc_slices) == 2
     with open(path) as f:
         text = f.read()
     for old, new, item in (
-            ("fluid = user_defined", "fluid = lte_table", "A6.3"),
-            ("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n", "A5.4")):
+            ("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n", "A5.4"),):
         deck = tmp_path / "deck.ini"
         deck.write_text(text.replace(old, new))
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

@@ -262,3 +262,37 @@ def test_visual_mode_writes_the_jax_vtk(tmp_path, f64):
         "density": Up[..., 0], "velocity": Up[..., 1:3],
         "temperature": Up[..., 3], "pressure": mix.pressure(s.U).numpy()})
     assert vtk.read_bytes() == (tmp_path / "jax.vtk").read_bytes()
+
+
+def test_golden_vortex_regression(tmp_path, f64):
+    """The deck of the committed golden tests/ref_solns/vortex2d.5iters.h5
+    (tests/test_statistics_restart.py's VORTEX_AVG: tests/inputs/
+    vortex2d.ini's periodic Euler box at 6x6 p=2 with the default initial
+    condition; its [averaging] section, which does not touch the solution,
+    left out: the port's statistics are ROADMAP A12) through the port's CLI
+    in f64, 5 steps; its checkpoint against the golden by
+    tools/soln_differ.py with test_golden_vortex_regression's flags: the
+    port's checkpoint written by h5lite, read by h5py."""
+    import subprocess
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    golden = os.path.join(repo, "tests", "ref_solns", "vortex2d.5iters.h5")
+    with open(os.path.join(repo, "tests", "inputs", "vortex2d.ini")) as f:
+        text = f.read()
+    text = text.replace("nx = 8", "nx = 6").replace("ny = 8", "ny = 6")
+    text = text.replace("[initialConditions]\ncase = isentropic_vortex\n",
+                        "")
+    text = text.replace("outdirBase = /tmp/tps_tpu_test_output",
+                        f"outdirBase = {tmp_path / 'out'}")
+    path = tmp_path / "vortex2d.ini"
+    path.write_text(text)
+    assert "isentropic_vortex" not in text
+    assert harness.main(["tps", "--runFile", str(path), "--device",
+                         "cpu"]) == 0
+    ckpt = str(tmp_path / "out" / "restart_output.sol.h5")
+    r = subprocess.run(
+        [sys.executable, os.path.join(repo, "tools", "soln_differ.py"),
+         "-d", "2", "-t", "2e-10", "-u", "2e-8", "-e", "1e-11", "-r", ckpt,
+         golden], capture_output=True, text=True, cwd=repo)
+    assert r.returncode == 0, r.stdout + r.stderr

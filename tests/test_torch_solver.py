@@ -217,7 +217,6 @@ def test_nan_guard_reports_the_step(tmp_path, f64):
 
 @pytest.mark.parametrize("extra,match", [
     ("[boundaryConditions/in1]\npatch = 1\ntype = interpolate", "ROADMAP A5"),
-    ("[io]\nrestartFromLTE = 1", "ROADMAP A6"),
     ("[mesh]\npartitions = 2", "ROADMAP A8"),
     ("[io]\nenableHistory = 1", "ROADMAP A12"),
 ])

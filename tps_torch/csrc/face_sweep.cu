@@ -2,8 +2,9 @@
 // and slot mode (2-D and 3-D, Euler and Navier-Stokes), f32 and f64, and
 // the kernel's shared-memory plan.  The mixtures' instantiations are in
 // face_sweep_argon.cu, face_sweep_argon_const.cu and
-// face_sweep_gas_mixture.cu (each its own nvcc process), reached through
-// their dispatch functions.
+// face_sweep_gas_mixture.cu, and the LTE fluid's in face_sweep_lte.cu and
+// face_sweep_lte3d.cu (each its own nvcc process), reached through their
+// dispatch functions.
 
 #include "face_sweep.cuh"
 
@@ -12,10 +13,12 @@ constexpr int PHYSICS_DRY_AIR = 0;      // dg_pointwise.cuh::DryAirPhysics
 constexpr int PHYSICS_ARGON = 1;        // dg_mixture.cuh::ArgonMixture
 constexpr int PHYSICS_ARGON_CONST = 2;  // GasMixture<2, 3, true>
 constexpr int PHYSICS_GAS_MIXTURE = 3;  // GasMixture<2, 6, false>
+constexpr int PHYSICS_LTE = 4;          // dg_lte.cuh::LteFluid
 
 // slot mode; `p` as in dg_mixture.cuh::make_mix_phys (argon: 2-D and 3-D,
-// Navier-Stokes and Euler) or dg_gas_mixture.cuh::make_gas_phys (the
-// others: 2-D Navier-Stokes)
+// Navier-Stokes and Euler), dg_gas_mixture.cuh::make_gas_phys (2-D
+// Navier-Stokes) or dg_lte.cuh::make_lte_phys (the LTE fluid: 2-D and
+// 3-D, Navier-Stokes and Euler)
 #define TPS_DISPATCH(name)                                                  \
   template <typename T>                                                     \
   int name(const T* X, const T* B, const int* cf, const int* cp,            \
@@ -25,6 +28,7 @@ constexpr int PHYSICS_GAS_MIXTURE = 3;  // GasMixture<2, 6, false>
 TPS_DISPATCH(dispatch_argon)
 TPS_DISPATCH(dispatch_argon_const)
 TPS_DISPATCH(dispatch_gas_mixture)
+TPS_DISPATCH(dispatch_lte)
 #undef TPS_DISPATCH
 
 namespace {
@@ -39,6 +43,7 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
     auto fn = physics == PHYSICS_ARGON         ? dispatch_argon<T>
               : physics == PHYSICS_ARGON_CONST ? dispatch_argon_const<T>
               : physics == PHYSICS_GAS_MIXTURE ? dispatch_gas_mixture<T>
+              : physics == PHYSICS_LTE         ? dispatch_lte<T>
                                                : nullptr;
     if (fn == nullptr || prototype) return (int)cudaErrorInvalidValue;
     return fn(X, B, cf, cp, nbr, N, M, Y, ne, ndof, nqf, nlf, n_combo, nor_lf,
@@ -77,8 +82,9 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
 // N[lf * nor_lf + e * nor_e + s * dim + d]; `mask` may be null (all
 // slots interior); `physics` PHYSICS_DRY_AIR with `phys` as in
 // dg_pointwise.cuh::make_phys, PHYSICS_ARGON with `phys` as in
-// dg_mixture.cuh::make_mix_phys, or PHYSICS_ARGON_CONST /
-// PHYSICS_GAS_MIXTURE with `phys` as in dg_gas_mixture.cuh::make_gas_phys.
+// dg_mixture.cuh::make_mix_phys, PHYSICS_ARGON_CONST /
+// PHYSICS_GAS_MIXTURE with `phys` as in dg_gas_mixture.cuh::make_gas_phys,
+// or PHYSICS_LTE with `phys` as in dg_lte.cuh::make_lte_phys.
 // Each returns the cudaError_t of its launch.
 extern "C" {
 

@@ -25,8 +25,10 @@ are device reductions: nothing here reads a value back to the host.
 
 On a species mixture every BC goes through the mixture's BC helpers
 (physics/perfect_mixture.py: modify_energy_for_pressure,
-pressure_derivative, sound_speed_from_T), as in the JAX package.  Not
-ported: the interpolated inlet (ROADMAP A5.2).
+pressure_derivative, sound_speed_from_T), as in the JAX package; on the
+LTE-table fluid through its own (physics/lte.py), the walls with the
+table's background R and gamma at 300 K.  Not ported: the interpolated
+inlet (ROADMAP A5.2).
 """
 
 from __future__ import annotations

@@ -28,7 +28,9 @@ csrc/face_sweep.cu::face_plan).  Two modes:
   constant transport (csrc/face_sweep_argon_const.cu) and the six-species
   argon with the per-pair collision-integral transport
   (csrc/face_sweep_gas_mixture.cu), both `gas_mixture_phys` of
-  csrc/dg_gas_mixture.cuh.
+  csrc/dg_gas_mixture.cuh; the LTE-table fluid, 2-D or 3-D, 1-D or 2-D
+  tables, Navier-Stokes or Euler (`lte_phys`, csrc/dg_lte.cuh in
+  csrc/face_sweep_lte.cu and csrc/face_sweep_lte3d.cu).
 - prototype (`build_prototype_sweep`): Euler, the prototype's own
   Rusanov (per side |u.n| + c|n|), the uniform normals wts*nor shared by
   every element, mask 1, sign +1; its plain version is
@@ -57,18 +59,24 @@ from ..constants import AVOGADRO_NUMBER, PI, UNIVERSAL_GAS_CONSTANT
 from ..physics import collision_integrals as ci
 from ..physics import gas_transport as gt
 from ..physics import perfect_mixture as pm
+from ..physics.tables import LinearTable, Table2D, _on
 from .cuda_fused import (SHARED_LIMIT, _al4, _Library, build_kernels,
                          kernel_phys, kernel_transport, row_slot,
                          support_values, tile_plan)
 from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version)
 
 # the kernel's pointwise physics policies (csrc/face_sweep.cu's PHYSICS_*)
-PHYSICS_ID = {"dry_air": 0, "argon": 1, "argon_const": 2, "gas_mixture": 3}
+PHYSICS_ID = {"dry_air": 0, "argon": 1, "argon_const": 2, "gas_mixture": 3,
+              "lte": 4}
+# the LTE fluid's instantiations: lte_<dim>d, _t2 with 2-D (T, rho)
+# tables, _euler on Euler
+LTE_VARIANTS = tuple(f"lte_{dim}d{td}{eq}" for dim in (2, 3)
+                     for td in ("", "_t2") for eq in ("", "_euler"))
 # the instantiations, each counted on its own: DryAir; the argon plasma's
 # Navier-Stokes in 2-D and 3-D and its Euler form; the constant-transport
-# ternary; the six-species collision-integral mixture
+# ternary; the six-species collision-integral mixture; the LTE fluid's
 VARIANTS = ("dry_air", "argon_2d", "argon_3d", "argon_euler", "argon_const",
-            "gas_mixture")
+            "gas_mixture") + LTE_VARIANTS
 # kernel launches since the last reset_launches(), and each variant's
 launches = {"face_sweep": 0}
 variant_launches = {v: 0 for v in VARIANTS}
@@ -89,7 +97,8 @@ def face_sweep_supported(tab_np, ctx) -> bool:
     """Preconditions of the kernel in slot mode: neighbor-slot tables,
     2-D or 3-D, one velocity per dimension, Rusanov, planar, single
     device, and one of its physics: DryAir, Euler or Navier-Stokes with
-    Sutherland or constant transport; or a mixture of `mixture_physics`."""
+    Sutherland or constant transport; a mixture of `mixture_physics`; or
+    the LTE fluid (`lte_table_dim`)."""
     t = tab_np
     if t.nbr_row is None or t.dim not in (2, 3):
         return False
@@ -107,6 +116,8 @@ def face_sweep_supported(tab_np, ctx) -> bool:
         return False
     if type(mix).__name__ == "PerfectMixture":
         return mixture_physics(ctx, t.dim) is not None
+    if type(mix).__name__ == "LteMixture":
+        return lte_table_dim(ctx) is not None
     if type(mix).__name__ != "DryAir" or mix.n_passive:
         return False
     return fl.eq_system == "euler" or kernel_transport(fl.transport)
@@ -140,8 +151,62 @@ def mixture_physics(ctx, dim):
     return None
 
 
+def _lte_tables(ctx):
+    """The LTE fluid's tables in csrc/dg_lte.cuh::LtePhys's order: e(T,
+    rho), R, c, the T(e, rho) guess, mu, kappa (on Euler, where no
+    transport is read, the energy table stands for mu and kappa)."""
+    mix, tr = ctx.mixture, ctx.fluxes.transport
+    visc = (tr.mu_table, tr.kappa_table) if tr is not None else (
+        mix.energy_table,) * 2
+    return (mix.energy_table, mix.R_table, mix.c_table, mix.T_table) + visc
+
+
+def lte_table_dim(ctx):
+    """1 or 2, the kind of every table of the LTE fluid (LinearTable or
+    Table2D), or None outside the kernel's LTE policy: Navier-Stokes with
+    LteTransport, or Euler; the tables all of one kind."""
+    fl = ctx.fluxes
+    if fl.eq_system != "euler" and type(fl.transport).__name__ != \
+            "LteTransport":
+        return None
+    kinds = {type(t) for t in _lte_tables(ctx)}
+    if kinds == {LinearTable}:
+        return 1
+    if kinds == {Table2D}:
+        return 2
+    return None
+
+
+def lte_phys(ctx, dtype, device):
+    """The LTE policy's constants (csrc/dg_lte.cuh::make_lte_phys): the
+    table dim and the Newton count, then per table three device addresses
+    and three ints.  The arrays are the tables' own device copies in
+    dtype (physics/tables.py::_on, the plain version's), which the tables
+    keep alive; their addresses go as doubles, exact below 2^53."""
+    td = lte_table_dim(ctx)
+    vals = [float(td), float(ctx.mixture.newton_iters)]
+    key = (dtype, torch.device(device))
+    for t in _lte_tables(ctx):
+        if td == 1:
+            arrs = _on(t._dev, key, t._coeffs())
+            ints = (len(t.x), int(t.x_log), int(t.f_log))
+        else:
+            arrs = _on(t._dev, key, (t.x, t.y, t.f))
+            ints = (len(t.x), len(t.y), 0)
+        for a in arrs:
+            if not a.is_contiguous() or a.data_ptr() >= 2**53:
+                raise ValueError("an LTE table's device array cannot be "
+                                 "passed to the face-sweep kernel")
+            vals.append(float(a.data_ptr()))
+        vals += [float(i) for i in ints]
+    return vals
+
+
 def variant(ctx, dim):
     """The instantiation (`VARIANTS`) the kernel runs for ctx."""
+    if type(ctx.mixture).__name__ == "LteMixture":
+        return (f"lte_{dim}d" + ("_t2" if lte_table_dim(ctx) == 2 else "")
+                + ("_euler" if ctx.fluxes.eq_system == "euler" else ""))
     if type(ctx.mixture).__name__ != "PerfectMixture":
         return "dry_air"
     physics = mixture_physics(ctx, dim)
@@ -230,10 +295,13 @@ def gas_mixture_phys(ctx):
     return [float(v) for v in vals]
 
 
-def face_physics(ctx, dim):
-    """(physics, packed constants) of the kernel for ctx: "dry_air"
-    (cuda_fused.kernel_phys), "argon" (`mixture_phys`), "argon_const" or
-    "gas_mixture" (`gas_mixture_phys`)."""
+def face_physics(ctx, dim, dtype, device):
+    """(physics, packed constants) of the kernel for ctx in dtype on
+    device: "dry_air" (cuda_fused.kernel_phys), "argon" (`mixture_phys`),
+    "argon_const" or "gas_mixture" (`gas_mixture_phys`), "lte"
+    (`lte_phys`)."""
+    if type(ctx.mixture).__name__ == "LteMixture":
+        return "lte", lte_phys(ctx, dtype, device)
     if type(ctx.mixture).__name__ != "PerfectMixture":
         return "dry_air", kernel_phys(ctx)
     physics = mixture_physics(ctx, dim)
@@ -356,8 +424,8 @@ class CudaFaceSweep:
     nor_e: int
     sign: float
     physics: str  # a PHYSICS_ID key (`face_physics`)
-    phys: object  # ctypes doubles: kernel_phys, mixture_phys or
-    # gas_mixture_phys
+    phys: object  # ctypes doubles: kernel_phys, mixture_phys,
+    # gas_mixture_phys or lte_phys
     variant: str = "dry_air"  # its instantiation (`VARIANTS`)
 
     @property
@@ -433,7 +501,7 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         _check_cuda(tab, viscous, dtype, device, neq)
     # outside the preconditions (the CPU only) the plain version runs and
     # the kernel's constants are not needed
-    physics, phys = (face_physics(ctx, tab.dim) if supported
+    physics, phys = (face_physics(ctx, tab.dim, dtype, device) if supported
                      else ("none", []))
     nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
     cface, cperm = _combo_tensors(tab.Btr_or.cpu().numpy(), nlf, nqf, device)

@@ -16,9 +16,10 @@ State layout:
 
 The BC helpers (pressure_derivative, conserved_from_convective_flux,
 stagnant_state_with_temp, modify_energy_for_pressure, sound_speed_from_T)
-serve dg/bc.py's walls, inlets and outlets on a mixture.  Not here: the
-LTE initialisation (saha_ionization_fraction, species_from_lte,
-state_from_lte), ROADMAP A6.4.
+serve dg/bc.py's walls, inlets and outlets on a mixture.  The LTE
+initialisation (saha_ionization_fraction, species_from_lte,
+state_from_lte) serves the LTE restart (solvers/compressible.py,
+io/restartFromLTE).
 """
 
 from __future__ import annotations
@@ -464,3 +465,153 @@ class PerfectMixture:
         if self.two_temperature:
             out = torch.cat([out[..., : self.i_te], Ue[..., None]], dim=-1)
         return out
+
+
+# -- the LTE initialisation (tps_tpu/physics/perfect_mixture.py:531-714) ----
+
+
+def _f64(x):
+    """x as a float64 tensor (numbers and arrays included)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float64)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+
+def saha_ionization_fraction(n_total, T, ionization_energy_J_per_mol,
+                             g_ratio=6.0):
+    """Saha equilibrium ionization fraction x = n_e / n_nuclei for a single
+    positive ion species (the role of PerfectMixture::GetSpeciesFromLTE,
+    reference: src/equation_of_state.cpp:1910+, 'weakly ionized perfect
+    gas' assumptions).
+
+    n_total in mol/m^3 (nuclei), T in K; g_ratio = 2 g_ion / g_neutral.
+    Tensors keep their dtype; numbers are taken in f64."""
+    from ..constants import (AVOGADRO_NUMBER, BOLTZMANN_CONSTANT,
+                             ELECTRON_MASS, PI, PLANCK_CONSTANT)
+
+    T = T if isinstance(T, torch.Tensor) else _f64(T)
+    n_total = (n_total if isinstance(n_total, torch.Tensor)
+               else _f64(n_total))
+    lam = PLANCK_CONSTANT / torch.sqrt(
+        2.0 * PI * ELECTRON_MASS * BOLTZMANN_CONSTANT * T)
+    # S = (g_ratio / lambda^3) exp(-E_ion / R T)  [1/m^3] -> molar
+    S = (g_ratio / lam**3) * torch.exp(
+        -ionization_energy_J_per_mol / (_R * T)) / AVOGADRO_NUMBER
+    # x^2 / (1 - x) = S / n  ->  x = (-s + sqrt(s^2 + 4 s)) / 2, s = S/n
+    s = S / torch.clamp(n_total, min=1e-300)
+    x = 0.5 * (-s + torch.sqrt(s * s + 4.0 * s))
+    return torch.clamp(x, 0.0, 1.0)
+
+
+def _lte_level_structure(mixture):
+    """(neutral levels, the ion, degeneracies) of the mixture's active
+    species: the lumped excited neutral levels, the single positive ion
+    and the per-species level degeneracies (level_degeneracy in the
+    ini)."""
+    charges = np.asarray(mixture.charges)
+    na = mixture.num_active_species
+    g = np.asarray(mixture.degeneracy if mixture.degeneracy is not None
+                   else np.ones(mixture.num_species))
+    ions = [sp for sp in range(na)
+            if charges[sp] > 0.0 and sp != mixture.i_electron]
+    if len(ions) != 1:
+        raise NotImplementedError(
+            "LTE species initialization supports exactly one positive ion "
+            f"(found {len(ions)} among the active species); the reference "
+            "makes the same assumption (src/equation_of_state.cpp:1902-1905)")
+    levels = [sp for sp in range(na)
+              if charges[sp] == 0.0 and sp != mixture.i_electron]
+    return levels, ions[0], g
+
+
+def species_from_lte(mixture, rho, T):
+    """Active-species number densities [..., n_active] at LTE for a weakly
+    ionized atomic mixture at (rho, T): the Saha equation for the
+    ionization balance, with the neutral partition function over the
+    lumped excited levels, then Boltzmann level populations (reference:
+    PerfectMixture::GetSpeciesFromLTE, src/equation_of_state.cpp:
+    1894-1966).  The nuclei density is rho / mw_background, so mass is
+    preserved (the reference works from the table pressure instead).
+    rho and T: tensors (their dtype) or numbers (f64)."""
+    from ..constants import (AVOGADRO_NUMBER, BOLTZMANN_CONSTANT,
+                             ELECTRON_MASS, PI, PLANCK_CONSTANT)
+
+    T = T if isinstance(T, torch.Tensor) else _f64(T)
+    rho = rho if isinstance(rho, torch.Tensor) else _f64(rho)
+    mw = np.asarray(mixture.mw)
+    hf = np.asarray(mixture.formation_energy)
+    levels, i_ion, g = _lte_level_structure(mixture)
+    ib = mixture.i_background
+
+    n_nuc = rho / mw[ib]
+
+    # neutral partition function: the ground state (1) and the lumped
+    # levels
+    RT = _R * T
+    Q_n = 1.0
+    for sp in levels:
+        Q_n = Q_n + g[sp] * torch.exp(-hf[sp] / RT)
+    Q_i = g[i_ion]
+    Q_e = 2.0
+    mr32 = (mw[i_ion] / mw[ib]) ** 1.5
+
+    # S = mr32 (Q_e Q_i / Q_n) / (lambda_e^3 N_A) exp(-E_ion / RT), in log
+    # space: 2 pi m_e k T ~ 1e-52 underflows f32
+    log_lam3 = 3.0 * (
+        float(np.log(PLANCK_CONSTANT))
+        - 0.5 * (float(np.log(2.0 * PI * ELECTRON_MASS * BOLTZMANN_CONSTANT))
+                 + torch.log(T)))
+    S = torch.exp(float(np.log(mr32 * Q_e / AVOGADRO_NUMBER))
+                  + torch.log(Q_i / Q_n) - log_lam3 - hf[i_ion] / RT)
+    # Saha: n_e^2 = S n_neutral with n_neutral = n_nuc - n_e
+    n_e = 0.5 * (-S + torch.sqrt(S * S + 4.0 * S * n_nuc))
+    n_e = torch.minimum(torch.clamp(n_e, min=0.0), n_nuc)
+    n_neutral = n_nuc - n_e
+
+    out = [None] * mixture.num_active_species
+    for sp in levels:
+        out[sp] = n_neutral * g[sp] * torch.exp(-hf[sp] / RT) / Q_n
+    out[i_ion] = n_e
+    if not mixture.ambipolar:
+        out[mixture.i_electron] = n_e
+    return torch.stack(out, dim=-1)
+
+
+def state_from_lte(mixture, U, newton_iters=30):
+    """The conserved state at LTE from the bulk fields of U (density,
+    momentum, total energy; the species and electron-energy slots are
+    ignored): T from Newton on e_int(T; Saha species at (rho, T)) =
+    rhoE - ke, with its exact derivative (forward mode), so mass,
+    momentum and energy are kept (the role of io/restartFromLTE and
+    M2ulPhyS::initilizeSpeciesFromLTE, reference: src/M2ulPhyS.cpp:
+    2388-2470).  Two-temperature mixtures get Te = T (reference :2455)."""
+    mw = np.asarray(mixture.mw)
+    nvel = mixture.nvel
+    rho = U[..., 0]
+    mom = U[..., 1 : 1 + nvel]
+    ke = 0.5 * torch.sum(mom * mom, dim=-1) / rho
+    e_target = U[..., mixture.i_th] - ke
+
+    def primitives(T, vel):
+        parts = [rho[..., None], vel, T[..., None],
+                 species_from_lte(mixture, rho, T)]
+        if mixture.two_temperature:
+            parts.append(T[..., None])
+        return torch.cat(parts, dim=-1)
+
+    def resid(T):
+        Up0 = primitives(T, torch.zeros_like(mom))
+        return mixture.conservatives(Up0)[..., mixture.i_th] - e_target
+
+    # initial guess: the all-neutral background gas
+    cv_bg = mixture.molar_cv_over_R[mixture.i_background] * _R
+    T = torch.clamp(e_target / (rho / mw[mixture.i_background] * cv_bg),
+                    min=200.0)
+    for _ in range(newton_iters):
+        r, dr = torch.func.jvp(resid, (T,), (torch.ones_like(T),))
+        # dr = d(rhoE)/dT >= rho cv > 0; the guard keeps a 0/0 from
+        # rounding out of the step
+        pos = dr > 0.0
+        step = r / torch.where(pos, dr, torch.ones_like(dr))
+        T = torch.clamp(torch.where(pos, T - step, T), min=200.0)
+    return mixture.conservatives(primitives(T, mom / rho[..., None]))

@@ -10,7 +10,12 @@ transport; mass-action chemistry with Arrhenius, tabulated and
 radiative-decay rates, net emission; its source term dg/source_term.py
 and the Joule heating dg/forcing.py forcings of the RHS; the mixture's
 walls, inlets and outlets; the species undershoot clip inside the step),
-Rusanov, explicit RK, and two right-hand sides:
+the LTE-table fluid (`fluid = lte_table`: physics/lte.py's table
+thermodynamics and transport with 1-D HDF5 or 2-D (T, rho) tables, net
+emission and the Joule heating through its sigma table), the LTE restart
+(io/restartFromLTE: a bulk checkpoint converted into the mixture's
+Saha/Boltzmann equilibrium and written at once), Rusanov, explicit RK,
+and two right-hand sides:
 
 - the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
   CUDA device the two hand-written kernels of dg/cuda_fused.py, on the
@@ -68,10 +73,13 @@ from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
                       init_bc_states)
 from ..dg.riemann import Rusanov
 from ..dg.source_term import SourceTerm
-from ..io.restart import RestartIO
+from ..io.restart import RestartIO, _solver_field_names
 from ..mesh import generators
 from ..physics.gas import DryAir
-from ..physics.plasma_config import build_plasma
+from ..physics.lte import load_lte_setup
+from ..physics.perfect_mixture import state_from_lte
+from ..physics.plasma_config import build_plasma, read_table_input
+from ..physics.radiation import NetEmission
 from ..physics.transport import ConstantTransport, DryAirTransport
 from ..time.integrators import get_integrator
 from ..utils.cases import isentropic_vortex, taylor_green_2d, uniform_state
@@ -172,7 +180,6 @@ def _apply_mesh_options(mesh, raw):
 
 # input keys outside this slice: (ini key, what it enables, ROADMAP item)
 _UNPORTED_KEYS = (
-    ("io/restartFromLTE", "LTE restart conversion", "A6.4"),
     ("mesh/partitions", "domain decomposition", "A8"),
     ("io/enableHistory", "the history file", "A12"),
     ("planeDump/isEnabled", "plane dumps", "A12"),
@@ -210,7 +217,9 @@ def check_slice(rc: RunConfiguration):
             raise ValueError("fluid 'user_defined' is read from the input "
                              "file's [plasma_models] and [species]")
     elif rc.fluid == "lte_table":
-        raise _not_ported("the LTE-table fluid (physics/lte.py)", "A6.3")
+        if rc.raw is None:
+            raise ValueError("fluid 'lte_table' is read from the input "
+                             "file's [flow/lte] tables")
     elif rc.fluid != "dry_air":
         # neither package has another fluid (the JAX package raises too)
         raise ValueError(f"fluid '{rc.fluid}': the fluids are dry_air, "
@@ -226,8 +235,9 @@ def check_slice(rc: RunConfiguration):
         raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5.3")
     for spec in rc.bcs:
         if spec.kind == "interpolate":
-            raise _not_ported("the interpolated inlet (needs "
-                              "interop/ext_data.py)", "A5")
+            raise _not_ported("the interpolated inlet (its BC, "
+                              "dg/bc.py's InterpolatedInletBC of the JAX "
+                              "package)", "A5.2")
         if spec.kind not in _BC_KINDS:
             raise NotImplementedError(
                 f"boundary condition type '{spec.kind}'")
@@ -305,8 +315,22 @@ class CompressibleSolver(PlasmaSolver):
         # in the reference (src/M2ulPhyS.cpp:1988,2041); enableRestart /
         # restartCycle only read one at start-up (:1930-1946)
         self._io = RestartIO(rc)
+        restart_from_lte = (rc.raw is not None
+                            and rc.raw.get("io/restartFromLTE", 0))
+        if restart_from_lte:
+            # an LTE checkpoint holds no species or electron energy: they
+            # read as optional (reference: registerIOVar(..., required=
+            # false), src/M2ulPhyS.cpp:1842-1853)
+            names = _solver_field_names(self)
+            self._restart_optional_fields = frozenset(
+                names[self.mixture.nvel + 2:])
         if rc.enable_restart or rc.restart_cycle:
             self.read_restart()
+        if restart_from_lte:
+            self._init_species_from_lte()
+            # the converted restart is written at once (reference:
+            # src/M2ulPhyS.cpp:1985-1991)
+            self.write_restart()
         self._enable_paraview = bool(
             rc.raw.get("io/enableParaview", 0) if rc.raw is not None else 0)
 
@@ -318,20 +342,37 @@ class CompressibleSolver(PlasmaSolver):
         self.plasma = None
         self._source_term = None
         forcings = []
-        if rc.fluid == "user_defined":
-            # the plasma (tps_tpu solvers/compressible.py:271-288)
-            self.plasma = build_plasma(rc.raw, dim, nvel)
-            self.mixture = self.plasma.mixture
-            self.transport = self.plasma.transport
+        if rc.fluid in ("user_defined", "lte_table"):
+            if rc.fluid == "user_defined":
+                # the plasma (tps_tpu solvers/compressible.py:271-288)
+                self.plasma = build_plasma(rc.raw, dim, nvel)
+                self.mixture = self.plasma.mixture
+                self.transport = self.plasma.transport
+                chemistry, radiation = (self.plasma.chemistry,
+                                        self.plasma.radiation)
+            else:
+                # the equilibrium table fluid (tps_tpu solvers/
+                # compressible.py:289-318): no chemistry; the source term
+                # is the radiation sink, and the sigma table gives the
+                # conductivity the Joule coupling reads
+                self.mixture, self.transport = load_lte_setup(rc.raw, dim,
+                                                              nvel)
+                chemistry, radiation = None, None
+                if rc.raw.get("plasma_models/radiation_model",
+                              "none") == "net_emission":
+                    radiation = NetEmission(read_table_input(
+                        rc.raw, "plasma_models/radiation_model/"
+                        "net_emission/tabulated"))
             self._source_term = SourceTerm(
                 mixture=self.mixture, transport=self.transport,
-                chemistry=self.plasma.chemistry,
-                radiation=self.plasma.radiation)
+                chemistry=chemistry, radiation=radiation)
             forcings += [self._source_term,
                          JouleHeating(mixture=self.mixture,
                                       heating=self.joule_heating)]
+            # the LTE fluid's Euler walls read its transport, as the JAX
+            # package's do (its Fluxes always carry the transport)
             transport = (None if rc.equation_system == "euler"
-                         else self.transport)
+                         and rc.fluid == "user_defined" else self.transport)
             self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
                                  eq_system=rc.equation_system)
             self.riemann = Rusanov(self.fluxes)
@@ -703,6 +744,23 @@ class CompressibleSolver(PlasmaSolver):
             self._loop.load_bc_states(
                 init_bc_states(self.ctx, self.tables, self._loop.U))
 
+    def _init_species_from_lte(self):
+        """Overwrite the state with the multi-level Saha/Boltzmann
+        equilibrium of its bulk (rho, momentum, rhoE) fields, the Newton in
+        f64 and the species clipped at 0 (reference: io/restartFromLTE +
+        M2ulPhyS::initilizeSpeciesFromLTE, src/M2ulPhyS.cpp:2388-2470;
+        tps_tpu solvers/compressible.py:1662-1682).  Nothing for a fluid
+        without species."""
+        mix = self.mixture
+        if getattr(mix, "num_active_species", 0) == 0:
+            return
+        U = state_from_lte(mix, self.U.to(torch.float64))
+        lo, hi = mix.nvel + 2, mix.nvel + 2 + mix.num_active_species
+        U = torch.cat([U[..., :lo], torch.clamp(U[..., lo:hi], min=0.0),
+                       U[..., hi:]], dim=-1)
+        self._loop.U.copy_(U)
+        self.U = self._loop.U
+
     def visualization(self):
         """The state as a ParaView-readable VTK file (the reference's
         paraviewColl->Save() and `tps --visual`); returns its path."""
@@ -761,8 +819,9 @@ class CompressibleSolver(PlasmaSolver):
 
     def evaluate_plasma_conductivity(self):
         """sigma at the solution nodes [ne, ndof] (reference:
-        M2ulPhyS::evaluatePlasmaConductivityGF, src/M2ulPhyS.cpp:4265);
-        0 for dry air."""
+        M2ulPhyS::evaluatePlasmaConductivityGF, src/M2ulPhyS.cpp:4265): the
+        source term's, from the mixture's transport or the LTE sigma
+        table; 0 for dry air."""
         if self._source_term is None:
             return torch.zeros_like(self.joule_heating)
         return self._source_term.plasma_conductivity(
