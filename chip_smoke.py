@@ -60,7 +60,15 @@ tps_torch/tools/lte_channel_coupled.ini through the CLI (its 2-D LTE sweep
 4 times a step), graph against eager steps and the card against the CPU
 in f64 across an EM update, ms/step; its f64 checkpoint converted by the
 LTE restart into argon_full.ini's six-species state on the card and on
-the CPU, then continued on the card.
+the CPU, then continued on the card.  The axisymmetric (r, z) flow with
+swirl (phases 41-43): the face sweep's axisymmetric variants (DryAir on
+Navier-Stokes and Euler, the argon ternary on both) against their plain
+versions at 64x64 p=2; tps_torch/tools/argon_torch_axisym.ini (the
+compressible argon torch on the axis under the Joule coupling) through the
+CLI in f32 and f64 (its argon_axi sweep 4 times a step), graph against
+eager steps and the card against the CPU in f64, ms/step, and on Euler;
+tps_torch/tools/axisym_pipe.ini at 32x128 p=2 against a plain RK3 loop
+(its dry_air_axi sweep 3 times a step).
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -1710,13 +1718,13 @@ def k2_bound(t, basis="gl", size=4):
 
 
 def face_bound(t, eq, basis, size=4, curved=False, argon=False, neq=None,
-               flux_ops=None):
+               flux_ops=None, axi=False):
     """The face sweep on tables t: per interior slot the own traces of X's
     k channels and the scatter of neq, per interior face the flux.  X in,
-    the result out, the normals, nbr_row, the mask and Btr_or.  `argon`:
-    the plasma's 6 equations (k = 18) and MIX_FACE_OPS (2-D, NS); a
-    mixture variant gives its neq and flux operations per point
-    (MIX_OPS)."""
+    the result out, the normals, nbr_row, the mask and Btr_or (`axi`:
+    and the slot points' radii).  `argon`: the plasma's 6 equations (k =
+    18) and MIX_FACE_OPS (2-D, NS); a mixture variant gives its neq and
+    flux operations per point (MIX_OPS)."""
     ne, nd, nq, nlf, dim = t.ne, t.ndof, t.nqf, t.nlf, t.dim
     if neq is None:
         neq = dim + 4 if argon else dim + 2
@@ -1728,7 +1736,8 @@ def face_bound(t, eq, basis, size=4, curved=False, argon=False, neq=None,
             else slots * nq * FACE_OPS[eq] * neq // 5 // 2)
     ops = 2 * slots * (k + neq) * trace + flux
     nbytes = (size * (ne * nd * k + ne * nd * neq + nlf * ne * nq * dim
-                      + ne * nlf + t.n_combo * nq * nd) + 4 * ne * nlf)
+                      + ne * nlf + t.n_combo * nq * nd
+                      + (ne * nlf * nq if axi else 0)) + 4 * ne * nlf)
     return bound(ops, nbytes)
 
 
@@ -3526,13 +3535,13 @@ def channel_tps(dtype, outdir, device="cuda", iters=None, keys=None,
     return tps
 
 
-def state_rel(U, ref, mix=None):
-    """max|U - ref| per equation over that equation's max, the momenta
-    over max rho times a speed (a channel's cross-stream momentum, and
-    every momentum of a gas at rest, starts at 0): max |u|, or the max
+def state_rel(U, ref, mix=None, nvel=2):
+    """max|U - ref| per equation over that equation's max, the nvel
+    momenta over max rho times a speed (a channel's cross-stream momentum,
+    and every momentum of a gas at rest, starts at 0): max |u|, or the max
     characteristic speed of `mix`: the largest."""
     U, ref = U.double().cpu(), ref.double().cpu()
-    dim = 2
+    dim = nvel
     speed = float(torch.max(torch.abs(ref[..., 1:1 + dim]) / ref[..., :1]))
     if mix is not None:
         speed = float(torch.max(mix.max_char_speed(ref)))
@@ -4275,6 +4284,336 @@ def phase_lte_restart(dev):
             "launches": counts, "convert_s": conv_s}
 
 
+# ---------------------------------------------------------------- axisymmetric
+
+# the axisymmetric compressible flow with swirl (phases 41-43)
+TORCH_AXI_DECK = os.path.join(REPO, "tps_torch", "tools",
+                              "argon_torch_axisym.ini")
+PIPE_DECK = os.path.join(REPO, "tps_torch", "tools", "axisym_pipe.ini")
+# the face flux per point of the axisymmetric policies (an estimate, as
+# MIX_OPS): DryAir's 2-D Navier-Stokes flux (FACE_OPS' 3-D count less a
+# fifth for the 2-D stress and normals) plus the swirl's convective term,
+# u_r / r, the swirl row and its work (~15 a side); Euler as 3-D Euler;
+# the argon policies' 2-D counts plus the same swirl terms
+AXI_OPS = {"dry_air_axi": FACE_OPS["navier-stokes"] * 4 // 5 + 30,
+           "dry_air_axi_euler": FACE_OPS["euler"],
+           "argon_axi": MIX_FACE_OPS + 30,
+           "argon_axi_euler": MIX_OPS["argon_euler"] + 6}
+# (record key, variant, equations, geometry): DryAir on the strip of
+# tests/test_axisymmetric.py (r in [0.2, 1.2], z periodic), the argon
+# policies on the torch deck's (r, z) box, which touches the axis; 64x64
+# p=2 GL, the torch deck's width
+AXI_FACE_CASES = (("dry_air_axi", "dry_air_axi", "navier-stokes", "strip"),
+                  ("dry_air_axi_euler", "dry_air_axi", "euler", "strip"),
+                  ("argon_axi", "argon_axi", "navier-stokes", "torch"),
+                  ("argon_axi_euler", "argon_axi_euler", "euler", "torch"))
+
+
+def axi_case(var, eq, geom, n=64):
+    """(RHS context, numpy tables, primitives) of an axisymmetric variant:
+    DryAir with Sutherland transport or the torch deck's argon ternary,
+    nvel = 3, on n x n p=2 GL axisymmetric tables; a perturbed state with
+    a rigid swirl (u_t = 5 r on the strip, 500 r on the 0.01 m box)."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.dg.discretization import build_tables
+    from tps_torch.dg.fluxes import Fluxes
+    from tps_torch.dg.rhs import RHSContext
+    from tps_torch.dg.riemann import Rusanov
+    from tps_torch.mesh.generators import box_2d
+    from tps_torch.physics.gas import DryAir
+    from tps_torch.physics.plasma_config import build_plasma
+    from tps_torch.physics.transport import DryAirTransport
+
+    if var.startswith("dry_air"):
+        mix = DryAir(dim=2, nvel=3)
+        tr = None if eq == "euler" else DryAirTransport(
+            mix.gas_constant, mix.specific_heat_ratio)
+    else:
+        pl = build_plasma(IniInput.read(TORCH_AXI_DECK), 2, 3)
+        mix, tr = pl.mixture, None if eq == "euler" else pl.transport
+    fl = Fluxes(mixture=mix, transport=tr, eq_system=eq, axisymmetric=True)
+    if geom == "strip":
+        mesh, L, swirl = box_2d(n, n, x0=0.2, x1=1.2, y1=1.0,
+                                periodic_y=True), 1.0, 5.0
+    else:
+        mesh, L, swirl = box_2d(n, n, x1=0.01, y1=0.01), 0.01, 500.0
+    tab_np = build_tables(mesh, 2, axisymmetric=True)
+    xyz = tab_np.xyz_dof
+    k = 2 * np.pi / L
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    Up = np.zeros(xyz.shape[:-1] + (mix.num_equations,))
+    if var.startswith("dry_air"):
+        Up[..., 0], Up[..., 4] = 1.2 * (1 + 0.05 * wave), 300.0 + 20 * wave
+    else:
+        Up[..., 0] = 1.6 * (1 + 0.05 * wave)
+        Up[..., 4] = 1800.0 * (1 + 0.05 * wave)
+        Up[..., 5] = 1e-3 * 1.6 / mix.mw[0] * (1 + 0.2 * wave)
+        Up[..., 6] = 9000.0 * (1 - 0.1 * wave)
+    Up[..., 1], Up[..., 2] = 3.0 * wave, 10.0 - 2.0 * wave
+    Up[..., 3] = swirl * xyz[..., 0]
+    return RHSContext(fluxes=fl, riemann=Rusanov(fl)), tab_np, Up
+
+
+def phase_axi_faces(dev):
+    """Phase 41: the face sweep's axisymmetric variants (dry_air_axi on
+    Navier-Stokes and Euler, argon_axi, argon_axi_euler) against their
+    plain versions, f64 within TOL and f32 by TOL's rule; each timed in
+    f32 (kernel, plain, kernel: CUDA events), on the device (profiler) and
+    in f64, with its bound.  Returns {case: record} and the largest f64
+    error."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+
+    failures, out, worst = [], {}, 0.0
+    for key, var, eq, geom in AXI_FACE_CASES:
+        t0 = time.perf_counter()
+        ctx, tab_np, Up = axi_case(var, eq, geom)
+        U = ctx.mixture.conservatives(torch.as_tensor(Up, device=dev))
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        tab32 = tab_np.to_torch(torch.float32, dev)
+        sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+        X64 = face_input(ctx, tab64, U)
+        X32 = X64.float()
+        reset_all_launches()
+        y64 = sw64(X64)
+        k32 = sw32(X32)
+        torch.cuda.synchronize()
+        counted = launches_by_variant()[f"face_sweep/{var}"]
+        p64, p32 = sw64.plain(X64), sw32.plain(X32)
+        ref = sw64.plain(X32.double())
+        r64, r32 = rel(y64, p64), rel(k32, p32)
+        dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+        swirl = float(p64[..., 3].abs().max()) > 0.0
+        name = f"{key} {geom} 64x64 p=2 gl"
+        ok = (r64 <= TOL[torch.float64] and sw64.variant == var
+              and counted == 2 and swirl
+              and (r32 <= TOL[torch.float32] or dk <= 2 * dp))
+        log(f"  {name} (NEQ {sw64.neq}, k {sw64.k}, {tab_np.ne} elements, "
+            f"set-up {time.perf_counter() - t0:.1f} s): f64 {r64:.3e} (bar "
+            f"{TOL[torch.float64]}); f32 {r32:.3e} (bar {TOL[torch.float32]}"
+            f", or f64 dist: kernel {dk:.3e} <= 2 x plain {dp:.3e}); "
+            f"launches under {var}: {counted}" + ("" if ok else "  FAIL"))
+        worst = max(worst, r64)
+        if not ok:
+            failures.append(name)
+        ms = [cuda_ms(lambda: sw32(X32), 30),
+              cuda_ms(lambda: sw32.plain(X32), 3),
+              cuda_ms(lambda: sw32(X32), 30)]
+        b = face_bound(tab_np, eq, "gl", neq=sw64.neq, flux_ops=AXI_OPS[key],
+                       axi=True)
+        out[key] = {
+            "grid": name, "variant": var, "neq": sw64.neq, "k": sw64.k,
+            "nodes": tab_np.ne * tab_np.ndof,
+            "ms": (ms[0] + ms[2]) / 2, "plain_ms": ms[1],
+            "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep", 20),
+            "f64_ms": cuda_ms(lambda: sw64(X64), 20),
+            "f64_device_ms": kernel_ms(lambda: sw64(X64), "face_sweep", 20),
+            "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+            "bytes_ms": b[3], "f64_rel_err": r64,
+            "max_abs_err": float(torch.max(torch.abs(k32 - p32))),
+            "f32_rel": r32, "f32_f64_dist": dk, "plain_f32_f64_dist": dp,
+            "turns": ms}
+        log(f"  timing {name} f32: {out[key]}")
+        del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"face sweep parity on the axisymmetric variants "
+                         f"failed: {failures}")
+    return out, worst
+
+
+def phase_torch_axi(dev):
+    """Phase 42: tps_torch/tools/argon_torch_axisym.ini (the compressible
+    argon torch in (r, z) with swirl under the Joule coupling, 64x64 p=2
+    GL, EM every 10 steps) through the CLI, 20 steps in f32 and in f64,
+    with the launch counts set to 0 before each: the argon_axi sweep 4
+    times a step, no other variant; finite; the steps replayed the step
+    graph; the power on target at each EM solve.  The f64 run at its step
+    12 against 12 eager steps (EM updates at 0 and 10) within GRAPH_TOL,
+    and at its step 3 against the port's CPU run of 3 steps within
+    CHANNEL_CPU_TOL (U, Joule heating, E-field, EM potential).  Then
+    ms/step graph and eager through the coupled solve() on the f32 run's
+    solver (phase 37's turns, from step 20); then the deck on Euler, 2
+    steps in f32, the argon_axi_euler sweep 4 times a step."""
+    out, runs = {}, {}
+    shipped = None
+    for name, dtype, device, graphs, iters in (
+            ("f32", torch.float32, "cuda", True, 20),
+            ("f64", torch.float64, "cuda", True, 20),
+            ("eager", torch.float64, "cuda", False, 12),
+            ("cpu3", torch.float64, "cpu", True, 3)):
+        tps = channel_tps(dtype, f"torch_axi_{name}", device=device,
+                          iters=iters, path=TORCH_AXI_DECK)
+        c = tps.solver
+        c.flow.cuda_graphs = graphs
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if name == "f64":  # its states at step 3 and 12 for the CPU's
+            for stop in (3, 12):  # and the eager run's
+                c.flow.config.max_iters = stop
+                tps.solve()
+                runs[f"card{stop}"] = {k: v.double().cpu().clone()
+                                       for k, v in channel_state(c).items()}
+            c.flow.config.max_iters = iters
+        tps.solve()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_by_variant()
+        steps = c.flow.iter
+        want = ({"face_sweep": 4 * steps, "face_sweep/argon_axi": 4 * steps}
+                if device == "cuda" else {})
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        state = {k: v.double().cpu().clone()
+                 for k, v in channel_state(c).items()}
+        finite = all(bool(torch.isfinite(v).all()) for v in state.values())
+        power = channel_power(c)
+        runs[name] = state
+        Up = c.flow.mixture.primitives(c.flow.U)
+        log(f"  {name}: {steps} steps in {wall:.1f} s, {len(c.em_log)} EM "
+            f"solves; launches {counts}; finite {finite}; |Joule after "
+            f"control / target - 1| <= {power:.2e}; T_e max "
+            f"{float(Up[..., -1].max()):.1f} K, max|u_t| "
+            f"{float(Up[..., 3].abs().max()):.4f} m/s; step graph "
+            f"{c.flow._loop.graph is not None}")
+        if (bad or not finite or tps.get_status() != 0 or steps != iters
+                or len(c.em_log) != (iters + 9) // 10
+                or (dtype == torch.float64 and power > POWER_TOL)
+                or (graphs and device == "cuda"
+                    and c.flow._loop.graph is None)):
+            raise SystemExit(f"the axisymmetric torch deck's {name} run "
+                             f"failed its checks (launches off: {bad})")
+        if name in ("f32", "f64"):
+            out[name] = {"steps": steps, "wall_s": wall, "launches": counts,
+                         "power_err": power}
+        if name == "f32":
+            shipped = c
+        del tps, c
+    graph_d = {k: (state_rel(runs["card12"][k], runs["eager"][k], nvel=3)
+                   if k == "U" else lrel(runs["card12"][k], runs["eager"][k]))
+               for k in runs["card12"]}
+    cpu_d = {k: (state_rel(runs["card3"][k], runs["cpu3"][k], nvel=3)
+                 if k == "U" else lrel(runs["card3"][k], runs["cpu3"][k]))
+             for k in runs["card3"]}
+    ok = (max(graph_d.values()) <= GRAPH_TOL
+          and max(cpu_d.values()) <= CHANNEL_CPU_TOL)
+    log(f"  f64: graph vs eager, 12 steps (EM updates at 0 and 10) "
+        f"{graph_d} (bar {GRAPH_TOL}); card vs the port's CPU run, 3 steps "
+        f"{cpu_d} (bar {CHANNEL_CPU_TOL})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the axisymmetric torch deck: card, CPU and eager "
+                         "differ")
+    out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu": cpu_d})
+    out["solve() ms/step"] = phase_channel_timing({"torch axisym f32":
+                                                   shipped})
+    # the Euler variant's path: the deck on Euler through the CLI, f32, 2
+    # steps
+    with open(TORCH_AXI_DECK) as f:
+        text = f.read().replace("equation_system = navier-stokes",
+                                "equation_system = euler")
+    path = os.path.join(REPO, "build", "torch_axi_euler.ini")
+    with open(path, "w") as f:
+        f.write(text)
+    tps = channel_tps(torch.float32, "torch_axi_euler", iters=2, path=path)
+    reset_all_launches()
+    tps.solve()
+    torch.cuda.synchronize()
+    counts = launches_by_variant()
+    want = {"face_sweep": 8, "face_sweep/argon_axi_euler": 8}
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    finite = bool(torch.isfinite(tps.solver.flow.U).all())
+    log(f"  Euler, f32, 2 steps: launches {counts}; finite {finite}")
+    if bad or not finite or tps.get_status() != 0:
+        raise SystemExit(f"the axisymmetric torch deck on Euler failed its "
+                         f"checks (launches off: {bad})")
+    out["euler f32"] = {"steps": 2, "launches": counts}
+    return out
+
+
+def phase_pipe(dev, n=(32, 128), steps=20):
+    """Phase 43: tps_torch/tools/axisym_pipe.ini (DryAir Navier-Stokes
+    with swirl state, RK3 CFL steps; axis, isothermal wall, inlet and
+    pressure outlet) at 32x128 p=2 GL through the solver in f64 (the
+    dry_air_axi sweep 3 times a step, the step graph) against a plain
+    RK3 loop over compute_rhs with the plain face sweep and the solver's
+    CFL dt rule, within SOLVER_TOL.  Then the deck on Euler (its
+    isothermal wall inviscid: Euler has no transport) through the CLI, 2
+    steps in f32: the dry_air_axi sweep's Euler form 3 times a step."""
+    from tps_torch.dg.cuda_faces import face_sweep_plain
+    from tps_torch.dg.rhs import compute_rhs
+
+    with open(PIPE_DECK) as f:
+        text = f.read()
+    text = (text.replace("nx = 4\n", f"nx = {n[0]}\n")
+            .replace("ny = 8\n", f"ny = {n[1]}\n")
+            .replace("maxIters = 4\n", f"maxIters = {steps}\n"))
+    path = os.path.join(REPO, "build", "axisym_pipe.ini")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(text)
+    tps = channel_tps(torch.float64, "axisym_pipe", path=path)
+    s = tps.solver
+    U0, dt0 = s.U.clone(), float(s.dt)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launches_by_variant()
+    U_solver = s.U.clone()
+    plain = functools.partial(face_sweep_plain, s.ctx, s.tables)
+    bc_states = tuple(None for _ in s.ctx.bcs)
+
+    def rhs(U, t):
+        return compute_rhs(s.ctx, s.tables, U, t, bc_states=bc_states,
+                           sweep=plain)
+
+    rc = s.config
+    U, t, dt = U0, 0.0, dt0
+    for _ in range(steps):
+        U, aux = s._integrator(rhs, U, t, dt)
+        t += dt
+        dt = rc.cfl * s.hmin / aux["max_char_speed"] / s.mesh.dim
+    err, moved = rel(U_solver, U), rel(U_solver, U0)
+    want = {"face_sweep": 3 * steps, "face_sweep/dry_air_axi": 3 * steps}
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    ok = (err <= SOLVER_TOL and moved > 0 and not bad
+          and s._loop.graph is not None and s.iter == steps)
+    log(f"  {n[0]}x{n[1]} p=2, {steps} RK3 steps in {wall:.1f} s: "
+        f"max|U_kernel - U_plain|/max|U_plain| = {err:.3e} (bar "
+        f"{SOLVER_TOL}); moved {moved:.3e}; t {float(s.time):.6e} vs plain "
+        f"{float(t):.6e}; launches {counts}" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the axisymmetric pipe: solver vs plain RK3 loop "
+                         f"failed (launches off: {bad})")
+    out = {"solver_vs_plain": err, "moved": moved, "wall_s": wall,
+           "launches": counts}
+    text = (text.replace("equation_system = navier-stokes",
+                         "equation_system = euler")
+            .replace("type = viscous_isothermal\ntemperature = 300\n",
+                     "type = inviscid\n"))
+    path = os.path.join(REPO, "build", "axisym_pipe_euler.ini")
+    with open(path, "w") as f:
+        f.write(text)
+    tps = channel_tps(torch.float32, "axisym_pipe_euler", iters=2, path=path)
+    s = tps.solver
+    reset_all_launches()
+    tps.solve()
+    torch.cuda.synchronize()
+    counts = launches_by_variant()
+    want = {"face_sweep": 6, "face_sweep/dry_air_axi": 6}
+    bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+    finite = bool(torch.isfinite(s.U).all())
+    euler = (s.ctx.fluxes.eq_system == "euler"
+             and not s._rhs.sweep.viscous)
+    log(f"  Euler, f32, 2 steps: launches {counts}; finite {finite}; the "
+        f"sweep's Euler form {euler}")
+    if bad or not finite or not euler or tps.get_status() != 0:
+        raise SystemExit(f"the axisymmetric pipe on Euler failed its checks "
+                         f"(launches off: {bad})")
+    out["euler f32"] = {"steps": 2, "launches": counts}
+    return out
+
+
 def run(dev):
     """Every phase on device dev; returns the kernels' record and the
     card's nvidia-smi line."""
@@ -4499,6 +4838,18 @@ def run(dev):
               "converted into argon_full.ini's state on the card and the "
               "CPU, then 4 steps (f64)")
     lte_restart = phase_lte_restart(dev)
+    log_phase("phase 41: the face sweep's axisymmetric variants vs plain "
+              "(dry_air_axi on Navier-Stokes and Euler on the strip, "
+              "argon_axi and argon_axi_euler on the torch deck's box on the "
+              "axis; 64x64 p=2 GL; f64, f32)")
+    axi_faces, axi_err = phase_axi_faces(dev)
+    log_phase("phase 42: argon_torch_axisym.ini through the CLI (f32 and "
+              "f64, 20 steps, EM every 10), f64 graph vs eager and card vs "
+              "CPU (3 steps), ms/step (f32); the deck on Euler (2 steps)")
+    torch_axi = phase_torch_axi(dev)
+    log_phase("phase 43: axisym_pipe.ini at 32x128 p=2 (DryAir NS, f64, 20 "
+              "RK3 steps) vs a plain RK3 loop; the pipe on Euler (2 steps)")
+    pipe = phase_pipe(dev)
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -4588,6 +4939,35 @@ def run(dev):
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
             "library_ms": None, "grid": rec["grid"],
             "f64_ms": rec["f64_ms"], "f64_max_rel_err": rec["f64_rel_err"]})
+    # the axisymmetric variants: launches on their paths' CLI runs (phases
+    # 42, 43; dry_air_axi's Euler form on the pipe's Euler run), times and
+    # bounds at the torch deck's width (phase 41)
+    axi_launches = {
+        "dry_air_axi": pipe["launches"]["face_sweep/dry_air_axi"],
+        "dry_air_axi_euler": pipe["euler f32"]["launches"][
+            "face_sweep/dry_air_axi"],
+        "argon_axi": torch_axi["f32"]["launches"]["face_sweep/argon_axi"],
+        "argon_axi_euler": torch_axi["euler f32"]["launches"][
+            "face_sweep/argon_axi_euler"]}
+    kernels[2]["launches_by_path"]["argon_torch_axisym.ini"] = \
+        axi_launches["argon_axi"]
+    kernels[2]["launches_by_path"]["axisym_pipe.ini"] = \
+        axi_launches["dry_air_axi"]
+    for key, rec in axi_faces.items():
+        var = rec["variant"]
+        kernels.append({
+            "name": f"face_sweep/{key}", "route": "cuda",
+            "source": "tps_torch/csrc/" + ("face_sweep_axi.cu"
+                                           if var == "dry_air_axi"
+                                           else "face_sweep_argon_axi.cu"),
+            "replaces": "tools/pallas_face_prototype.py:102",
+            "launches": axi_launches[key],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "grid": rec["grid"],
+            "f64_ms": rec["f64_ms"], "f64_device_ms": rec["f64_device_ms"],
+            "f64_max_rel_err": rec["f64_rel_err"]})
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
                                    "plain_ms_per_rhs": v["plain_ms_per_rhs"],
@@ -4633,6 +5013,9 @@ def run(dev):
     summary["LTE-table plasma"] = {
         "face sweep variants": lte_faces, "variants f64 max rel err": lte_err,
         "coupled channel": lte_channel, "restart": lte_restart}
+    summary["axisymmetric"] = {
+        "face sweep variants": axi_faces, "variants f64 max rel err": axi_err,
+        "torch deck": torch_axi, "pipe": pipe}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

@@ -16,7 +16,10 @@ argon ternary in 3-D and on Euler, with constant transport; the
 six-species mixture) == their plain versions; the coupled compressible
 argon channel's step graph == eager steps across an EM update.  The
 LTE-table fluid's eight variants == their plain versions (f64 2.2e-13);
-the LTE channel's step graph == eager steps across an EM update.
+the LTE channel's step graph == eager steps across an EM update.  The
+axisymmetric (r, z) + swirl variants (DryAir, the argon ternary on
+Navier-Stokes and Euler) == their plain versions, on a strip off the axis
+and on boxes touching it.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -798,6 +801,86 @@ def test_face_sweep_variants_match_plain(device, var, n, order, dtype):
         assert _rel(z, plain) <= TOL[dtype]
     else:
         sw64, _ = _variant_case(var, n, order, torch.float64, device)
+        ref = sw64.plain(X.double())
+        assert (_rel(z, plain) <= TOL[dtype]
+                or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
+
+
+def _axi_case(var, n, order, dtype, device):
+    """An axisymmetric variant's sweep and input on (r, z) tables with
+    swirl (nvel = 3): DryAir (dry_air_axi, Navier-Stokes, or Euler where
+    n is given as ("euler", n)) on tests/test_axisymmetric.py's strip
+    (r in [0.2, 1.2], z periodic), the argon ternary (argon_axi,
+    argon_axi_euler) on r in [0, 0.01] touching the axis; a perturbed
+    state with a rigid swirl u_t = 5 r / 500 r and its DG gradient."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.physics.plasma_config import build_plasma
+
+    eq = "euler" if var.endswith("euler") or n[0] == "euler" else \
+        "navier-stokes"
+    n = n[1] if n[0] == "euler" else n
+    if var == "dry_air_axi":
+        mix = DryAir(dim=2, nvel=3)
+        tr = None if eq == "euler" else DryAirTransport(
+            mix.gas_constant, mix.specific_heat_ratio, bulk_visc_mult=0.3)
+        x0, L, swirl = 0.2, 1.0, 5.0
+    else:
+        pl = build_plasma(IniInput.read(ARGON_DECK), 2, 3)
+        mix, tr = pl.mixture, (None if eq == "euler" else pl.transport)
+        x0, L, swirl = 0.0, 0.01, 500.0
+    fl = Fluxes(mixture=mix, transport=tr, eq_system=eq, axisymmetric=True)
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    tab_np = build_tables(box_2d(*n, x0=x0, x1=x0 + L, y1=L,
+                                 periodic_y=True), order, axisymmetric=True)
+    xyz = tab_np.xyz_dof
+    k = 2 * np.pi / L
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    r = xyz[..., 0]
+    Up = np.zeros(xyz.shape[:-1] + (mix.num_equations,))
+    if var == "dry_air_axi":
+        Up[..., 0] = 1.2 * (1 + 0.05 * wave)
+        Up[..., 4] = 300.0 * (1 + 0.05 * wave)
+    else:
+        Up[..., 0] = 1.6 * (1 + 0.05 * wave)
+        Up[..., 4] = 1800.0 * (1 + 0.05 * wave)
+        Up[..., 5] = 1e-3 * 1.6 / mix.mw[0] * (1 + 0.2 * wave)
+        Up[..., 6] = 9000.0 * (1 - 0.1 * wave)
+    Up[..., 1], Up[..., 2] = 3.0 * wave, 10.0 - 2.0 * wave
+    Up[..., 3] = swirl * r * (1 + 0.1 * wave)
+    tab = tab_np.to_torch(torch.float64, device)
+    U = mix.conservatives(torch.as_tensor(Up, device=device))
+    X = U
+    if eq != "euler":
+        G = dg_gradient(tab, mix.primitives(U))
+        X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    return build_face_sweep(tab_np.to_torch(dtype, device), ctx), \
+        X.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("var,n,order", [
+    ("dry_air_axi", (6, 6), 2), ("dry_air_axi", (64, 64), 2),
+    ("dry_air_axi", ("euler", (64, 64)), 2), ("argon_axi", (8, 8), 2),
+    ("argon_axi", (64, 64), 2), ("argon_axi_euler", (64, 64), 2)])
+def test_face_sweep_axi_variants_match_plain(device, var, n, order, dtype):
+    """Each axisymmetric variant against its plain version (the
+    axisymmetric Fluxes through face_sweep_plain): f64 1e-11 of
+    max|plain|; f32 within 5e-5, or no farther from the f64 plain result
+    than twice the f32 plain version; one launch, counted under its
+    variant; the swirl row is not zero."""
+    sw, X = _axi_case(var, n, order, dtype, device)
+    assert sw.variant == var and sw.rad is not None
+    cuda_faces.reset_launches()
+    z = sw(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    assert cuda_faces.variant_launches[var] == 1
+    plain = sw.plain(X)
+    assert float(plain[..., 3].abs().max()) > 0.0
+    if dtype == torch.float64:
+        assert _rel(z, plain) <= TOL[dtype]
+    else:
+        sw64, _ = _axi_case(var, n, order, torch.float64, device)
         ref = sw64.plain(X.double())
         assert (_rel(z, plain) <= TOL[dtype]
                 or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))

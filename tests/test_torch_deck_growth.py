@@ -1,7 +1,9 @@
 """max|u| of examples/cases/torch_axisym_coupled.ini as shipped (or, with
 --deck reacting, of tps_torch/tools/lomach_reacting.ini; with --deck
 channel, of the compressible coupled channel
-tps_torch/tools/argon_channel_coupled.ini, its peak T the electrons'),
+tps_torch/tools/argon_channel_coupled.ini, its peak T the electrons';
+with --deck axisym, of its axisymmetric form with swirl,
+tps_torch/tools/argon_torch_axisym.ini, max|u| over the three velocities),
 step by step,
 in the JAX package and in tps_torch side by side: a diagnostic of the
 deck's growth, run as a script.  It holds no test function, so
@@ -52,7 +54,9 @@ DECKS = {"torch": os.path.join(REPO, "examples", "cases",
          "reacting": os.path.join(REPO, "tps_torch", "tools",
                                   "lomach_reacting.ini"),
          "channel": os.path.join(REPO, "tps_torch", "tools",
-                                 "argon_channel_coupled.ini")}
+                                 "argon_channel_coupled.ini"),
+         "axisym": os.path.join(REPO, "tps_torch", "tools",
+                                "argon_torch_axisym.ini")}
 
 
 def deck_text(deck, steps, plain, outdir, dt=None, power=None):
@@ -62,8 +66,9 @@ def deck_text(deck, steps, plain, outdir, dt=None, power=None):
         txt = txt.replace("dt_fixed = 1e-9", f"dt_fixed = {dt}")
     if power is not None:
         txt = txt.replace("input-power = 0.5", f"input-power = {power}")
-    txt = txt.replace("outdirBase = output/argon_channel_coupled",
-                      f"outdirBase = {outdir}")
+    for name in ("argon_channel_coupled", "argon_torch_axisym"):
+        txt = txt.replace(f"outdirBase = output/{name}",
+                          f"outdirBase = {outdir}")
     txt = txt.replace("maxIters = 200", f"maxIters = {steps}")
     txt = txt.replace("maxIters = 1000", f"maxIters = {steps}")
     txt = txt.replace("maxIters = 100\n", f"maxIters = {steps}\n")
@@ -98,7 +103,7 @@ def fields(s, np_of):
     if hasattr(getattr(s, "flow", None), "mixture"):  # compressible
         mix = s.flow.mixture
         Up = np_of(mix.primitives(s.flow.U))
-        return (Up[..., 1:1 + mix.dim], Up[..., mix.i_te],
+        return (Up[..., 1:1 + mix.nvel], Up[..., mix.i_te],
                 s.em.total_joule_heating())
     th, fl = parts(s)
     if hasattr(s, "em"):

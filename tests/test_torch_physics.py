@@ -117,7 +117,7 @@ def test_fluxes(dim, eq_system):
 def test_unported_branches_raise():
     mix = DryAir(dim=3, nvel=3)
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Fluxes(mixture=mix, axisymmetric=True)
+        Fluxes(mixture=mix, visc_sponge=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         Fluxes(mixture=mix, sgs_model=object())
     with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):

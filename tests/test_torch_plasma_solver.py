@@ -10,8 +10,10 @@ the CPU.
    through tools/soln_differ.py with the flags of
    tests/test_statistics_restart.py::test_golden_argon_regression.
 3. Each plasma input outside the slice raises NotImplementedError naming
-   its ROADMAP item: passive scalars (A5.4), axisymmetric flow (A5.3) and
-   the injected `bte` rates (A11.3).  The mixture decks with boundaries,
+   its ROADMAP item: passive scalars (A5.4), axisymmetric flow with
+   constant plasma transport (A5.3; the argon ternary's argon_minimal runs
+   axisymmetric, tests/test_torch_axisym_dg.py) and the injected `bte`
+   rates (A11.3).  The mixture decks with boundaries,
    general and constant transport run: tests/test_torch_mixture_bc.py and
    tests/test_torch_gas_mixture.py; the LTE fluid and LTE restarts run:
    tests/test_torch_lte_fluid.py and tests/test_torch_lte_restart.py.
@@ -147,8 +149,9 @@ def _deck(tmp_path, edit):
         "[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n"), "A5.4",
         id="edit2-A5.4"),
     pytest.param(lambda t: t.replace("axisymmetric = False",
-                                     "axisymmetric = True"), "A5.3",
-                 id="edit3-A5.3"),
+                                     "axisymmetric = True").replace(
+        "transport_model = argon_minimal", "transport_model = constant"),
+        "A5.3", id="edit3-A5.3"),
     pytest.param(lambda t: t.replace("model = arrhenius", "model = bte"),
                  "A11.3", id="edit4-A11.3"),
 ])

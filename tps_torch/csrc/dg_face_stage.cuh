@@ -358,19 +358,23 @@ __device__ __forceinline__ T other_lane(T v) {  // the pair partner's value
 // traces minus, for Navier-Stokes, the mean of the two one-sided viscous
 // normal fluxes) into Fl[el*fs + s*NEQ + q], with the physics of policy P
 // (dg_pointwise.cuh::DryAirPhysics, dg_mixture.cuh::ArgonMixture,
-// dg_gas_mixture.cuh::GasMixture).
+// dg_gas_mixture.cuh::GasMixture, dg_lte.cuh::LteFluid).
 // m[el] == 0 (a boundary slot or no element) writes 0.  Normal of (el,
-// s): nor[(e0+el)*nor_e + s*DIM].  Where the tile has at most half as
-// many points as the block threads, a lane pair takes a point, each lane
-// one side's convective and viscous fluxes, exchanged by shuffles; the
-// result is the same arithmetic.
+// s): nor[(e0+el)*nor_e + s*DIM]; radius (the axisymmetric policies':
+// both sides share the point) rad[(e0+el)*rad_e + s], or 0 where rad is
+// null (the planar policies do not read it).  Where the tile has at most
+// half as many points as the block threads, a lane pair takes a point,
+// each lane one side's convective and viscous fluxes, exchanged by
+// shuffles; the result is the same arithmetic.
 template <typename T, class P, bool VISCOUS, bool PROTO, int K>
 __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
                                            const T* Tn, const T* nor,
                                            long long nor_e, int e0,
                                            const double* m,
                                            const typename P::Params& ph,
-                                           T* Fl, int fs) {
+                                           T* Fl, int fs,
+                                           const T* rad = nullptr,
+                                           long long rad_e = 0) {
   constexpr int DIM = P::DIM, NEQ = P::NEQ, NW = P::NW;
   if (2 * E * nqf <= (int)blockDim.x) {
     const int i = threadIdx.x >> 1, side = threadIdx.x & 1;
@@ -386,7 +390,11 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     const T* u = side ? u2 : u1;
     T f[NEQ], w[NW], v[NEQ];
     P::conv(u, n, ph, f, w);
-    if constexpr (VISCOUS) P::visc(u, u + NEQ, n, ph, v);
+    if constexpr (VISCOUS) {
+      // (mm is 0 past the mesh's last element)
+      const T r = rad && mm != T(0) ? rad[(e0 + el) * rad_e + s] : T(0);
+      P::visc(u, u + NEQ, n, ph, v, r);
+    }
     T fo[NEQ], wo[NW], vo[NEQ];
 #pragma unroll
     for (int q = 0; q < NEQ; ++q) fo[q] = other_lane(f[q]);
@@ -429,8 +437,9 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     P::template combine<T, PROTO>(u1, u2, n, f1, f2, w1, w2, fl);
     if constexpr (VISCOUS) {
       T v1[NEQ], v2[NEQ];
-      P::visc(u1, u1 + NEQ, n, ph, v1);
-      P::visc(u2, u2 + NEQ, n, ph, v2);
+      const T r = rad ? rad[(e0 + el) * rad_e + s] : T(0);
+      P::visc(u1, u1 + NEQ, n, ph, v1, r);
+      P::visc(u2, u2 + NEQ, n, ph, v2, r);
 #pragma unroll
       for (int q = 1; q < NEQ; ++q) fl[q] -= T(0.5) * (v1[q] + v2[q]);
     }

@@ -255,7 +255,7 @@ struct GasMixture {
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv) {
+                                              T* fv, T /*r: planar*/) {
     State<T> s;
     state(u, m, s);
     const T th = s.th, te = s.te;

@@ -217,7 +217,7 @@ struct LteFluid {
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv) {
+                                              T* fv, T /*r: planar*/) {
     const T rho = u[0];
     const T th = temperature(u, m);
     const T mu = m.mu(th, rho), kap = m.kap(th, rho);

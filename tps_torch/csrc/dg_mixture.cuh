@@ -8,11 +8,15 @@
 // velocities), physics/collision_integrals.py and dg/fluxes.py's mixture
 // branches, as the JAX package computes them in XLA.
 //
-// State: U = (rho, rho u_1..u_DIM, rho E, rho Y_Ar+, rho e_e), NEQ = DIM + 4
-// (ambipolar: the electrons follow from quasineutrality; two
-// temperatures: the electron energy).  Gradients of the primitives (rho,
-// u, T_h, n_Ar+, T_e) are laid out g[eq * DIM + d].  rho Y_Ar+ is clipped
-// at 0 as the plain face sweep clips its traces.
+// State: U = (rho, rho u_1..u_NVEL, rho E, rho Y_Ar+, rho e_e), NEQ =
+// NVEL + 4 (ambipolar: the electrons follow from quasineutrality; two
+// temperatures: the electron energy), NVEL = DIM, or 3 on the
+// axisymmetric (r, z) state with swirl (AXI: the azimuthal momentum
+// advected by u.n with no pressure term; the viscous flux's u_r / r, swirl
+// stresses and their work as dg/fluxes.py's axisymmetric branch).
+// Gradients of the primitives (rho, u, T_h, n_Ar+, T_e) are laid out
+// g[eq * DIM + d].  rho Y_Ar+ is clipped at 0 as the plain face sweep
+// clips its traces.
 //
 // Every constant comes packed from dg/cuda_faces.py::mixture_phys in
 // double, the products of per-molecule masses among them: m_e m_Ar
@@ -24,6 +28,8 @@
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "dg_pointwise.cuh"
 
 namespace tps_dg {
 
@@ -74,13 +80,16 @@ __device__ __forceinline__ T log_t_fit(const double* c, T lt) {
   return acc + T(c[0]) / lt;
 }
 
-template <int DIM_>
+template <int DIM_, bool AXI_ = false>
 struct ArgonMixture {
   static constexpr int DIM = DIM_;
-  static constexpr int NEQ = DIM + 4;
-  static constexpr int IE = DIM + 1, IS = DIM + 2, IEE = DIM + 3;
+  static constexpr bool AXI = AXI_;
+  static constexpr int NVEL = DIM + (AXI ? 1 : 0);
+  static constexpr int NEQ = NVEL + 4;
+  static constexpr int IE = NVEL + 1, IS = NVEL + 2, IEE = NVEL + 3;
   static constexpr int NW = 1;  // wave data per side: |u| + c
   using Params = MixPhys;
+  static_assert(!AXI || DIM == 2, "the axisymmetric state is 2-D");
 
   static Params make(const double* p) { return make_mix_phys(p); }
 
@@ -92,7 +101,7 @@ struct ArgonMixture {
   // Thermodynamic state of a (clipped) conserved state.
   template <typename T>
   struct State {
-    T rho, vel[DIM], v2, n[3], th, te, p, pe, cheavy;
+    T rho, vel[NVEL], v2, n[3], th, te, p, pe, cheavy;
   };
 
   template <typename T>
@@ -100,8 +109,8 @@ struct ArgonMixture {
                                                State<T>& s) {
     s.rho = u[0];
     T m2 = T(0);
-    for (int d = 0; d < DIM; ++d) m2 += u[1 + d] * u[1 + d];
-    for (int d = 0; d < DIM; ++d) s.vel[d] = u[1 + d] / s.rho;
+    for (int d = 0; d < NVEL; ++d) m2 += u[1 + d] * u[1 + d];
+    for (int d = 0; d < NVEL; ++d) s.vel[d] = u[1 + d] / s.rho;
     s.v2 = m2 / (s.rho * s.rho);
     const T ni = clipped(u, IS) / T(m.mw[0]);
     const T zn = ni * T(m.z[0]);
@@ -134,6 +143,7 @@ struct ArgonMixture {
     }
     f[0] = mn;
     for (int d = 0; d < DIM; ++d) f[1 + d] = u[1 + d] * un + n[d] * s.p;
+    for (int d = DIM; d < NVEL; ++d) f[1 + d] = u[1 + d] * un;
     f[IE] = un * (u[IE] + s.p);
     f[IS] = clipped(u, IS) * un;
     f[IEE] = (u[IEE] + s.pe) / s.rho * mn;
@@ -157,7 +167,8 @@ struct ArgonMixture {
 
   // The one-sided viscous normal flux of a traced state and its traced
   // gradient gt[eq * DIM + d] (fluxes.py::viscous with the transport's
-  // flux_properties).  In T but for the parts that cancel most of float's
+  // flux_properties), at radius r on the axisymmetric state (read there
+  // only).  In T but for the parts that cancel most of float's
   // digits, which are formed in double whatever T, as the plain version
   // forms them (physics/gas_transport.py::_f64): the species fractions
   // (the background's 1 - Y), the e-Ar log T fits, Devoto's third-order
@@ -167,7 +178,7 @@ struct ArgonMixture {
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv) {
+                                              T* fv, T r) {
     State<T> s;
     state(u, m, s);
     const T th = s.th, te = s.te;
@@ -290,6 +301,7 @@ struct ArgonMixture {
     const T bulk = -T(2) / T(3) * mu;
     T div = T(0);
     for (int d = 0; d < DIM; ++d) div += gt[(1 + d) * DIM + d];
+    if constexpr (AXI) div += over_r(s.vel[0], r);
     T e = T(0);
     for (int i = 0; i < DIM; ++i) {
       T sn = T(0);
@@ -300,6 +312,13 @@ struct ArgonMixture {
       }
       fv[1 + i] = sn;
       e += sn * s.vel[i];
+    }
+    if constexpr (AXI) {  // the swirl row and its work
+      const T ut = s.vel[DIM];
+      const T* gu = gt + (1 + DIM) * DIM;  // grad u_t
+      const T st = mu * (gu[0] - over_r(ut, r)) * n[0] + mu * gu[1] * n[1];
+      fv[1 + DIM] = st;
+      e += ut * st;
     }
     T qt = T(0), qe = T(0);
     for (int d = 0; d < DIM; ++d) {

@@ -3,8 +3,9 @@
 // the kernel's shared-memory plan.  The mixtures' instantiations are in
 // face_sweep_argon.cu, face_sweep_argon_const.cu and
 // face_sweep_gas_mixture.cu, and the LTE fluid's in face_sweep_lte.cu and
-// face_sweep_lte3d.cu (each its own nvcc process), reached through their
-// dispatch functions.
+// face_sweep_lte3d.cu, and the axisymmetric policies' in face_sweep_axi.cu
+// (DryAir) and face_sweep_argon_axi.cu (each its own nvcc process),
+// reached through their dispatch functions.
 
 #include "face_sweep.cuh"
 
@@ -31,14 +32,38 @@ TPS_DISPATCH(dispatch_gas_mixture)
 TPS_DISPATCH(dispatch_lte)
 #undef TPS_DISPATCH
 
+// slot mode, 2-D, the axisymmetric (r, z) policies with swirl (NVEL = 3),
+// R the slot points' radii [ne][nlf][nqf]: DryAirPhysics<2, true> (`p` as
+// dg_pointwise.cuh::make_phys) and ArgonMixture<2, true> (`p` as
+// dg_mixture.cuh::make_mix_phys), Navier-Stokes and Euler
+#define TPS_DISPATCH_AXI(name)                                              \
+  template <typename T>                                                     \
+  int name(const T* X, const T* B, const int* cf, const int* cp,            \
+           const int* nbr, const T* N, const T* M, const T* R, T* Y, int ne, \
+           int ndof, int nqf, int nlf, int n_combo, long long nor_lf,       \
+           long long nor_e, double sign, int viscous, const double* p,      \
+           void* stream);
+TPS_DISPATCH_AXI(dispatch_dry_air_axi)
+TPS_DISPATCH_AXI(dispatch_argon_axi)
+#undef TPS_DISPATCH_AXI
+
 namespace {
 
 template <typename T>
 int dispatch(const T* X, const T* B, const int* cf, const int* cp,
-             const int* nbr, const T* N, const T* M, T* Y, int ne, int ndof,
-             int nqf, int nlf, int n_combo, long long nor_lf, long long nor_e,
-             double sign, int dim, int viscous, int prototype, int physics,
-             const double* p, void* stream) {
+             const int* nbr, const T* N, const T* M, const T* R, T* Y, int ne,
+             int ndof, int nqf, int nlf, int n_combo, long long nor_lf,
+             long long nor_e, double sign, int dim, int viscous, int prototype,
+             int physics, const double* p, void* stream) {
+  if (R != nullptr) {
+    auto fn = physics == PHYSICS_DRY_AIR ? dispatch_dry_air_axi<T>
+              : physics == PHYSICS_ARGON ? dispatch_argon_axi<T>
+                                         : nullptr;
+    if (fn == nullptr || prototype || dim != 2)
+      return (int)cudaErrorInvalidValue;
+    return fn(X, B, cf, cp, nbr, N, M, R, Y, ne, ndof, nqf, nlf, n_combo,
+              nor_lf, nor_e, sign, viscous, p, stream);
+  }
   if (physics != PHYSICS_DRY_AIR) {
     auto fn = physics == PHYSICS_ARGON         ? dispatch_argon<T>
               : physics == PHYSICS_ARGON_CONST ? dispatch_argon_const<T>
@@ -80,7 +105,9 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
 
 // Plain C interface for ctypes.  Normal of (lf, e, point s, d) at
 // N[lf * nor_lf + e * nor_e + s * dim + d]; `mask` may be null (all
-// slots interior); `physics` PHYSICS_DRY_AIR with `phys` as in
+// slots interior); `R`, the slot points' radii [ne][nlf][nqf], is null
+// on planar tables and selects the axisymmetric policies (slot mode, 2-D,
+// PHYSICS_DRY_AIR or PHYSICS_ARGON) when given; `physics` PHYSICS_DRY_AIR with `phys` as in
 // dg_pointwise.cuh::make_phys, PHYSICS_ARGON with `phys` as in
 // dg_mixture.cuh::make_mix_phys, PHYSICS_ARGON_CONST /
 // PHYSICS_GAS_MIXTURE with `phys` as in dg_gas_mixture.cuh::make_gas_phys,
@@ -90,22 +117,24 @@ extern "C" {
 
 int tps_face_sweep_f32(const float* X, const float* B, const int* cface,
                        const int* cperm, const int* nbr, const float* N,
-                       const float* M, float* Y, int ne, int ndof, int nqf,
-                       int nlf, int n_combo, long long nor_lf, long long nor_e,
-                       double sign, int dim, int viscous, int prototype,
-                       int physics, const double* phys, void* stream) {
-  return dispatch<float>(X, B, cface, cperm, nbr, N, M, Y, ne, ndof, nqf, nlf,
-                         n_combo, nor_lf, nor_e, sign, dim, viscous, prototype,
-                         physics, phys, stream);
+                       const float* M, const float* R, float* Y, int ne,
+                       int ndof, int nqf, int nlf, int n_combo,
+                       long long nor_lf, long long nor_e, double sign, int dim,
+                       int viscous, int prototype, int physics,
+                       const double* phys, void* stream) {
+  return dispatch<float>(X, B, cface, cperm, nbr, N, M, R, Y, ne, ndof, nqf,
+                         nlf, n_combo, nor_lf, nor_e, sign, dim, viscous,
+                         prototype, physics, phys, stream);
 }
 
 int tps_face_sweep_f64(const double* X, const double* B, const int* cface,
                        const int* cperm, const int* nbr, const double* N,
-                       const double* M, double* Y, int ne, int ndof, int nqf,
-                       int nlf, int n_combo, long long nor_lf, long long nor_e,
-                       double sign, int dim, int viscous, int prototype,
-                       int physics, const double* phys, void* stream) {
-  return dispatch<double>(X, B, cface, cperm, nbr, N, M, Y, ne, ndof, nqf,
+                       const double* M, const double* R, double* Y, int ne,
+                       int ndof, int nqf, int nlf, int n_combo,
+                       long long nor_lf, long long nor_e, double sign, int dim,
+                       int viscous, int prototype, int physics,
+                       const double* phys, void* stream) {
+  return dispatch<double>(X, B, cface, cperm, nbr, N, M, R, Y, ne, ndof, nqf,
                           nlf, n_combo, nor_lf, nor_e, sign, dim, viscous,
                           prototype, physics, phys, stream);
 }

@@ -30,7 +30,12 @@
 // face_sweep_argon3d.cu in 3-D), the ternary with constant transport and
 // the six-species argon with collision-integral transport
 // (dg_gas_mixture.cuh::GasMixture, NEQ = DIM + NS + 1,
-// face_sweep_argon_const.cu and face_sweep_gas_mixture.cu, 2-D).
+// face_sweep_argon_const.cu and face_sweep_gas_mixture.cu, 2-D); and the
+// axisymmetric (r, z) state with swirl on DryAir and the argon ternary
+// (DryAirPhysics<2, true>, ArgonMixture<2, true>: NVEL = 3,
+// face_sweep_axi.cu and face_sweep_argon_axi.cu), whose viscous flux
+// reads the radius of each slot point (R [ne][nlf][nqf], xyz_slot's r;
+// the planar policies get no R).
 //
 // Neighbours are decoded from nbr_row.  Combo c's rows are face block
 // combo_face[c]'s rows in another order: Btr_or[c][combo_perm[c][s]] =
@@ -99,6 +104,7 @@ face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
            const int* __restrict__ nbr_row,  // [ne][nlf]
            const T* __restrict__ Nor,        // lf, e, (s, d) strided
            const T* __restrict__ mask,       // [ne][nlf] or null (all 1)
+           const T* __restrict__ R,          // [ne][nlf][nqf] or null
            T* __restrict__ Y,                // [ne][ndof][NEQ]
            int ne, int ndof, int nqf, int nlf, int n_combo, long long nor_lf,
            long long nor_e, T sign, int E, const typename P::Params ph) {
@@ -219,7 +225,9 @@ face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
         sTo, sTn);
     __syncthreads();
     flux_stage<T, P, VISCOUS, PROTO, K>(E, nqf, sTo, sTn, Nor + lf * nor_lf,
-                                        nor_e, e0, s_m + lf * E, ph, sF, fs);
+                                        nor_e, e0, s_m + lf * E, ph, sF, fs,
+                                        R ? R + lf * nqf : nullptr,
+                                        (long long)nlf * nqf);
     __syncthreads();
   }
   scatter(nlf - 1);
@@ -228,11 +236,13 @@ face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
     Y[(size_t)e0 * ndof * NEQ + i] = sign * sY[i];
 }
 
+// R: the slot points' radii, the axisymmetric policies' (null: planar)
 template <typename T, class P, bool VISCOUS, bool PROTO>
 int launch(const T* X, const T* B, const int* cface, const int* cperm,
            const int* nbr, const T* N, const T* M, T* Y, int ne, int ndof,
            int nqf, int nlf, int n_combo, long long nor_lf, long long nor_e,
-           double sign, const double* p, void* stream) {
+           double sign, const double* p, void* stream,
+           const T* R = nullptr) {
   constexpr int NEQ = P::NEQ;
   constexpr int K = VISCOUS ? NEQ * (1 + P::DIM) : NEQ;
   static size_t allowed[2] = {48 * 1024, 48 * 1024};
@@ -245,8 +255,8 @@ int launch(const T* X, const T* B, const int* cface, const int* cperm,
   if (int err = allow_smem(kernel, pl.smem, allowed[pl.resident])) return err;
   const int blocks = (ne + pl.tile - 1) / pl.tile;
   kernel<<<blocks, THREADS_MAX, pl.smem, (cudaStream_t)stream>>>(
-      X, B, cface, cperm, nbr, N, M, Y, ne, ndof, nqf, nlf, n_combo, nor_lf,
-      nor_e, T(sign), pl.tile, P::make(p));
+      X, B, cface, cperm, nbr, N, M, R, Y, ne, ndof, nqf, nlf, n_combo,
+      nor_lf, nor_e, T(sign), pl.tile, P::make(p));
   return (int)cudaGetLastError();
 }
 

@@ -254,7 +254,7 @@ class OutletBC:
     interior density/velocity (reference :731-737).  The solver maps the
     non-reflecting and mass-flow kinds to CharacteristicOutletBC, as the
     JAX package's solver does; the JAX OutletBC's stateless variants of
-    them, which no deck reaches, are ROADMAP A5."""
+    them, which no deck reaches, are ROADMAP A5.2."""
 
     pressure: float = 0.0
     kind: str = "subsonicPressure"
@@ -264,7 +264,7 @@ class OutletBC:
         if self.kind != "subsonicPressure":
             raise NotImplementedError(
                 f"the '{self.kind}' outlet is not ported to tps_torch yet "
-                "(ROADMAP A5)")
+                "(ROADMAP A5.2)")
 
     def ghost_primitive(self, mixture, UpL):
         return UpL

@@ -30,7 +30,13 @@ csrc/face_sweep.cu::face_plan).  Two modes:
   (csrc/face_sweep_gas_mixture.cu), both `gas_mixture_phys` of
   csrc/dg_gas_mixture.cuh; the LTE-table fluid, 2-D or 3-D, 1-D or 2-D
   tables, Navier-Stokes or Euler (`lte_phys`, csrc/dg_lte.cuh in
-  csrc/face_sweep_lte.cu and csrc/face_sweep_lte3d.cu).
+  csrc/face_sweep_lte.cu and csrc/face_sweep_lte3d.cu).  On axisymmetric
+  (r, z) tables with swirl (nvel = 3) two of them, DryAir and the argon
+  ternary (`argon` above, Navier-Stokes or Euler), run their axisymmetric
+  instantiations (csrc/face_sweep_axi.cu, csrc/face_sweep_argon_axi.cu),
+  which read each slot point's radius (xyz_slot[..., 0],
+  `CudaFaceSweep.rad`, passed to the same C entry; null on planar
+  tables).
 - prototype (`build_prototype_sweep`): Euler, the prototype's own
   Rusanov (per side |u.n| + c|n|), the uniform normals wts*nor shared by
   every element, mask 1, sign +1; its plain version is
@@ -72,11 +78,15 @@ PHYSICS_ID = {"dry_air": 0, "argon": 1, "argon_const": 2, "gas_mixture": 3,
 # tables, _euler on Euler
 LTE_VARIANTS = tuple(f"lte_{dim}d{td}{eq}" for dim in (2, 3)
                      for td in ("", "_t2") for eq in ("", "_euler"))
+# the axisymmetric (r, z) + swirl instantiations: DryAir (Navier-Stokes
+# and Euler) and the argon ternary's Navier-Stokes and Euler forms
+AXI_VARIANTS = ("dry_air_axi", "argon_axi", "argon_axi_euler")
 # the instantiations, each counted on its own: DryAir; the argon plasma's
 # Navier-Stokes in 2-D and 3-D and its Euler form; the constant-transport
-# ternary; the six-species collision-integral mixture; the LTE fluid's
+# ternary; the six-species collision-integral mixture; the LTE fluid's;
+# the axisymmetric ones
 VARIANTS = ("dry_air", "argon_2d", "argon_3d", "argon_euler", "argon_const",
-            "gas_mixture") + LTE_VARIANTS
+            "gas_mixture") + LTE_VARIANTS + AXI_VARIANTS
 # kernel launches since the last reset_launches(), and each variant's
 launches = {"face_sweep": 0}
 variant_launches = {v: 0 for v in VARIANTS}
@@ -95,23 +105,35 @@ def reset_launches():
 
 def face_sweep_supported(tab_np, ctx) -> bool:
     """Preconditions of the kernel in slot mode: neighbor-slot tables,
-    2-D or 3-D, one velocity per dimension, Rusanov, planar, single
-    device, and one of its physics: DryAir, Euler or Navier-Stokes with
+    2-D or 3-D, Rusanov, no SGS model or viscous sponge, single device,
+    and one of its physics: DryAir, Euler or Navier-Stokes with
     Sutherland or constant transport; a mixture of `mixture_physics`; or
-    the LTE fluid (`lte_table_dim`)."""
+    the LTE fluid (`lte_table_dim`); one velocity per dimension, or, on
+    axisymmetric (r, z) tables, the swirl state (nvel = 3) on DryAir or
+    the `argon` mixture."""
     t = tab_np
     if t.nbr_row is None or t.dim not in (2, 3):
         return False
     if ctx.axis_name is not None or ctx.use_bc_in_grad:
         return False
     fl = ctx.fluxes
-    if fl.axisymmetric or fl.sgs_model is not None or fl.visc_sponge is not None:
+    if fl.sgs_model is not None or fl.visc_sponge is not None:
         return False
     if type(ctx.riemann).__name__ != "Rusanov":
         return False
     if fl.eq_system not in ("euler", "navier-stokes"):
         return False
     mix = ctx.mixture
+    if mix.dim != t.dim:
+        return False
+    if fl.axisymmetric:
+        if t.dim != 2 or mix.nvel != 3 or t.xyz_slot is None:
+            return False
+        if type(mix).__name__ == "PerfectMixture":
+            return mixture_physics(ctx, t.dim) == "argon"
+        if type(mix).__name__ != "DryAir" or mix.n_passive:
+            return False
+        return fl.eq_system == "euler" or kernel_transport(fl.transport)
     if mix.nvel != t.dim:
         return False
     if type(mix).__name__ == "PerfectMixture":
@@ -204,6 +226,11 @@ def lte_phys(ctx, dtype, device):
 
 def variant(ctx, dim):
     """The instantiation (`VARIANTS`) the kernel runs for ctx."""
+    if ctx.fluxes.axisymmetric:
+        if type(ctx.mixture).__name__ != "PerfectMixture":
+            return "dry_air_axi"
+        return ("argon_axi_euler" if ctx.fluxes.eq_system == "euler"
+                else "argon_axi")
     if type(ctx.mixture).__name__ == "LteMixture":
         return (f"lte_{dim}d" + ("_t2" if lte_table_dim(ctx) == 2 else "")
                 + ("_euler" if ctx.fluxes.eq_system == "euler" else ""))
@@ -427,6 +454,9 @@ class CudaFaceSweep:
     phys: object  # ctypes doubles: kernel_phys, mixture_phys,
     # gas_mixture_phys or lte_phys
     variant: str = "dry_air"  # its instantiation (`VARIANTS`)
+    # the slot points' radii [ne, nlf, nqf] on axisymmetric tables (the
+    # C entry then runs the axisymmetric policies), else None
+    rad: torch.Tensor | None = None
 
     @property
     def k(self):
@@ -454,6 +484,7 @@ class CudaFaceSweep:
                      self.combo_face.data_ptr(), self.combo_perm.data_ptr(),
                      self.nbr_row.data_ptr(), self.nor.data_ptr(),
                      None if self.mask is None else self.mask.data_ptr(),
+                     None if self.rad is None else self.rad.data_ptr(),
                      Y.data_ptr(), self.ne, self.ndof, self.nqf, self.nlf,
                      self.n_combo, self.nor_lf, self.nor_e, self.sign,
                      self.dim, int(self.viscous), int(self.prototype),
@@ -504,6 +535,8 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
     physics, phys = (face_physics(ctx, tab.dim, dtype, device) if supported
                      else ("none", []))
     nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
+    rad = (tab.xyz_slot[..., 0].contiguous() if ctx.fluxes.axisymmetric
+           else None)
     cface, cperm = _combo_tensors(tab.Btr_or.cpu().numpy(), nlf, nqf, device)
     return CudaFaceSweep(
         plain=functools.partial(face_sweep_plain, ctx, tab),
@@ -515,7 +548,7 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         neq=neq, viscous=viscous, prototype=False,
         nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0, physics=physics,
         phys=(ctypes.c_double * len(phys))(*phys),
-        variant=variant(ctx, dim) if supported else "none",
+        variant=variant(ctx, dim) if supported else "none", rad=rad,
     )
 
 

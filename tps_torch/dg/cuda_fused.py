@@ -181,7 +181,7 @@ def build_kernels():
         fn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, ip, dbl, ptr]
         fn.restype = i32
         fn = getattr(lib, f"tps_face_sweep_{suffix}")
-        fn.argtypes = ([ptr] * 8 + [i32] * 5 + [i64, i64, ctypes.c_double]
+        fn.argtypes = ([ptr] * 9 + [i32] * 5 + [i64, i64, ctypes.c_double]
                        + [i32] * 4 + [dbl, ptr])
         fn.restype = i32
     lib.tps_k1_smem.argtypes = [i32] * 5 + [ip]

@@ -4,8 +4,10 @@ Mirrors the behavior of reference Fluxes (src/fluxes.cpp:131-336), the
 JAX package's dg/fluxes.py, for the branches this port carries: a
 single-species gas (DryAir) or a species mixture (PerfectMixture: species
 convection, the electron-energy flux, the electron heat flux, species
-diffusion with its enthalpy fluxes), planar geometry, no SGS model and
-no viscous sponge.  Every other branch raises NotImplementedError naming
+diffusion with its enthalpy fluxes), planar or axisymmetric (r, z) with
+swirl (nvel = 3: the azimuthal momentum is advected and carries no
+pressure; u_r/r in div u, the swirl stresses tau_tr, tau_tz and their
+work), no SGS model and no viscous sponge.  Every other branch raises NotImplementedError naming
 the ROADMAP item that ports it.  Everything here operates on tensors with
 an arbitrary batch prefix; the equation index is the second-to-last axis
 of flux tensors (F[..., eq, d]).
@@ -18,6 +20,12 @@ from dataclasses import dataclass
 import torch
 
 
+def _over_r(v, radius):
+    """v / r where r > 0, else 0 (the JAX package's double where)."""
+    pos = radius > 0
+    return torch.where(pos, v / torch.where(pos, radius, 1.0), 0.0)
+
+
 @dataclass(frozen=True)
 class Fluxes:
     mixture: object
@@ -28,15 +36,12 @@ class Fluxes:
     visc_sponge: object | None = None
 
     def __post_init__(self):
-        if self.axisymmetric:
-            raise NotImplementedError(
-                "axisymmetric fluxes are not ported yet (ROADMAP A5)")
         if self.sgs_model is not None:
             raise NotImplementedError(
-                "SGS models are not ported yet (ROADMAP A5, dg/sgs.py)")
+                "SGS models are not ported yet (ROADMAP A5.3, dg/sgs.py)")
         if self.visc_sponge is not None:
             raise NotImplementedError(
-                "the viscous sponge is not ported yet (ROADMAP A5)")
+                "the viscous sponge is not ported yet (ROADMAP A5.3)")
         if self.eq_system not in ("euler", "navier-stokes"):
             raise NotImplementedError(
                 f"equation system '{self.eq_system}' is not ported yet "
@@ -99,7 +104,10 @@ class Fluxes:
             return torch.zeros(U.shape[:-1] + (neq, dim), dtype=U.dtype,
                                device=U.device)
 
-        props = self.transport.flux_properties(mix, U, Up, grad_up)
+        axi = self.axisymmetric
+        radius = xyz[..., 0] if axi else None
+        props = self.transport.flux_properties(mix, U, Up, grad_up,
+                                               radius=radius)
         visc = props["visc"]
         bulk = props["bulk_visc"] - (2.0 / 3.0) * visc
         kappa = props["kappa"]
@@ -107,6 +115,9 @@ class Fluxes:
 
         grad_vel = grad_up[..., 1 : 1 + dim, :dim]  # du_i/dx_j
         div_v = torch.diagonal(grad_vel, dim1=-2, dim2=-1).sum(-1)
+        if axi:
+            # u_r / r, 0 on the axis (where the face weights vanish)
+            div_v = div_v + _over_r(Up[..., 1], radius)
         eye = torch.eye(dim, dtype=U.dtype, device=U.device)
         stress = (visc[..., None, None]
                   * (grad_vel + torch.transpose(grad_vel, -1, -2))
@@ -118,6 +129,15 @@ class Fluxes:
         gradT = grad_up[..., mix.i_th, :]
         zero = torch.zeros_like(tau_u)
         parts = [zero[..., None, :], stress]
+        if axi:
+            # the swirl row (tau_tr, tau_tz) and its work u_t tau_t
+            # (reference: fluxes.cpp:285-297)
+            ut = Up[..., 3]
+            tau_t = visc[..., None] * torch.stack(
+                [grad_up[..., 3, 0] - _over_r(ut, radius), grad_up[..., 3, 1]],
+                dim=-1)
+            parts.append(tau_t[..., None, :])
+            tau_u = tau_u + ut[..., None] * tau_t
         nact = mix.num_active_species
         dv = props.get("diff_vel")
         if mix.two_temperature:

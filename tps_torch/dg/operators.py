@@ -10,7 +10,7 @@ the plain version of dg/cuda_faces.py's kernel.
 
 Left out here: `halo_exchange` and the legacy face_gather /
 face_scatter_gather branch (sharded tables, ROADMAP A8), and the
-boundary jump of the gradient (`bdr_up2`, useBCinGrad, ROADMAP A5).
+boundary jump of the gradient (`bdr_up2`, useBCinGrad, ROADMAP A5.2).
 
 The kron-expanded matrices are constants of the tables.  The JAX package
 builds them inside jit, where XLA folds them once; eager PyTorch would
@@ -196,7 +196,7 @@ def dg_gradient(tab, Up, bdr_up2=None):
     carry no jump (interior_mask)."""
     if bdr_up2 is not None:
         raise _not_ported("boundary states in the gradient (useBCinGrad)",
-                          "A5")
+                          "A5.2")
     if tab.nbr_row is None:
         raise _not_ported("the gradient on sharded (legacy) tables", "A8")
     ne, ndof, neq = Up.shape

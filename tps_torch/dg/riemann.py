@@ -1,8 +1,10 @@
 """Numerical face fluxes: Rusanov (local Lax-Friedrichs).
 
 Mirrors reference RiemannSolverTPS (src/riemann_solver.cpp:85-206) as pure
-batched functions over face quadrature points.  Roe waits for its own
-slice (ROADMAP A1).
+batched functions over face quadrature points.  With swirl (nvel = 3,
+the axisymmetric state) the normal has dim components and the azimuthal
+momentum is advected by u.n with no pressure term (dg/fluxes.py).  Roe
+waits for its own slice (ROADMAP A5.3).
 """
 
 from __future__ import annotations

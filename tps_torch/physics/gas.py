@@ -60,6 +60,9 @@ class DryAir:
     def temperature(self, U):
         return self.pressure(U) / (self.gas_constant * U[..., 0])
 
+    def pressure_from_primitives(self, Up):
+        return self.gas_constant * Up[..., 0] * Up[..., self.i_th]
+
     def sound_speed_from_T(self, T):
         return torch.sqrt(self.specific_heat_ratio * self.gas_constant * T)
 

@@ -213,6 +213,12 @@ class PerfectMixture:
     def _n_sp_from_primitives(self, Up):
         return self._n_sp(Up[..., 0], self._active_slice(Up))
 
+    def pressure_from_primitives(self, Up):
+        n_sp = self._n_sp_from_primitives(Up)
+        Th = Up[..., self.i_th]
+        Te = Up[..., self.i_te] if self.two_temperature else Th
+        return self.pressure_base(n_sp, Th, Te)
+
     # -- conversions -------------------------------------------------------
     def primitives(self, U):
         n_sp = self.number_densities(U)

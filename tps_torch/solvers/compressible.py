@@ -10,6 +10,9 @@ transport; mass-action chemistry with Arrhenius, tabulated and
 radiative-decay rates, net emission; its source term dg/source_term.py
 and the Joule heating dg/forcing.py forcings of the RHS; the mixture's
 walls, inlets and outlets; the species undershoot clip inside the step),
+axisymmetric (r, z) flow with swirl on DryAir and on the argon ternary
+with argon_minimal transport (`[flow] axisymmetric`: nvel = 3, the
+radius-weighted tables, dg/forcing.py's AxisymmetricSource),
 the LTE-table fluid (`fluid = lte_table`: physics/lte.py's table
 thermodynamics and transport with 1-D HDF5 or 2-D (T, rho) tables, net
 emission and the Joule heating through its sigma table), the LTE restart
@@ -66,7 +69,7 @@ from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
 from ..dg.fluxes import Fluxes
-from ..dg.forcing import JouleHeating
+from ..dg.forcing import AxisymmetricSource, JouleHeating
 from ..dg.fused import maybe_build_fused
 from ..dg.operators import _clip_species
 from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
@@ -183,20 +186,20 @@ _UNPORTED_KEYS = (
     ("mesh/partitions", "domain decomposition", "A8"),
     ("io/enableHistory", "the history file", "A12"),
     ("planeDump/isEnabled", "plane dumps", "A12"),
-    ("flow/computeDistance", "wall distance", "A5"),
-    ("flow/useMixingLength", "the mixing-length closure", "A5"),
-    ("viscosityMultiplierFunction/isEnabled", "the viscous sponge", "A5"),
-    ("flow/enablePressureForcing", "pressure forcing", "A5"),
-    ("heatSource/numHeatSources", "heat sources", "A5"),
-    ("spongezone/numSpongeZones", "sponge zones", "A5"),
+    ("flow/computeDistance", "wall distance", "A5.3"),
+    ("flow/useMixingLength", "the mixing-length closure", "A5.3"),
+    ("viscosityMultiplierFunction/isEnabled", "the viscous sponge", "A5.3"),
+    ("flow/enablePressureForcing", "pressure forcing", "A5.4"),
+    ("heatSource/numHeatSources", "heat sources", "A5.4"),
+    ("spongezone/numSpongeZones", "sponge zones", "A5.4"),
     ("passiveScalars/numScalars", "passive scalars", "A5.4"),
-    ("mms/isEnabled", "manufactured solutions", "A5"),
+    ("mms/isEnabled", "manufactured solutions", "A5.4"),
 )
 
 
 # boundary-condition types of this slice (dg/bc.py), as the JAX package's
 # solver names them (its _make_bc and _INLET_KINDS / _OUTLET_KINDS); the
-# interpolated inlet is A5
+# interpolated inlet is A5.2
 _WALL_KINDS = ("inviscid", "slip", "viscous_adiabatic", "viscous_isothermal",
                "viscous_general")
 _INLET_KINDS = ("subsonic", "subsonicFaceBasedX", "subsonicFaceBasedY",
@@ -227,10 +230,15 @@ def check_slice(rc: RunConfiguration):
     if rc.equation_system not in ("euler", "navier-stokes"):
         raise _not_ported(f"equation system '{rc.equation_system}' "
                           "(passive scalars)", "A5.4")
+    if rc.use_roe and rc.axisymmetric:
+        # the reference refuses this combination (annulus.test), and so
+        # does the JAX package
+        raise ValueError("Roe flux not supported for axisymmetric "
+                         "simulations. Please use flow/useRoe = 0.")
     if rc.use_roe:
         raise _not_ported("the Roe flux", "A5.3")
     if rc.axisymmetric:
-        raise _not_ported("axisymmetric flow", "A5.3")
+        _check_axisymmetric_fluid(rc)
     if rc.sgs_model != "none":
         raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5.3")
     for spec in rc.bcs:
@@ -250,6 +258,30 @@ def check_slice(rc: RunConfiguration):
         if raw.has(key) and _enabled(raw, key):
             section, name = key.split("/", 1)
             raise _not_ported(f"{what} ([{section}] {name})", item)
+
+
+def _check_axisymmetric_fluid(rc):
+    """Axisymmetric flow runs on the face sweep's axisymmetric policies
+    only (dg/cuda_faces.py::face_sweep_supported): DryAir, and the
+    two-temperature ambipolar argon ternary with argon_minimal transport
+    or on Euler.  The other fluids raise on both devices."""
+    if rc.fluid == "lte_table":
+        raise _not_ported("axisymmetric flow on the LTE-table fluid", "A5.3")
+    if rc.fluid != "user_defined":
+        return
+    raw = rc.raw
+    tmodel = str(raw.get("plasma_models/transport_model", "argon_minimal"))
+    nsp = int(raw.get("species/numSpecies", 0))
+    if nsp != 3:
+        raise _not_ported(f"axisymmetric flow on a {nsp}-species mixture "
+                          "(only the argon ternary)", "A5.3")
+    if not (raw.get("plasma_models/ambipolar", 0)
+            and raw.get("plasma_models/two_temperature", 0)):
+        raise _not_ported("axisymmetric flow on a mixture that is not "
+                          "ambipolar and two-temperature", "A5.3")
+    if rc.equation_system != "euler" and tmodel != "argon_minimal":
+        raise _not_ported(f"axisymmetric flow with '{tmodel}' plasma "
+                          "transport", "A5.3")
 
 
 def _enabled(raw, key):
@@ -292,7 +324,7 @@ class CompressibleSolver(PlasmaSolver):
             if vqo > 0:
                 quad_kw["vol_quad_order"] = vqo
         self.tables_np = build_tables(self.mesh, order=rc.order, basis=basis,
-                                      **quad_kw)
+                                      axisymmetric=rc.axisymmetric, **quad_kw)
         self.tables = self.tables_np.to_torch(self.dtype, self.device)
         # the coupling's fields on the solution nodes [ne, ndof]: the Joule
         # heating the forcing adds and the E-field amplitude (the
@@ -303,7 +335,9 @@ class CompressibleSolver(PlasmaSolver):
         self.efield = torch.zeros(shape, dtype=self.dtype, device=self.device)
 
         dim = self.mesh.dim
-        forcings = self._build_physics(dim, dim)
+        # (r, z) + swirl: the azimuthal velocity is the third
+        nvel = 3 if (rc.axisymmetric and dim == 2) else dim
+        forcings = self._build_physics(dim, nvel)
         # boundary conditions: per-attr static slices over sorted bdr faces
         self.bc_slices = self._build_bcs()
         self._report_bc_patches()
@@ -337,7 +371,8 @@ class CompressibleSolver(PlasmaSolver):
     # ------------------------------------------------------------------
     def _build_physics(self, dim, nvel):
         """Mixture, transport, fluxes and Riemann solver; returns the
-        forcings (the plasma's source term and Joule heating)."""
+        forcings (the plasma's source term and Joule heating, and the
+        geometric source of axisymmetric flow)."""
         rc = self.config
         self.plasma = None
         self._source_term = None
@@ -374,9 +409,10 @@ class CompressibleSolver(PlasmaSolver):
             transport = (None if rc.equation_system == "euler"
                          and rc.fluid == "user_defined" else self.transport)
             self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
-                                 eq_system=rc.equation_system)
+                                 eq_system=rc.equation_system,
+                                 axisymmetric=rc.axisymmetric)
             self.riemann = Rusanov(self.fluxes)
-            return forcings
+            return forcings + self._axisymmetric_source()
         self.mixture = DryAir(dim=dim, nvel=nvel)
         if rc.equation_system == "euler":
             transport = None
@@ -396,9 +432,17 @@ class CompressibleSolver(PlasmaSolver):
             )
         self.transport = transport
         self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
-                             eq_system=rc.equation_system)
+                             eq_system=rc.equation_system,
+                             axisymmetric=rc.axisymmetric)
         self.riemann = Rusanov(self.fluxes)
-        return forcings
+        return forcings + self._axisymmetric_source()
+
+    def _axisymmetric_source(self):
+        """[AxisymmetricSource] on axisymmetric flow, after the other
+        forcings (tps_tpu solvers/compressible.py:391-395), else []."""
+        if not self.config.axisymmetric:
+            return []
+        return [AxisymmetricSource(mixture=self.mixture, fluxes=self.fluxes)]
 
     def _build_rhs(self):
         """K1+K2 where their preconditions hold; the plain fused RHS for
