@@ -81,6 +81,7 @@ record.
 
 from __future__ import annotations
 
+import copy
 import functools
 import json
 from concurrent.futures import ThreadPoolExecutor
@@ -511,7 +512,7 @@ def phase_solver(dev):
 
 
 def phase_timing(setup, dev):
-    """ms/RHS (RK4 chains of 50 steps through the kernels, 2 through the
+    """ms/RHS (RK4 chains of 50 steps through the kernels, 1 through the
     host-bound plain version) and ms per kernel (50 calls, the plain
     version 10), kernels vs plain, in turns plain, kernel, kernel, plain,
     by CUDA events; each kernel's time on the device alone (`kernel_ms`),
@@ -537,7 +538,7 @@ def phase_timing(setup, dev):
                 return x
             return run
 
-        steps = {"plain": 2, "kernels": 50}
+        steps = {"plain": 1, "kernels": 50}
         runs = {"plain": chain(plain, U2, steps["plain"]),
                 "kernels": chain(rhs, U, steps["kernels"])}
         times = {"plain": [], "kernels": []}
@@ -1152,7 +1153,7 @@ def phase_io_timing(s):
     return res
 
 
-def phase_step_timing(cases, steps=8, profiled=4):
+def phase_step_timing(cases, steps=4, profiled=4):
     """ms/step through solve() (f32), the step graph against eager steps,
     in turns eager, graph, chain, chain, graph, eager, `steps` steps a
     turn, host clock to a synchronize ("chain": the same integrator and
@@ -1718,13 +1719,15 @@ def k2_bound(t, basis="gl", size=4):
 
 
 def face_bound(t, eq, basis, size=4, curved=False, argon=False, neq=None,
-               flux_ops=None, axi=False):
+               flux_ops=None, axi=False, slot_arrays=0, delta=False):
     """The face sweep on tables t: per interior slot the own traces of X's
     k channels and the scatter of neq, per interior face the flux.  X in,
     the result out, the normals, nbr_row, the mask and Btr_or (`axi`:
-    and the slot points' radii).  `argon`: the plasma's 6 equations (k =
-    18) and MIX_FACE_OPS (2-D, NS); a mixture variant gives its neq and
-    flux operations per point (MIX_OPS)."""
+    and the slot points' radii; `slot_arrays` more such per-point arrays,
+    the closures' sponge weights and wall distances; `delta`: the element
+    length scales, own and neighbours').  `argon`: the plasma's 6
+    equations (k = 18) and MIX_FACE_OPS (2-D, NS); a mixture variant
+    gives its neq and flux operations per point (MIX_OPS)."""
     ne, nd, nq, nlf, dim = t.ne, t.ndof, t.nqf, t.nlf, t.dim
     if neq is None:
         neq = dim + 4 if argon else dim + 2
@@ -1737,7 +1740,8 @@ def face_bound(t, eq, basis, size=4, curved=False, argon=False, neq=None,
     ops = 2 * slots * (k + neq) * trace + flux
     nbytes = (size * (ne * nd * k + ne * nd * neq + nlf * ne * nq * dim
                       + ne * nlf + t.n_combo * nq * nd
-                      + (ne * nlf * nq if axi else 0)) + 4 * ne * nlf)
+                      + (int(axi) + slot_arrays) * ne * nlf * nq
+                      + (ne * (1 + nlf) if delta else 0)) + 4 * ne * nlf)
     return bound(ops, nbytes)
 
 
@@ -2300,7 +2304,7 @@ def cg_breakdown(s, n=20):
     return out
 
 
-def phase_lomach_timing(cases, steps=4, profiled=1):
+def phase_lomach_timing(cases, steps=2, profiled=1):
     """Phase 24: ms/step through solve(), in turns eager, graph, graph,
     eager, `steps` steps a turn, host clock to a synchronize (checkpoints
     left out); device ms and busy share from `profiled` graph steps under
@@ -3567,7 +3571,7 @@ def channel_power(c):
 def phase_channel_deck(dev):
     """Phase 35: tps_torch/tools/argon_channel_coupled.ini (the compressible
     argon channel under the Joule coupling, 64x64 p=2 GL, EM every 10
-    steps) through the CLI as shipped (f32, 200 steps) with the launch
+    steps) through the CLI (f32, 100 of its 200 steps) with the launch
     counts set to 0 before it: the 2-D argon face sweep 4 times a step,
     no other variant; finite; the steps replayed the step graph; the
     power after control on target at each EM solve.  Then 12 steps (EM
@@ -3575,7 +3579,7 @@ def phase_channel_deck(dev):
     Joule heating, the E-field and the EM potential within
     CHANNEL_CPU_TOL; the power within POWER_TOL of the target; the step
     graph against eager steps over the same 12 steps within GRAPH_TOL."""
-    tps = channel_tps(torch.float32, "channel")
+    tps = channel_tps(torch.float32, "channel", iters=100)
     c = tps.solver
     reset_all_launches()
     t0 = time.perf_counter()
@@ -3590,15 +3594,16 @@ def phase_channel_deck(dev):
                  for v in channel_state(c).values())
     power32 = channel_power(c)
     Up = c.flow.mixture.primitives(c.flow.U)
-    log(f"  as shipped, f32: {steps} steps in {wall:.1f} s, {len(c.em_log)} "
+    log(f"  f32: {steps} of the deck's 200 steps in {wall:.1f} s, "
+        f"{len(c.em_log)} "
         f"EM solves; launches {counts}; finite {finite}; |Joule after "
         f"control / target - 1| <= {power32:.2e} (f32); T_e max "
         f"{float(Up[..., -1].max()):.1f} K, max|u| "
         f"{float(Up[..., 1:3].abs().max()):.3f} m/s; step graph "
         f"{c.flow._loop.graph is not None}, launches a replay "
         f"{c.flow._loop.per_replay}")
-    if (bad or not finite or tps.get_status() != 0 or steps != 200
-            or len(c.em_log) != 20 or c.flow._loop.graph is None):
+    if (bad or not finite or tps.get_status() != 0 or steps != 100
+            or len(c.em_log) != 10 or c.flow._loop.graph is None):
         raise SystemExit(f"the coupled channel's CLI run failed its checks "
                          f"(launches off: {bad})")
     out = {"as shipped f32": {"steps": steps, "wall_s": wall,
@@ -4113,7 +4118,7 @@ def phase_lte_faces(dev, cases=LTE_FACE_CASES):
 def phase_lte_channel(dev):
     """Phase 39: tps_torch/tools/lte_channel_coupled.ini (the LTE-table
     plasma under the Joule coupling, 64x64 p=2 GL, EM every 10 steps)
-    through the CLI as shipped (f32, 200 steps) with the launch counts set
+    through the CLI (f32, 100 of its 200 steps) with the launch counts set
     to 0 before it: the 2-D LTE sweep 4 times a step, no other variant;
     finite; the steps replayed the step graph; the power on target at
     each EM solve.  Then 12 f64 steps (EM updates at 0 and 10): at 64x64
@@ -4122,9 +4127,9 @@ def phase_lte_channel(dev):
     against the port's CPU run, U within LTE_CPU_TOL and the Joule
     heating within CHANNEL_CPU_TOL; the power within POWER_TOL.  Then
     ms/step graph and eager through the coupled solve() on the shipped
-    f32 run's solver (phase 37's turns, from step 200)."""
+    f32 run's solver (phase 37's turns, from step 100)."""
     tps = channel_tps(torch.float32, "lte_channel",
-                      path=lte_channel_deck("lte_channel"))
+                      path=lte_channel_deck("lte_channel", iters=100))
     c = tps.solver
     reset_all_launches()
     t0 = time.perf_counter()
@@ -4139,13 +4144,14 @@ def phase_lte_channel(dev):
                  for v in channel_state(c).values())
     power32 = channel_power(c)
     T = c.flow.mixture.temperature(c.flow.U)
-    log(f"  as shipped, f32: {steps} steps in {wall:.1f} s, {len(c.em_log)} "
+    log(f"  f32: {steps} of the deck's 200 steps in {wall:.1f} s, "
+        f"{len(c.em_log)} "
         f"EM solves; launches {counts}; finite {finite}; |Joule after "
         f"control / target - 1| <= {power32:.2e} (f32); T {float(T.min()):.2f}"
         f"-{float(T.max()):.2f} K; step graph {c.flow._loop.graph is not None}"
         f", launches a replay {c.flow._loop.per_replay}")
-    if (bad or not finite or tps.get_status() != 0 or steps != 200
-            or len(c.em_log) != 20 or c.flow._loop.graph is None):
+    if (bad or not finite or tps.get_status() != 0 or steps != 100
+            or len(c.em_log) != 10 or c.flow._loop.graph is None):
         raise SystemExit(f"the LTE channel's CLI run failed its checks "
                          f"(launches off: {bad})")
     out = {"as shipped f32": {"steps": steps, "wall_s": wall,
@@ -4186,7 +4192,7 @@ def phase_lte_channel(dev):
         raise SystemExit("the LTE channel: card, CPU and eager differ")
     out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu 8x8": cpu_d,
                 "power_err_f64": power})
-    # the shipped run's solver, its graph captured, times on from step 200
+    # the f32 run's solver, its graph captured, times on from step 100
     out["solve() ms/step"] = phase_channel_timing({"lte channel f32":
                                                    shipped})
     return out
@@ -4421,13 +4427,16 @@ def phase_axi_faces(dev):
     return out, worst
 
 
-def phase_torch_axi(dev):
+def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
+                    tag="torch_axi", euler=True):
     """Phase 42: tps_torch/tools/argon_torch_axisym.ini (the compressible
     argon torch in (r, z) with swirl under the Joule coupling, 64x64 p=2
     GL, EM every 10 steps) through the CLI, 20 steps in f32 and in f64,
     with the launch counts set to 0 before each: the argon_axi sweep 4
     times a step, no other variant; finite; the steps replayed the step
-    graph; the power on target at each EM solve.  The f64 run at its step
+    graph; the power on target at each EM solve.  (Phase 45 runs the same
+    on another deck, `path`, whose sweep is variant `var`, without the
+    Euler run.)  The f64 run at its step
     12 against 12 eager steps (EM updates at 0 and 10) within GRAPH_TOL,
     and at its step 3 against the port's CPU run of 3 steps within
     CHANNEL_CPU_TOL (U, Joule heating, E-field, EM potential).  Then
@@ -4441,8 +4450,8 @@ def phase_torch_axi(dev):
             ("f64", torch.float64, "cuda", True, 20),
             ("eager", torch.float64, "cuda", False, 12),
             ("cpu3", torch.float64, "cpu", True, 3)):
-        tps = channel_tps(dtype, f"torch_axi_{name}", device=device,
-                          iters=iters, path=TORCH_AXI_DECK)
+        tps = channel_tps(dtype, f"{tag}_{name}", device=device,
+                          iters=iters, path=path)
         c = tps.solver
         c.flow.cuda_graphs = graphs
         reset_all_launches()
@@ -4460,7 +4469,7 @@ def phase_torch_axi(dev):
         wall = time.perf_counter() - t0
         counts = launches_by_variant()
         steps = c.flow.iter
-        want = ({"face_sweep": 4 * steps, "face_sweep/argon_axi": 4 * steps}
+        want = ({"face_sweep": 4 * steps, f"face_sweep/{var}": 4 * steps}
                 if device == "cuda" else {})
         bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
         state = {k: v.double().cpu().clone()
@@ -4480,7 +4489,7 @@ def phase_torch_axi(dev):
                 or (dtype == torch.float64 and power > POWER_TOL)
                 or (graphs and device == "cuda"
                     and c.flow._loop.graph is None)):
-            raise SystemExit(f"the axisymmetric torch deck's {name} run "
+            raise SystemExit(f"{os.path.basename(path)}'s {name} run "
                              f"failed its checks (launches off: {bad})")
         if name in ("f32", "f64"):
             out[name] = {"steps": steps, "wall_s": wall, "launches": counts,
@@ -4500,11 +4509,13 @@ def phase_torch_axi(dev):
         f"{graph_d} (bar {GRAPH_TOL}); card vs the port's CPU run, 3 steps "
         f"{cpu_d} (bar {CHANNEL_CPU_TOL})" + ("" if ok else "  FAIL"))
     if not ok:
-        raise SystemExit("the axisymmetric torch deck: card, CPU and eager "
+        raise SystemExit(f"{os.path.basename(path)}: card, CPU and eager "
                          "differ")
     out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu": cpu_d})
-    out["solve() ms/step"] = phase_channel_timing({"torch axisym f32":
-                                                   shipped})
+    out["solve() ms/step"] = phase_channel_timing(
+        {f"{os.path.basename(path)} f32": shipped})
+    if not euler:
+        return out
     # the Euler variant's path: the deck on Euler through the CLI, f32, 2
     # steps
     with open(TORCH_AXI_DECK) as f:
@@ -4611,6 +4622,358 @@ def phase_pipe(dev, n=(32, 128), steps=20):
         raise SystemExit(f"the axisymmetric pipe on Euler failed its checks "
                          f"(launches off: {bad})")
     out["euler f32"] = {"steps": 2, "launches": counts}
+    return out
+
+
+# ---------------------------------------------------------------- closures
+
+# Roe and the compressible closures (phases 44-46)
+ML_DECK = os.path.join(REPO, "tps_torch", "tools", "argon_torch_axisym_ml.ini")
+LES_DECK = os.path.join(REPO, "tps_torch", "tools", "les_channel3d.ini")
+# the face flux per point with the closure step, counted from
+# csrc/dg_pointwise.cuh::closure_step as FACE_OPS is (an estimate): per
+# side the strain |S| (2-D 16, 3-D 36, the swirl's 15 more), the mixing
+# length 8 past it, Smagorinsky 8 past it, Sigma's g^T g and closed-form
+# eigenvalues ~90 (3-D), the SGS update 6 and the sponge 3; and the Roe
+# combination's waves, ~75 a point more than Rusanov's
+
+
+def closure_flux_ops(base, closure, eq):
+    """Operations per face point of a variant of tps_torch/tools/
+    closure_cases.py (its base flux, FACE_OPS / MIX_OPS / AXI_OPS, plus
+    two sides' closure steps and Roe's waves)."""
+    from tps_torch.tools.closure_cases import BASES
+
+    fluid, dim, axi, roe = BASES[base]
+    if fluid == "dry_air":
+        ops = (AXI_OPS["dry_air_axi" + ("_euler" if eq == "euler" else "")]
+               if axi else FACE_OPS[eq] * (dim + 2) // 5)
+    else:
+        ops = AXI_OPS["argon_axi"] if axi else MIX_OPS[f"argon_{dim}d"]
+    if roe:
+        ops += 75
+    if eq == "euler" or closure == "none":
+        return ops
+    strain = (16 if dim == 2 else 36) + (15 if axi else 0)
+    side = {"smagorinsky": strain + 8 + 6, "sigma": 90 + 6, "sponge": 3,
+            "mixing": strain + 8,
+            "all": strain + 8 + (strain + 8 if dim == 2 else 90) + 6 + 3}
+    return ops + 2 * side[closure]
+
+
+# the variants on small boxes (4x4 p=2, 3^3 in 3-D): every closure alone
+# and all together on each base, and Roe with and without them
+CLOSURE_BASES = ("dry_air_2d", "dry_air_3d", "dry_air_axi", "argon_2d",
+                 "argon_3d", "argon_axi")
+CLOSURE_SMALL = tuple(
+    (b, c, "navier-stokes") for b in CLOSURE_BASES
+    for c in ("smagorinsky", "sigma", "sponge", "mixing", "all")) + tuple(
+    (b, c, eq) for b in ("dry_air_roe_2d", "dry_air_roe_3d")
+    for c, eq in (("none", "navier-stokes"), ("none", "euler"),
+                  ("all", "navier-stokes")))
+# (record, base, closure, equations, elements a side): at the decks'
+# width, each timed: 64x64 (the ML deck's), 32x16x16 (the LES deck's),
+# the 3-D argon at 16^3 (phase 34's)
+CLOSURE_WIDE = (
+    ("dry_air_2d_closure", "dry_air_2d", "all", "navier-stokes", 64),
+    ("dry_air_3d_closure", "dry_air_3d", "all", "navier-stokes",
+     (32, 16, 16)),
+    ("dry_air_axi_closure", "dry_air_axi", "all", "navier-stokes", 64),
+    ("argon_2d_closure", "argon_2d", "all", "navier-stokes", 64),
+    ("argon_3d_closure", "argon_3d", "all", "navier-stokes", 16),
+    ("argon_axi_closure", "argon_axi", "all", "navier-stokes", 64),
+    ("dry_air_roe_2d", "dry_air_roe_2d", "none", "navier-stokes", 64),
+    ("dry_air_roe_2d_euler", "dry_air_roe_2d", "none", "euler", 64),
+    ("dry_air_roe_2d_closure", "dry_air_roe_2d", "all", "navier-stokes", 64),
+    ("dry_air_roe_3d", "dry_air_roe_3d", "none", "navier-stokes",
+     (32, 16, 16)),
+    ("dry_air_roe_3d_euler", "dry_air_roe_3d", "none", "euler",
+     (32, 16, 16)),
+    ("dry_air_roe_3d_closure", "dry_air_roe_3d", "all", "navier-stokes",
+     (32, 16, 16)))
+
+
+def closure_check(base, closure, eq, n, dev, timed=False):
+    """One case of tps_torch/tools/closure_cases.py: the kernel against its
+    plain version, f64 within TOL and f32 by TOL's rule, its variant
+    counted once; the closure (or Roe) moves the plain result.  timed:
+    the record (CUDA events kernel, plain, kernel; the device ms; f64;
+    the bound)."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+    from tps_torch.tools.closure_cases import BASES, closure_case
+
+    ctx, tab_np, Up = closure_case(base, closure, n, eq=eq)
+    U = ctx.mixture.conservatives(torch.as_tensor(Up, device=dev))
+    tab64 = tab_np.to_torch(torch.float64, dev)
+    tab32 = tab_np.to_torch(torch.float32, dev)
+    sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+    X64 = face_input(ctx, tab64, U)
+    X32 = X64.float()
+    var = sw64.variant
+    reset_all_launches()
+    y64 = sw64(X64)
+    k32 = sw32(X32)
+    torch.cuda.synchronize()
+    counted = launches_by_variant()[f"face_sweep/{var}"]
+    p64, p32 = sw64.plain(X64), sw32.plain(X32)
+    ref = sw64.plain(X32.double())
+    r64, r32 = rel(y64, p64), rel(k32, p32)
+    dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+    want = base if closure == "none" or eq == "euler" else f"{base}_closure"
+    ok = (r64 <= TOL[torch.float64] and var == want and counted == 2
+          and (r32 <= TOL[torch.float32] or dk <= 2 * dp))
+    grid = "x".join(map(str, (n,) * tab_np.dim if isinstance(n, int) else n))
+    name = f"{var} {closure} {eq} {grid} p=2 gl"
+    rec = {"grid": name, "variant": var, "f64_rel_err": r64, "f32_rel": r32,
+           "f32_f64_dist": dk, "plain_f32_f64_dist": dp, "ok": ok,
+           "max_abs_err": float(torch.max(torch.abs(k32 - p32)))}
+    if timed:
+        ms = [cuda_ms(lambda: sw32(X32), 30), cuda_ms(lambda: sw32.plain(X32), 2),
+              cuda_ms(lambda: sw32(X32), 30)]
+        fluid, _dim, axi, _roe = BASES[base]
+        b = face_bound(tab_np, eq, "gl", neq=sw64.neq,
+                       flux_ops=closure_flux_ops(base, closure, eq), axi=axi,
+                       slot_arrays=(0 if want == base
+                                    else int(sw64.wgt is not None)
+                                    + int(sw64.dist is not None)),
+                       delta=sw64.delta is not None)
+        rec.update({
+            "neq": sw64.neq, "k": sw64.k, "nodes": tab_np.ne * tab_np.ndof,
+            "ms": (ms[0] + ms[2]) / 2, "plain_ms": ms[1],
+            "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep", 20),
+            "f64_ms": cuda_ms(lambda: sw64(X64), 20),
+            "f64_device_ms": kernel_ms(lambda: sw64(X64), "face_sweep", 20),
+            "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+            "bytes_ms": b[3], "turns": ms})
+    log(f"  {name} (NEQ {sw64.neq}, {tab_np.ne} elements): f64 {r64:.3e} "
+        f"(bar {TOL[torch.float64]}); f32 {r32:.3e} (or f64 dist: kernel "
+        f"{dk:.3e} <= 2 x plain {dp:.3e}); launches under {var}: {counted}"
+        + (f"; ms {rec['ms']:.4f}, device {ms_text(rec['device_ms'])}, f64 "
+           f"{rec['f64_ms']:.4f}, plain {rec['plain_ms']:.2f}, bound "
+           f"{rec['bound_ms']:.6f} ({rec['bound_by']})" if timed else "")
+        + ("" if ok else "  FAIL"))
+    del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+    return rec
+
+
+def closure_path_decks():
+    """{variant: (deck path, stages a step)}: the path of each closure and
+    Roe variant that phases 45-46's decks do not take, through the CLI:
+    the LES deck at 8x4x4 (Sigma on Rusanov; Roe alone; Roe on Euler,
+    its walls inviscid), the pipe deck planar (Smagorinsky and the sponge,
+    on Rusanov and Roe; Roe alone and on Euler) and axisymmetric
+    (Smagorinsky and the sponge), the argon deck with Smagorinsky, the
+    3-D argon box at 4^3 with Smagorinsky.  Output in build/<variant>."""
+    sponge = ("[viscosityMultiplierFunction]\nisEnabled = 1\n"
+              "point = '0.0 0.7 0.0'\nnormal = '0.0 1.0 0.0'\nwidth = 0.05\n"
+              "viscosityRatio = 10.0\n")
+    with open(LES_DECK) as f:
+        les = (f.read().replace("nx = 32", "nx = 8").replace("ny = 16", "ny = 4")
+               .replace("nz = 16", "nz = 4"))
+    with open(PIPE_DECK) as f:
+        pipe = f.read()
+    planar = pipe.replace("axisymmetric = 1\n", "")
+    euler = [("equation_system = navier-stokes", "equation_system = euler"),
+             ("type = viscous_isothermal\ntemperature = 300.0\n",
+              "type = inviscid\n"),
+             ("type = viscous_isothermal\ntemperature = 300\n",
+              "type = inviscid\n")]
+
+    def edit(text, pairs):
+        for old, new in pairs:
+            text = text.replace(old, new)
+        return text
+
+    smag = [("[flow]\n", "[flow]\nsgsModel = smagorinsky\n"), ("[io]", sponge + "[io]")]
+    roe = [("[flow]\n", "[flow]\nuseRoe = 1\n")]
+    texts = {
+        "dry_air_3d_closure": (edit(les, [("useRoe = 1", "useRoe = 0")]), 4),
+        "dry_air_roe_3d": (edit(les, [("sgsModel = sigma", "sgsModel = none")]),
+                           4),
+        "dry_air_roe_3d_euler": (edit(les, [("sgsModel = sigma",
+                                             "sgsModel = none")] + euler), 4),
+        "dry_air_2d_closure": (edit(planar, smag), 3),
+        "dry_air_roe_2d_closure": (edit(planar, smag + roe), 3),
+        "dry_air_roe_2d": (edit(planar, roe), 3),
+        "dry_air_roe_2d_euler": (edit(planar, roe + euler), 3),
+        "dry_air_axi_closure": (edit(pipe, smag), 3)}
+    with open(ARGON_DECK) as f:
+        argon = f.read().replace("[flow]\n", "[flow]\nsgsModel = smagorinsky\n",
+                                 1)
+    texts["argon_2d_closure"] = (argon, 4)
+    with open(variant_deck("argon_3d")) as f:
+        argon3 = (f.read().replace("nx = 16", "nx = 4").replace("ny = 16", "ny = 4")
+                  .replace("nz = 16", "nz = 4")
+                  .replace("[flow]\n", "[flow]\nsgsModel = smagorinsky\n", 1))
+    texts["argon_3d_closure"] = (argon3, 4)
+    out = {}
+    for var, (text, stages) in texts.items():
+        for name in ("output/les_channel3d", "output/axisym_pipe",
+                     "/tmp/tps_tpu_argon_output",
+                     os.path.join(REPO, "build", "argon_3d")):
+            text = text.replace(f"outdirBase = {name}",
+                                f"outdirBase = build/{var}")
+        path = os.path.join(REPO, "build", var + ".ini")
+        with open(path, "w") as f:
+            f.write(text)
+        out[var] = (path, stages)
+    return out
+
+
+def phase_closure_faces(dev):
+    """Phase 44: the face sweep's closure and Roe variants against their
+    plain versions (`closure_check`): every case of CLOSURE_SMALL, then
+    CLOSURE_WIDE timed; then each variant's path that phases 45-46's
+    decks do not take through the CLI (`closure_path_decks`, f32, 2 steps):
+    its variant once a stage and no other.  Returns ({record: record},
+    {variant: launches}, the largest f64 error)."""
+    from tps_torch.dg.cuda_faces import VARIANTS
+
+    failures, worst = [], 0.0
+    for base, closure, eq in CLOSURE_SMALL:
+        rec = closure_check(base, closure, eq, 3 if "3d" in base else 4, dev)
+        worst = max(worst, rec["f64_rel_err"])
+        if not rec["ok"]:
+            failures.append(rec["grid"])
+    out = {}
+    for key, base, closure, eq, n in CLOSURE_WIDE:
+        rec = closure_check(base, closure, eq, n, dev, timed=True)
+        worst = max(worst, rec["f64_rel_err"])
+        if not rec["ok"]:
+            failures.append(rec["grid"])
+        out[key] = rec
+        torch.cuda.empty_cache()
+    if failures:
+        raise SystemExit(f"face sweep parity on the closure and Roe variants "
+                         f"failed: {failures}")
+    launched = {}
+    for key, (path, stages) in closure_path_decks().items():
+        var = key.replace("_euler", "")
+        assert var in VARIANTS, var
+        tps = channel_tps(torch.float32, key, iters=2, path=path)
+        reset_all_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        counts = launches_by_variant()
+        want = {"face_sweep": 2 * stages, f"face_sweep/{var}": 2 * stages}
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        finite = bool(torch.isfinite(tps.solver.U).all())
+        log(f"  {key}'s path ({os.path.basename(path)}), f32, 2 steps: "
+            f"launches {counts}; finite {finite}")
+        if bad or not finite or tps.get_status() != 0:
+            raise SystemExit(f"{key}'s path failed its checks (launches off: "
+                             f"{bad})")
+        launched[key] = counts[f"face_sweep/{var}"]
+        del tps
+    return out, launched, worst
+
+
+def les_perturbed(s, seed=6):
+    """The LES deck's state with seeded 3-D velocity perturbations of 3 m/s
+    (numpy, in f64), so that the Sigma model acts from the first step."""
+    U0 = s.state_global().astype(np.float64)
+    xyz = s.tables_np.xyz_dof
+    rng = np.random.default_rng(seed)
+    for q in (1, 2, 3):
+        k = rng.uniform(0.5, 1.5, 3)
+        U0[..., q] += 3.0 * U0[..., 0] * np.prod(np.sin(k * xyz), axis=-1)
+    return U0
+
+
+def phase_les(dev):
+    """Phase 46: tps_torch/tools/les_channel3d.ini (Roe and Sigma on a 3-D
+    channel of air, 32x16x16 p=2 GL, 221,184 nodes) through the CLI, 20
+    steps in f32 and in f64, from les_perturbed's state, with the launch
+    counts set to 0 before each: the dry_air_roe_3d_closure sweep 4 times
+    a step, no other variant; finite; the step graph.  The f64 run at its
+    step 12 against 12 eager steps within GRAPH_TOL; the deck cut to
+    16x8x8 (27,648 nodes; the CPU takes ~10 s a step at full size), 3 f64
+    steps on the card against the port's CPU run within CHANNEL_CPU_TOL
+    (U).  Then ms/step through solve() (phase 11's turns, f32)."""
+    from tps_torch.solvers import compressible
+
+    var = "dry_air_roe_3d_closure"
+    out, runs, shipped = {}, {}, None
+    # the four runs' solvers share one build of the deck's numpy tables
+    # (~6 s of host time each at 221,184 nodes)
+    built = {}
+    build_tables = compressible.build_tables
+
+    def once(mesh, **kw):
+        key = (mesh.vertices.tobytes(), tuple(sorted(kw.items())))
+        if key not in built:
+            built[key] = build_tables(mesh, **kw)
+        return copy.copy(built[key])
+
+    compressible.build_tables = once
+    try:
+        return _les_runs(dev, var, out, runs)
+    finally:
+        compressible.build_tables = build_tables
+
+
+def _les_runs(dev, var, out, runs):
+    """phase_les' runs and checks (its docstring)."""
+    shipped = None
+    with open(LES_DECK) as f:
+        text = (f.read().replace("nx = 32", "nx = 16")
+                .replace("ny = 16", "ny = 8").replace("nz = 16", "nz = 8"))
+    cut = os.path.join(REPO, "build", "les_cut.ini")
+    with open(cut, "w") as f:
+        f.write(text)
+    for name, dtype, device, graphs, iters, path in (
+            ("f32", torch.float32, "cuda", True, 20, LES_DECK),
+            ("f64", torch.float64, "cuda", True, 20, LES_DECK),
+            ("eager", torch.float64, "cuda", False, 12, LES_DECK),
+            ("card3", torch.float64, "cuda", True, 3, cut),
+            ("cpu3", torch.float64, "cpu", True, 3, cut)):
+        tps = channel_tps(dtype, f"les_{name}", device=device, iters=iters,
+                          path=path)
+        s = tps.solver
+        s.cuda_graphs = graphs
+        s.set_state_global(les_perturbed(s))
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if name == "f64":
+            s.config.max_iters = 12
+            tps.solve()
+            runs["card12"] = s.U.double().cpu().clone()
+            s.config.max_iters = iters
+        tps.solve()
+        if device == "cuda":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_by_variant()
+        want = ({"face_sweep": 4 * s.iter, f"face_sweep/{var}": 4 * s.iter}
+                if device == "cuda" else {})
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        runs[name] = s.U.double().cpu().clone()
+        finite = bool(torch.isfinite(runs[name]).all())
+        log(f"  {name}: {s.iter} steps in {wall:.1f} s; launches {counts}; "
+            f"finite {finite}; max|u| "
+            f"{float((runs[name][..., 1:4] / runs[name][..., :1]).abs().max()):.4f}"
+            f" m/s; step graph {s._loop.graph is not None}")
+        if (bad or not finite or tps.get_status() != 0 or s.iter != iters
+                or (graphs and device == "cuda" and s._loop.graph is None)):
+            raise SystemExit(f"the LES channel's {name} run failed its checks "
+                             f"(launches off: {bad})")
+        if name in ("f32", "f64"):
+            out[name] = {"steps": s.iter, "wall_s": wall, "launches": counts}
+        if name == "f32":
+            shipped = s
+        else:
+            del tps, s
+    graph_d = state_rel(runs["card12"], runs["eager"], nvel=3)
+    cpu_d = state_rel(runs["card3"], runs["cpu3"], nvel=3)
+    ok = graph_d <= GRAPH_TOL and cpu_d <= CHANNEL_CPU_TOL
+    log(f"  f64: graph vs eager, 12 steps {graph_d:.3e} (bar {GRAPH_TOL}); "
+        f"card vs the port's CPU run, 16x8x8, 3 steps {cpu_d:.3e} (bar "
+        f"{CHANNEL_CPU_TOL})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the LES channel: card, CPU and eager differ")
+    out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu": cpu_d})
+    out["solve() ms/step"] = phase_step_timing({"les_channel3d f32": shipped},
+                                               steps=4)
     return out
 
 
@@ -4733,8 +5096,8 @@ def run(dev):
     # bench_argon_big's cfl 0.02 is above the electron-energy diffusion
     # limit at 32x32 p=2: T_e noise grows ~4x a step, in the JAX package
     # as in this one (the same digits on the CPU in f64, 1e-6 noise), and
-    # decays at 0.01.  These turns run ~120 steps, so at half of it, and
-    # at a quarter of that at 128x128 (h/4, dt ~ h^2); 8 steps a turn
+    # decays at 0.01.  These turns run ~60 steps, so at half of it, and
+    # at a quarter of that at 128x128 (h/4, dt ~ h^2); 4 steps a turn
     # (eager steps take 70-90 ms here)
     argon_steps = phase_step_timing({
         "argon 32x32": argon_solver(argon_big_deck(32, 0.01, 10**6,
@@ -4742,7 +5105,7 @@ def run(dev):
                                     torch.float32, False),
         "argon 128x128": argon_solver(argon_big_deck(128, 0.0025, 10**6,
                                                      "argon128"),
-                                      torch.float32, False)}, steps=8)
+                                      torch.float32, False)})
     for name, res in argon_steps.items():
         if not res["finite"]:
             raise SystemExit(f"{name}: the f32 state left the finite range")
@@ -4815,7 +5178,7 @@ def run(dev):
               "argon, Euler 2-D and 3-D, constant transport, the six-species "
               "mixture; each on a small grid and at full width; f64, f32)")
     mix_faces, mix_err = phase_mixture_faces(dev)
-    log_phase("phase 35: argon_channel_coupled.ini through the CLI (f32, 200 "
+    log_phase("phase 35: argon_channel_coupled.ini through the CLI (f32, 100 "
               "steps, EM every 10), then f64 card vs CPU and graph vs eager "
               "across an EM update")
     channel = phase_channel_deck(dev)
@@ -4830,7 +5193,7 @@ def run(dev):
               "3-D, 1-D and 2-D tables, NS and Euler; f64, f32), then each "
               "variant's path through the CLI (f32, 2 steps)")
     lte_faces, lte_err = phase_lte_faces(dev)
-    log_phase("phase 39: lte_channel_coupled.ini through the CLI (f32, 200 "
+    log_phase("phase 39: lte_channel_coupled.ini through the CLI (f32, 100 "
               "steps, EM every 10), then f64 graph vs eager and card vs CPU "
               "across an EM update (8x8), and ms/step (f32)")
     lte_channel = phase_lte_channel(dev)
@@ -4850,6 +5213,22 @@ def run(dev):
     log_phase("phase 43: axisym_pipe.ini at 32x128 p=2 (DryAir NS, f64, 20 "
               "RK3 steps) vs a plain RK3 loop; the pipe on Euler (2 steps)")
     pipe = phase_pipe(dev)
+    log_phase("phase 44: the face sweep's closure and Roe variants vs plain "
+              "(the mixing length, Smagorinsky, Sigma, the sponge, alone and "
+              "together, on DryAir 2-D/3-D/axi and the argon ternary "
+              "2-D/3-D/axi; Roe on DryAir 2-D/3-D, NS and Euler; small boxes "
+              "and the decks' width; f64, f32), then each variant's path "
+              "through the CLI (f32, 2 steps)")
+    closure_faces, closure_launched, closure_err = phase_closure_faces(dev)
+    log_phase("phase 45: argon_torch_axisym_ml.ini through the CLI (f32 and "
+              "f64, 20 steps, EM every 10), f64 graph vs eager and card vs "
+              "CPU (3 steps), ms/step (f32)")
+    torch_ml = phase_torch_axi(dev, ML_DECK, "argon_axi_closure", "torch_ml",
+                               euler=False)
+    log_phase("phase 46: les_channel3d.ini (Roe + Sigma, 32x16x16 p=2 GL) "
+              "through the CLI (f32 and f64, 20 steps), f64 graph vs eager; "
+              "card vs CPU at 16x8x8 (3 steps); ms/step (f32)")
+    les = phase_les(dev)
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -4968,6 +5347,37 @@ def run(dev):
             "library_ms": None, "grid": rec["grid"],
             "f64_ms": rec["f64_ms"], "f64_device_ms": rec["f64_device_ms"],
             "f64_max_rel_err": rec["f64_rel_err"]})
+    # the closure and Roe variants: launches on their paths' CLI runs
+    # (phases 45, 46, and phase 44's small decks), times and bounds at the
+    # decks' width (phase 44)
+    closure_launches = {
+        **closure_launched,
+        "argon_axi_closure": torch_ml["f32"]["launches"][
+            "face_sweep/argon_axi_closure"],
+        "dry_air_roe_3d_closure": les["f32"]["launches"][
+            "face_sweep/dry_air_roe_3d_closure"]}
+    kernels[2]["launches_by_path"]["argon_torch_axisym_ml.ini"] = \
+        closure_launches["argon_axi_closure"]
+    kernels[2]["launches_by_path"]["les_channel3d.ini"] = \
+        closure_launches["dry_air_roe_3d_closure"]
+    for key, rec in closure_faces.items():
+        src = ("face_sweep_roe.cu" if "roe" in key
+               else "face_sweep_argon3d.cu" if key == "argon_3d_closure"
+               else "face_sweep_argon.cu" if key == "argon_2d_closure"
+               else "face_sweep_argon_axi.cu" if key == "argon_axi_closure"
+               else "face_sweep_axi.cu" if key == "dry_air_axi_closure"
+               else "face_sweep.cu")
+        kernels.append({
+            "name": f"face_sweep/{key}", "route": "cuda",
+            "source": f"tps_torch/csrc/{src}",
+            "replaces": "tools/pallas_face_prototype.py:102",
+            "launches": closure_launches[key],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "grid": rec["grid"],
+            "f64_ms": rec["f64_ms"], "f64_device_ms": rec["f64_device_ms"],
+            "f64_max_rel_err": rec["f64_rel_err"]})
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
                                    "plain_ms_per_rhs": v["plain_ms_per_rhs"],
@@ -5016,6 +5426,11 @@ def run(dev):
     summary["axisymmetric"] = {
         "face sweep variants": axi_faces, "variants f64 max rel err": axi_err,
         "torch deck": torch_axi, "pipe": pipe}
+    summary["closures and Roe"] = {
+        "face sweep variants": closure_faces,
+        "variants f64 max rel err": closure_err,
+        "paths' launches": closure_launches, "ml torch deck": torch_ml,
+        "les channel": les}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

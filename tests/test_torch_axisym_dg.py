@@ -26,8 +26,8 @@ package's, on the CPU in f64, module by module.
 7. What stays out raises: Roe with axisymmetry (ValueError, the
    reference's error), and under axisymmetry the LTE fluid, constant
    plasma transport and the six-species mixture (NotImplementedError
-   naming ROADMAP A5.3); the SGS models, the viscous sponge and the
-   mixing length (A5.3).
+   naming ROADMAP A5.3).  The SGS models, the viscous sponge and the
+   mixing length run under axisymmetry: check_slice accepts them.
 
 The pipe deck, the small torch deck and the checkpoints are held in
 tests/test_torch_axisym_decks.py.
@@ -431,13 +431,21 @@ def test_roe_with_axisymmetry_is_the_references_error():
                   "transport_model = constant"), id="constant-transport"),
     pytest.param(("numSpecies = 3", "numSpecies = 6"), id="six-species"),
     pytest.param(("fluid = user_defined", "fluid = lte_table"), id="lte"),
-    pytest.param(("[flow]\n", "[flow]\nsgsModel = smagorinsky\n"), id="sgs"),
-    pytest.param(("[flow]\n", "[flow]\nuseMixingLength = 1\n"),
-                 id="mixing-length"),
-    pytest.param(("[flow]\n", "[viscosityMultiplierFunction]\nisEnabled = 1"
-                  "\n[flow]\n"), id="viscous-sponge"),
 ])
 def test_what_stays_out_names_a5_3(edit):
     rc = _rc(_argon_text(**{edit[0]: edit[1]}))
     with pytest.raises(NotImplementedError, match=r"ROADMAP A5\.3"):
         check_slice(rc)
+
+
+@pytest.mark.parametrize("edit", [
+    pytest.param(("[flow]\n", "[flow]\nsgsModel = smagorinsky\n"), id="sgs"),
+    pytest.param(("[flow]\n", "[flow]\ncomputeDistance = 1\n"
+                  "useMixingLength = 1\n"), id="mixing-length"),
+    pytest.param(("[flow]\n", "[viscosityMultiplierFunction]\nisEnabled = 1"
+                  "\n[flow]\n"), id="viscous-sponge"),
+])
+def test_a5_3_closures_are_accepted(edit):
+    rc = _rc(_argon_text(**{edit[0]: edit[1]}))
+    check_slice(rc)
+    assert rc.axisymmetric

@@ -886,6 +886,65 @@ def test_face_sweep_axi_variants_match_plain(device, var, n, order, dtype):
                 or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
 
 
+def _closure_case(base, closure, eq, dtype, device):
+    """(sweep, X) of tps_torch/tools/closure_cases.py's case at 6x6 (2-D)
+    or 4^3 (3-D) p=2 GL, X = [U | grad] in dtype on device."""
+    from tps_torch.tools.closure_cases import closure_case
+
+    ctx, tab_np, Up = closure_case(base, closure, 4 if "3d" in base else 6,
+                                   eq=eq)
+    mix = ctx.mixture
+    tab = tab_np.to_torch(torch.float64, device)
+    U = mix.conservatives(torch.as_tensor(Up, device=device))
+    X = U
+    if eq != "euler":
+        G = dg_gradient(tab, mix.primitives(U))
+        X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    return build_face_sweep(tab_np.to_torch(dtype, device), ctx), \
+        X.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("base,closure,eq", [
+    ("dry_air_2d", "all", "navier-stokes"),
+    ("dry_air_3d", "all", "navier-stokes"),
+    ("dry_air_axi", "all", "navier-stokes"),
+    ("argon_2d", "all", "navier-stokes"),
+    ("argon_3d", "all", "navier-stokes"),
+    ("argon_axi", "all", "navier-stokes"),
+    ("argon_axi", "mixing", "navier-stokes"),
+    ("dry_air_3d", "sigma", "navier-stokes"),
+    ("dry_air_roe_2d", "none", "navier-stokes"),
+    ("dry_air_roe_2d", "none", "euler"),
+    ("dry_air_roe_3d", "all", "navier-stokes"),
+    ("dry_air_roe_3d", "none", "euler")])
+def test_face_sweep_closure_and_roe_variants_match_plain(device, base,
+                                                         closure, eq, dtype):
+    """Each variant with the viscous flux's closures (the mixing length,
+    an SGS model, the viscous sponge) and DryAir's Roe form against its
+    plain version (face_sweep_plain with the closed Fluxes and Roe): f64
+    1e-11 of max|plain|; f32 within 5e-5, or no farther from the f64 plain
+    result than twice the f32 plain version; one launch, counted under
+    its variant."""
+    sw, X = _closure_case(base, closure, eq, dtype, device)
+    want = base if closure == "none" or eq == "euler" else f"{base}_closure"
+    assert sw.variant == want
+    assert (sw.closure is not None) == want.endswith("_closure")
+    cuda_faces.reset_launches()
+    z = sw(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    assert cuda_faces.variant_launches[want] == 1
+    plain = sw.plain(X)
+    if dtype == torch.float64:
+        assert _rel(z, plain) <= TOL[dtype]
+    else:
+        sw64, _ = _closure_case(base, closure, eq, torch.float64, device)
+        ref = sw64.plain(X.double())
+        assert (_rel(z, plain) <= TOL[dtype]
+                or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
+
+
 def test_coupled_channel_graph_matches_eager(device, f64, tmp_path):
     """tps_torch/tools/argon_channel_coupled.ini cut to 8x8 p=2 and 12 steps
     (EM updates at 0 and 10, the second between two replays): graph

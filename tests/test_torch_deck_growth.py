@@ -3,7 +3,9 @@
 channel, of the compressible coupled channel
 tps_torch/tools/argon_channel_coupled.ini, its peak T the electrons';
 with --deck axisym, of its axisymmetric form with swirl,
-tps_torch/tools/argon_torch_axisym.ini, max|u| over the three velocities),
+tps_torch/tools/argon_torch_axisym.ini, max|u| over the three velocities;
+with --deck axisym_ml, of that deck with the mixing length and the
+viscous sponge, tps_torch/tools/argon_torch_axisym_ml.ini),
 step by step,
 in the JAX package and in tps_torch side by side: a diagnostic of the
 deck's growth, run as a script.  It holds no test function, so
@@ -56,7 +58,9 @@ DECKS = {"torch": os.path.join(REPO, "examples", "cases",
          "channel": os.path.join(REPO, "tps_torch", "tools",
                                  "argon_channel_coupled.ini"),
          "axisym": os.path.join(REPO, "tps_torch", "tools",
-                                "argon_torch_axisym.ini")}
+                                "argon_torch_axisym.ini"),
+         "axisym_ml": os.path.join(REPO, "tps_torch", "tools",
+                                   "argon_torch_axisym_ml.ini")}
 
 
 def deck_text(deck, steps, plain, outdir, dt=None, power=None):
@@ -66,7 +70,8 @@ def deck_text(deck, steps, plain, outdir, dt=None, power=None):
         txt = txt.replace("dt_fixed = 1e-9", f"dt_fixed = {dt}")
     if power is not None:
         txt = txt.replace("input-power = 0.5", f"input-power = {power}")
-    for name in ("argon_channel_coupled", "argon_torch_axisym"):
+    for name in ("argon_channel_coupled", "argon_torch_axisym_ml",
+                 "argon_torch_axisym"):
         txt = txt.replace(f"outdirBase = output/{name}",
                           f"outdirBase = {outdir}")
     txt = txt.replace("maxIters = 200", f"maxIters = {steps}")

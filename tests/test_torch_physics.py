@@ -12,7 +12,8 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
-from tps_torch.dg.fluxes import Fluxes  # noqa: E402
+from tps_torch.dg.fluxes import Fluxes, PlanarViscousSponge  # noqa: E402
+from tps_torch.dg.sgs import Smagorinsky  # noqa: E402
 from tps_torch.dg.riemann import Rusanov  # noqa: E402
 from tps_torch.physics.gas import DryAir  # noqa: E402
 from tps_torch.physics.transport import ConstantTransport, DryAirTransport  # noqa: E402
@@ -116,10 +117,14 @@ def test_fluxes(dim, eq_system):
 
 def test_unported_branches_raise():
     mix = DryAir(dim=3, nvel=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Fluxes(mixture=mix, visc_sponge=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        Fluxes(mixture=mix, sgs_model=object())
+    # the SGS models and the viscous sponge are ported (dg/sgs.py,
+    # dg/fluxes.py::PlanarViscousSponge; tests/test_torch_closures.py)
+    Fluxes(mixture=mix, sgs_model=Smagorinsky(mixture=mix),
+           visc_sponge=PlanarViscousSponge(point=(0.0, 0.0, 0.0),
+                                           normal=(1.0, 0.0, 0.0),
+                                           width=0.1, ratio=10.0))
     with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
         Fluxes(mixture=DryAir(dim=3, nvel=3, n_passive=1),
                eq_system="ns-passive")
+    with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
+        Fluxes(mixture=DryAir(dim=3, nvel=3, n_passive=1))

@@ -362,20 +362,47 @@ __device__ __forceinline__ T other_lane(T v) {  // the pair partner's value
 // m[el] == 0 (a boundary slot or no element) writes 0.  Normal of (el,
 // s): nor[(e0+el)*nor_e + s*DIM]; radius (the axisymmetric policies':
 // both sides share the point) rad[(e0+el)*rad_e + s], or 0 where rad is
-// null (the planar policies do not read it).  Where the tile has at most
+// null (the planar policies do not read it).  Closures (CL, the
+// instantiation that takes them, and cl.on): the point (e, lf, s)'s
+// sponge weight and wall distance at [(e*nlf + lf)*nqf
+// + s], shared by both sides, and each side's element length scale, the
+// own element's delta[e] and the neighbour's delta_nbr[e*nlf + lf].
+// Where the tile has at most
 // half as many points as the block threads, a lane pair takes a point,
 // each lane one side's convective and viscous fluxes, exchanged by
 // shuffles; the result is the same arithmetic.
-template <typename T, class P, bool VISCOUS, bool PROTO, int K>
+template <typename T, class P, bool VISCOUS, bool PROTO, int K,
+          bool CL = false>
 __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
                                            const T* Tn, const T* nor,
                                            long long nor_e, int e0,
                                            const double* m,
                                            const typename P::Params& ph,
                                            T* Fl, int fs,
+                                           const FaceClosure<T>& cl,
+                                           int lf = 0, int nlf = 1,
                                            const T* rad = nullptr,
                                            long long rad_e = 0) {
   constexpr int DIM = P::DIM, NEQ = P::NEQ, NW = P::NW;
+  // one side's point data (side 0: the own element, 1: the neighbour);
+  // nothing is read for a point outside the mesh or a boundary slot (m 0)
+  auto point = [&](int el, int s, int side, T r, bool in) {
+    FacePoint<T> pt;
+    pt.r = r;
+    pt.on = CL && cl.on;
+    pt.delta = T(0);
+    pt.dist = T(0);
+    pt.wgt = T(1);
+    if (pt.on && in) {
+      const long long e = e0 + el;
+      const long long at = (e * nlf + lf) * nqf + s;
+      if (cl.delta)
+        pt.delta = side ? cl.delta_nbr[e * nlf + lf] : cl.delta[e];
+      if (cl.dist) pt.dist = cl.dist[at];
+      if (cl.wgt) pt.wgt = cl.wgt[at];
+    }
+    return pt;
+  };
   if (2 * E * nqf <= (int)blockDim.x) {
     const int i = threadIdx.x >> 1, side = threadIdx.x & 1;
     const bool act = i < E * nqf;
@@ -393,7 +420,8 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     if constexpr (VISCOUS) {
       // (mm is 0 past the mesh's last element)
       const T r = rad && mm != T(0) ? rad[(e0 + el) * rad_e + s] : T(0);
-      P::visc(u, u + NEQ, n, ph, v, r);
+      P::visc(u, u + NEQ, n, ph, v,
+              point(el, s, side, r, mm != T(0)), cl.c);
     }
     T fo[NEQ], wo[NW], vo[NEQ];
 #pragma unroll
@@ -406,7 +434,7 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     for (int j = 0; j < NW; ++j) wo[j] = other_lane(w[j]);
     if (!act || side) return;
     T fl[NEQ];
-    P::template combine<T, PROTO>(u1, u2, n, f, fo, w, wo, fl);
+    P::template combine<T, PROTO>(u1, u2, n, f, fo, w, wo, ph, fl);
     if constexpr (VISCOUS) {
 #pragma unroll
       for (int q = 1; q < NEQ; ++q) fl[q] -= T(0.5) * (v[q] + vo[q]);
@@ -434,12 +462,12 @@ __device__ __forceinline__ void flux_stage(int E, int nqf, const T* To,
     T f1[NEQ], f2[NEQ], w1[NW], w2[NW], fl[NEQ];
     P::conv(u1, n, ph, f1, w1);
     P::conv(u2, n, ph, f2, w2);
-    P::template combine<T, PROTO>(u1, u2, n, f1, f2, w1, w2, fl);
+    P::template combine<T, PROTO>(u1, u2, n, f1, f2, w1, w2, ph, fl);
     if constexpr (VISCOUS) {
       T v1[NEQ], v2[NEQ];
       const T r = rad ? rad[(e0 + el) * rad_e + s] : T(0);
-      P::visc(u1, u1 + NEQ, n, ph, v1, r);
-      P::visc(u2, u2 + NEQ, n, ph, v2, r);
+      P::visc(u1, u1 + NEQ, n, ph, v1, point(el, s, 0, r, true), cl.c);
+      P::visc(u2, u2 + NEQ, n, ph, v2, point(el, s, 1, r, true), cl.c);
 #pragma unroll
       for (int q = 1; q < NEQ; ++q) fl[q] -= T(0.5) * (v1[q] + v2[q]);
     }

@@ -85,6 +85,7 @@ struct GasMixture {
   static constexpr int IE = DIM + 1, IS = DIM + 2, IEE = NEQ - 1;
   static constexpr int EL = NS - 2, BG = NS - 1;  // electron, background
   static constexpr int NW = 1;  // wave data per side: |u| + c
+  static constexpr bool CLOSURES = false;  // no closure step
   using Params = GasPhys<NS>;
 
   static Params make(const double* p) { return make_gas_phys<NS>(p); }
@@ -168,7 +169,8 @@ struct GasMixture {
   static __device__ __forceinline__ void combine(const T* u1, const T* u2,
                                                  const T* n, const T* f1,
                                                  const T* f2, const T* w1,
-                                                 const T* w2, T* f) {
+                                                 const T* w2, const Params&,
+                                                 T* f) {
     static_assert(!PROTO, "the prototype form is DryAir's");
     T nmag2 = T(0);
 #pragma unroll
@@ -255,7 +257,8 @@ struct GasMixture {
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv, T /*r: planar*/) {
+                                              T* fv, const FacePoint<T>&,
+                                              const Closure&) {
     State<T> s;
     state(u, m, s);
     const T th = s.th, te = s.te;

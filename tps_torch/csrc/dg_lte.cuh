@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dg_pointwise.cuh"
+
 namespace tps_dg {
 
 // a pointer packed as a double (exact: device addresses are below 2^53)
@@ -152,6 +154,7 @@ struct LteFluid {
   static constexpr int NEQ = DIM + 2;
   static constexpr int IE = DIM + 1;
   static constexpr int NW = 1;  // wave data per side: |u| + c
+  static constexpr bool CLOSURES = false;  // no closure step
   using Params = LtePhys<TD>;
 
   static Params make(const double* p) { return make_lte_phys<TD>(p); }
@@ -201,7 +204,8 @@ struct LteFluid {
   static __device__ __forceinline__ void combine(const T* u1, const T* u2,
                                                  const T* n, const T* f1,
                                                  const T* f2, const T* w1,
-                                                 const T* w2, T* f) {
+                                                 const T* w2, const Params&,
+                                                 T* f) {
     static_assert(!PROTO, "the prototype form is DryAir's");
     T nmag2 = T(0);
     for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
@@ -217,7 +221,8 @@ struct LteFluid {
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv, T /*r: planar*/) {
+                                              T* fv, const FacePoint<T>&,
+                                              const Closure&) {
     const T rho = u[0];
     const T th = temperature(u, m);
     const T mu = m.mu(th, rho), kap = m.kap(th, rho);

@@ -88,6 +88,7 @@ struct ArgonMixture {
   static constexpr int NEQ = NVEL + 4;
   static constexpr int IE = NVEL + 1, IS = NVEL + 2, IEE = NVEL + 3;
   static constexpr int NW = 1;  // wave data per side: |u| + c
+  static constexpr bool CLOSURES = true;  // takes the closure step
   using Params = MixPhys;
   static_assert(!AXI || DIM == 2, "the axisymmetric state is 2-D");
 
@@ -156,7 +157,8 @@ struct ArgonMixture {
   static __device__ __forceinline__ void combine(const T* u1, const T* u2,
                                                  const T* n, const T* f1,
                                                  const T* f2, const T* w1,
-                                                 const T* w2, T* f) {
+                                                 const T* w2, const Params&,
+                                                 T* f) {
     static_assert(!PROTO, "the prototype form is DryAir's");
     T nmag2 = T(0);
     for (int d = 0; d < DIM; ++d) nmag2 += n[d] * n[d];
@@ -167,8 +169,10 @@ struct ArgonMixture {
 
   // The one-sided viscous normal flux of a traced state and its traced
   // gradient gt[eq * DIM + d] (fluxes.py::viscous with the transport's
-  // flux_properties), at radius r on the axisymmetric state (read there
-  // only).  In T but for the parts that cancel most of float's
+  // flux_properties), at radius pt.r on the axisymmetric state (read there
+  // only), with the closure step where pt.on (dg_pointwise.cuh::
+  // closure_step; the sponge weight also on kappa_e and the diffusion
+  // velocities).  In T but for the parts that cancel most of float's
   // digits, which are formed in double whatever T, as the plain version
   // forms them (physics/gas_transport.py::_f64): the species fractions
   // (the background's 1 - Y), the e-Ar log T fits, Devoto's third-order
@@ -178,7 +182,9 @@ struct ArgonMixture {
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv, T r) {
+                                              T* fv, const FacePoint<T>& pt,
+                                              const Closure& cl) {
+    const T r = pt.r;
     State<T> s;
     state(u, m, s);
     const T th = s.th, te = s.te;
@@ -210,9 +216,9 @@ struct ArgonMixture {
     const T sth = sqrt(th), ste = sqrt(te);
     const T vis_i = T(m.vis_i) * sth / (screened(m.scr[0], nd_th) * dc);
     const T vis_n = T(m.vis_n) * sth / (T(m.ar22[0]) * pow(th, T(m.ar22[1])));
-    const T mu = (X[0] * vis_i + X[2] * vis_n) * T(m.visc_mult);
-    const T kap = (X[0] * (vis_i * T(m.koe_i)) + X[2] * (vis_n * T(m.koe_n))) *
-                  T(m.kappa_mult);
+    T mu = (X[0] * vis_i + X[2] * vis_n) * T(m.visc_mult);
+    T kap = (X[0] * (vis_i * T(m.koe_i)) + X[2] * (vis_n * T(m.koe_n))) *
+            T(m.kappa_mult);
     // e-heavy integrals: e-Ar+ (1, r) by the attractive fits, e-Ar by the
     // log T fits (in double)
     const double lte = log(double(te));
@@ -298,7 +304,12 @@ struct ArgonMixture {
       for (int i = 0; i < 3; ++i) dvn[i] += T(dv[i][d] - vc) * n[d];
     }
     // stress (bulk viscosity 0: -2/3 mu), heat fluxes, diffusion
-    const T bulk = -T(2) / T(3) * mu;
+    T bulk = -T(2) / T(3) * mu;
+    if (pt.on) {
+      closure_step<T, DIM, AXI>(cl, pt, s.rho, s.vel, gt, mu, kap, bulk);
+      kape *= pt.wgt;
+      for (int i = 0; i < 3; ++i) dvn[i] *= pt.wgt;
+    }
     T div = T(0);
     for (int d = 0; d < DIM; ++d) div += gt[(1 + d) * DIM + d];
     if constexpr (AXI) div += over_r(s.vel[0], r);

@@ -35,7 +35,15 @@
 // (DryAirPhysics<2, true>, ArgonMixture<2, true>: NVEL = 3,
 // face_sweep_axi.cu and face_sweep_argon_axi.cu), whose viscous flux
 // reads the radius of each slot point (R [ne][nlf][nqf], xyz_slot's r;
-// the planar policies get no R).
+// the planar policies get no R).  DryAir and the argon ternary (planar
+// and axisymmetric) also take the closures of the viscous flux
+// (dg_pointwise.cuh::closure_step: the mixing length, the Smagorinsky and
+// Sigma SGS models, the viscous sponge) in an instantiation of their own
+// (CL), which `launch` picks where `cl.on`, so that the closure-free
+// kernels are the code they were; its per-point inputs are the nullable
+// arrays of FaceClosure.  DryAir in 2-D and 3-D also takes the Roe
+// combination
+// (DryAirPhysics<DIM, false, true>, face_sweep_roe.cu).
 //
 // Neighbours are decoded from nbr_row.  Combo c's rows are face block
 // combo_face[c]'s rows in another order: Btr_or[c][combo_perm[c][s]] =
@@ -94,8 +102,9 @@ Plan face_plan(int ndof, int nqf, int nlf, int k, int neq, size_t ts) {
 // P: the physics policy (dg_pointwise.cuh::DryAirPhysics,
 // dg_mixture.cuh::ArgonMixture, dg_gas_mixture.cuh::GasMixture).  RES:
 // the trace blocks are resident in shared memory (then every operand load
-// is a shared-memory load).
-template <typename T, class P, bool VISCOUS, bool PROTO, bool RES>
+// is a shared-memory load).  CL: the viscous flux's closure step (policies
+// with P::CLOSURES).
+template <typename T, class P, bool VISCOUS, bool PROTO, bool RES, bool CL>
 __global__ void __launch_bounds__(THREADS_MAX)
 face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
            const T* __restrict__ Bor,        // [n_combo][nqf][ndof]
@@ -107,7 +116,8 @@ face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
            const T* __restrict__ R,          // [ne][nlf][nqf] or null
            T* __restrict__ Y,                // [ne][ndof][NEQ]
            int ne, int ndof, int nqf, int nlf, int n_combo, long long nor_lf,
-           long long nor_e, T sign, int E, const typename P::Params ph) {
+           long long nor_e, T sign, int E, const typename P::Params ph,
+           const FaceClosure<T> cl) {
   constexpr int DIM = P::DIM, NEQ = P::NEQ;
   constexpr int K = VISCOUS ? NEQ * (1 + DIM) : NEQ;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -224,8 +234,10 @@ face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
         },
         sTo, sTn);
     __syncthreads();
-    flux_stage<T, P, VISCOUS, PROTO, K>(E, nqf, sTo, sTn, Nor + lf * nor_lf,
+    flux_stage<T, P, VISCOUS, PROTO, K, CL>(E, nqf, sTo, sTn,
+                                            Nor + lf * nor_lf,
                                         nor_e, e0, s_m + lf * E, ph, sF, fs,
+                                        cl, lf, nlf,
                                         R ? R + lf * nqf : nullptr,
                                         (long long)nlf * nqf);
     __syncthreads();
@@ -236,27 +248,39 @@ face_sweep(const T* __restrict__ X,          // [ne][ndof][K]
     Y[(size_t)e0 * ndof * NEQ + i] = sign * sY[i];
 }
 
-// R: the slot points' radii, the axisymmetric policies' (null: planar)
+// R: the slot points' radii, the axisymmetric policies' (null: planar);
+// cl: the closures (off by default)
 template <typename T, class P, bool VISCOUS, bool PROTO>
 int launch(const T* X, const T* B, const int* cface, const int* cperm,
            const int* nbr, const T* N, const T* M, T* Y, int ne, int ndof,
            int nqf, int nlf, int n_combo, long long nor_lf, long long nor_e,
            double sign, const double* p, void* stream,
-           const T* R = nullptr) {
+           const T* R = nullptr, const FaceClosure<T>& cl = FaceClosure<T>{}) {
   constexpr int NEQ = P::NEQ;
   constexpr int K = VISCOUS ? NEQ * (1 + P::DIM) : NEQ;
-  static size_t allowed[2] = {48 * 1024, 48 * 1024};
+  // per (closure step, resident): the shared bytes allowed so far
+  static size_t allowed[2][2] = {{48 * 1024, 48 * 1024},
+                                 {48 * 1024, 48 * 1024}};
   const Plan pl = face_plan(ndof, nqf, nlf, K, NEQ, sizeof(T));
   if (pl.tile == 0 || ne < 0 || nlf > NLF_MAX || n_combo < nlf)
     return (int)cudaErrorInvalidValue;
   if (ne == 0) return 0;
-  auto kernel = pl.resident ? face_sweep<T, P, VISCOUS, PROTO, true>
-                            : face_sweep<T, P, VISCOUS, PROTO, false>;
-  if (int err = allow_smem(kernel, pl.smem, allowed[pl.resident])) return err;
+  constexpr bool CLOSURES = VISCOUS && P::CLOSURES;
+  if (cl.on && !CLOSURES) return (int)cudaErrorInvalidValue;
+  const bool closed = CLOSURES && cl.on;
+  auto kernel = pl.resident ? face_sweep<T, P, VISCOUS, PROTO, true, false>
+                            : face_sweep<T, P, VISCOUS, PROTO, false, false>;
+  if constexpr (CLOSURES) {
+    if (closed)
+      kernel = pl.resident ? face_sweep<T, P, VISCOUS, PROTO, true, true>
+                           : face_sweep<T, P, VISCOUS, PROTO, false, true>;
+  }
+  if (int err = allow_smem(kernel, pl.smem, allowed[closed][pl.resident]))
+    return err;
   const int blocks = (ne + pl.tile - 1) / pl.tile;
   kernel<<<blocks, THREADS_MAX, pl.smem, (cudaStream_t)stream>>>(
       X, B, cface, cperm, nbr, N, M, R, Y, ne, ndof, nqf, nlf, n_combo,
-      nor_lf, nor_e, T(sign), pl.tile, P::make(p));
+      nor_lf, nor_e, T(sign), pl.tile, P::make(p), cl);
   return (int)cudaGetLastError();
 }
 

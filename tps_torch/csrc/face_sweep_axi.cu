@@ -16,7 +16,8 @@
 // (r > 0 ? v / r : 0); face points on the axis carry zero weight in the
 // normals.  Bound on this card: bytes, as the planar sweep (X has K =
 // NEQ (1 + DIM) = 15 channels for DryAir, 21 for argon; R adds nlf nqf
-// values an element).
+// values an element).  cl: the viscous flux's closures (face_sweep.cuh),
+// off where cl.on is false.
 
 #include "face_sweep.cuh"
 
@@ -25,14 +26,15 @@ int dispatch_dry_air_axi(const T* X, const T* B, const int* cf, const int* cp,
                          const int* nbr, const T* N, const T* M, const T* R,
                          T* Y, int ne, int ndof, int nqf, int nlf, int n_combo,
                          long long nor_lf, long long nor_e, double sign,
-                         int viscous, const double* p, void* stream) {
+                         int viscous, const double* p, void* stream,
+                         const FaceClosure<T>& cl) {
   using A = DryAirPhysics<2, true>;
   return viscous ? launch<T, A, true, false>(X, B, cf, cp, nbr, N, M, Y, ne,
                                              ndof, nqf, nlf, n_combo, nor_lf,
-                                             nor_e, sign, p, stream, R)
+                                             nor_e, sign, p, stream, R, cl)
                  : launch<T, A, false, false>(X, B, cf, cp, nbr, N, M, Y, ne,
                                               ndof, nqf, nlf, n_combo, nor_lf,
-                                              nor_e, sign, p, stream, R);
+                                              nor_e, sign, p, stream, R, cl);
 }
 
 template int dispatch_dry_air_axi<float>(const float*, const float*,
@@ -40,10 +42,12 @@ template int dispatch_dry_air_axi<float>(const float*, const float*,
                                          const float*, const float*,
                                          const float*, float*, int, int, int,
                                          int, int, long long, long long,
-                                         double, int, const double*, void*);
+                                         double, int, const double*, void*,
+    const FaceClosure<float>&);
 template int dispatch_dry_air_axi<double>(const double*, const double*,
                                           const int*, const int*, const int*,
                                           const double*, const double*,
                                           const double*, double*, int, int,
                                           int, int, int, long long, long long,
-                                          double, int, const double*, void*);
+                                          double, int, const double*, void*,
+    const FaceClosure<double>&);

@@ -544,7 +544,7 @@ k2_faces_volume(const T* __restrict__ U, const T* __restrict__ G,
     __syncthreads();
     flux_stage<T, DryAirPhysics<DIM>, VISCOUS, false, K>(
         E, nqf, sTo, sTn, Nor + (size_t)lf * nqf * DIM, 0, e0, s_m + lf * E,
-        ph, sF, fs);
+        ph, sF, fs, FaceClosure<T>{});
     __syncthreads();
   }
   scatter(NLF - 1);

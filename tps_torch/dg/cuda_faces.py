@@ -36,7 +36,14 @@ csrc/face_sweep.cu::face_plan).  Two modes:
   instantiations (csrc/face_sweep_axi.cu, csrc/face_sweep_argon_axi.cu),
   which read each slot point's radius (xyz_slot[..., 0],
   `CudaFaceSweep.rad`, passed to the same C entry; null on planar
-  tables).
+  tables).  DryAir also runs with the Roe flux in 2-D and 3-D
+  (csrc/face_sweep_roe.cu).  DryAir and the argon ternary (planar and
+  axisymmetric) take the viscous flux's closures, the mixing length,
+  the Smagorinsky and Sigma SGS models and the planar viscous sponge
+  (`closure_phys`, csrc/dg_pointwise.cuh::closure_step), whose per-point
+  inputs are fixed for the run: each element's length scale and its
+  neighbours', and each slot point's wall distance and sponge weight
+  (the weight made once here with the plain PlanarViscousSponge).
 - prototype (`build_prototype_sweep`): Euler, the prototype's own
   Rusanov (per side |u.n| + c|n|), the uniform normals wts*nor shared by
   every element, mask 1, sign +1; its plain version is
@@ -73,7 +80,7 @@ from .operators import face_sweep_plain  # noqa: F401 (slot mode's plain version
 
 # the kernel's pointwise physics policies (csrc/face_sweep.cu's PHYSICS_*)
 PHYSICS_ID = {"dry_air": 0, "argon": 1, "argon_const": 2, "gas_mixture": 3,
-              "lte": 4}
+              "lte": 4, "dry_air_roe": 5}
 # the LTE fluid's instantiations: lte_<dim>d, _t2 with 2-D (T, rho)
 # tables, _euler on Euler
 LTE_VARIANTS = tuple(f"lte_{dim}d{td}{eq}" for dim in (2, 3)
@@ -81,12 +88,21 @@ LTE_VARIANTS = tuple(f"lte_{dim}d{td}{eq}" for dim in (2, 3)
 # the axisymmetric (r, z) + swirl instantiations: DryAir (Navier-Stokes
 # and Euler) and the argon ternary's Navier-Stokes and Euler forms
 AXI_VARIANTS = ("dry_air_axi", "argon_axi", "argon_axi_euler")
+# DryAir with the Roe flux, planar
+ROE_VARIANTS = ("dry_air_roe_2d", "dry_air_roe_3d")
+# the Navier-Stokes variants with the viscous flux's closures (the runtime
+# branch of the same instantiations, counted apart): DryAir planar (Rusanov
+# and Roe) and axisymmetric, the argon ternary planar and axisymmetric
+CLOSURE_VARIANTS = tuple(f"{v}_closure" for v in (
+    "dry_air_2d", "dry_air_3d", "dry_air_axi", "argon_2d", "argon_3d",
+    "argon_axi") + ROE_VARIANTS)
 # the instantiations, each counted on its own: DryAir; the argon plasma's
 # Navier-Stokes in 2-D and 3-D and its Euler form; the constant-transport
 # ternary; the six-species collision-integral mixture; the LTE fluid's;
-# the axisymmetric ones
+# the axisymmetric ones; Roe; the closures'
 VARIANTS = ("dry_air", "argon_2d", "argon_3d", "argon_euler", "argon_const",
-            "gas_mixture") + LTE_VARIANTS + AXI_VARIANTS
+            "gas_mixture") + LTE_VARIANTS + AXI_VARIANTS + ROE_VARIANTS \
+    + CLOSURE_VARIANTS
 # kernel launches since the last reset_launches(), and each variant's
 launches = {"face_sweep": 0}
 variant_launches = {v: 0 for v in VARIANTS}
@@ -103,46 +119,79 @@ def reset_launches():
             counts[k] = 0
 
 
+def molecular(transport):
+    """The molecular transport under a mixing-length closure (or the
+    transport itself)."""
+    return getattr(transport, "molecular", transport)
+
+
+def closures_on(ctx) -> bool:
+    """Whether the viscous flux carries a closure: on Navier-Stokes, an
+    SGS model, the viscous sponge or the mixing length."""
+    fl = ctx.fluxes
+    return fl.eq_system != "euler" and (
+        fl.sgs_model is not None or fl.visc_sponge is not None
+        or type(fl.transport).__name__ == "MixingLengthTransport")
+
+
 def face_sweep_supported(tab_np, ctx) -> bool:
     """Preconditions of the kernel in slot mode: neighbor-slot tables,
-    2-D or 3-D, Rusanov, no SGS model or viscous sponge, single device,
-    and one of its physics: DryAir, Euler or Navier-Stokes with
-    Sutherland or constant transport; a mixture of `mixture_physics`; or
-    the LTE fluid (`lte_table_dim`); one velocity per dimension, or, on
-    axisymmetric (r, z) tables, the swirl state (nvel = 3) on DryAir or
-    the `argon` mixture."""
+    2-D or 3-D, single device, and one of its physics: DryAir, Euler or
+    Navier-Stokes with Sutherland or constant transport; a mixture of
+    `mixture_physics`; or the LTE fluid (`lte_table_dim`); one velocity
+    per dimension, or, on axisymmetric (r, z) tables, the swirl state
+    (nvel = 3) on DryAir or the `argon` mixture.  Rusanov everywhere, Roe
+    on planar DryAir.  The closures (`closures_on`: the Smagorinsky or
+    Sigma model, the viscous sponge, the mixing length) on DryAir and the
+    `argon` mixture only.  Outside these (Roe on a mixture or the LTE
+    fluid, the closures on argon_const, gas_mixture and the LTE fluid, the
+    Wale model) the configuration runs on the CPU only (ROADMAP A6.5)."""
     t = tab_np
     if t.nbr_row is None or t.dim not in (2, 3):
         return False
     if ctx.axis_name is not None or ctx.use_bc_in_grad:
         return False
     fl = ctx.fluxes
-    if fl.sgs_model is not None or fl.visc_sponge is not None:
-        return False
-    if type(ctx.riemann).__name__ != "Rusanov":
+    riemann = type(ctx.riemann).__name__
+    if riemann not in ("Rusanov", "Roe"):
         return False
     if fl.eq_system not in ("euler", "navier-stokes"):
         return False
     mix = ctx.mixture
     if mix.dim != t.dim:
         return False
+    closed = closures_on(ctx)
+    if closed and fl.sgs_model is not None and type(
+            fl.sgs_model).__name__ not in ("Smagorinsky", "Sigma"):
+        return False
+    kind = type(mix).__name__
+    if kind == "DryAir":
+        if mix.n_passive:
+            return False
+        tr = molecular(fl.transport)
+        if fl.eq_system != "euler" and not kernel_transport(tr):
+            return False
+        # the kernel's constant transport carries kappa + kappa_e as one
+        if closed and type(tr).__name__ == "ConstantTransport" \
+                and tr.kappa_e != 0.0:
+            return False
+    elif riemann == "Roe":
+        return False
+    elif kind == "PerfectMixture":
+        physics = mixture_physics(ctx, t.dim)
+        if physics is None or (closed and physics != "argon"):
+            return False
+    elif kind == "LteMixture":
+        if closed or lte_table_dim(ctx) is None:
+            return False
+    else:
+        return False
     if fl.axisymmetric:
-        if t.dim != 2 or mix.nvel != 3 or t.xyz_slot is None:
-            return False
-        if type(mix).__name__ == "PerfectMixture":
-            return mixture_physics(ctx, t.dim) == "argon"
-        if type(mix).__name__ != "DryAir" or mix.n_passive:
-            return False
-        return fl.eq_system == "euler" or kernel_transport(fl.transport)
-    if mix.nvel != t.dim:
-        return False
-    if type(mix).__name__ == "PerfectMixture":
-        return mixture_physics(ctx, t.dim) is not None
-    if type(mix).__name__ == "LteMixture":
-        return lte_table_dim(ctx) is not None
-    if type(mix).__name__ != "DryAir" or mix.n_passive:
-        return False
-    return fl.eq_system == "euler" or kernel_transport(fl.transport)
+        return (t.dim == 2 and mix.nvel == 3 and t.xyz_slot is not None
+                and riemann == "Rusanov"
+                and (kind == "DryAir"
+                     or mixture_physics(ctx, t.dim) == "argon"))
+    return mix.nvel == t.dim
 
 
 def mixture_physics(ctx, dim):
@@ -160,13 +209,14 @@ def mixture_physics(ctx, dim):
     ns = mix.num_species
     if fl.eq_system == "euler":
         return "argon" if ns == 3 else None
-    kind = type(fl.transport).__name__
+    tr = molecular(fl.transport)
+    kind = type(tr).__name__
     if kind == "ArgonMinimalTransport" and ns == 3:
         return "argon"
     if kind == "ConstantPlasmaTransport" and ns == 3 and dim == 2:
         return "argon_const"
     if (kind == "GasMixtureTransport" and ns == GAS_MIXTURE_NS and dim == 2
-            and set(fl.transport.pair_kinds.values()) <= set(PAIR_KIND)
+            and set(tr.pair_kinds.values()) <= set(PAIR_KIND)
             and mix.charges[0] > 0.0
             and all(mix.charges[i] == 0.0 for i in range(1, ns - 2))):
         return "gas_mixture"
@@ -225,7 +275,19 @@ def lte_phys(ctx, dtype, device):
 
 
 def variant(ctx, dim):
-    """The instantiation (`VARIANTS`) the kernel runs for ctx."""
+    """The instantiation (`VARIANTS`) the kernel runs for ctx: its base,
+    and on Navier-Stokes with closures the base's `_closure` record."""
+    base = _base_variant(ctx, dim)
+    if not closures_on(ctx):
+        return base
+    if base == "dry_air":
+        base = f"dry_air_{dim}d"
+    return f"{base}_closure"
+
+
+def _base_variant(ctx, dim):
+    if type(ctx.riemann).__name__ == "Roe":
+        return f"dry_air_roe_{dim}d"
     if ctx.fluxes.axisymmetric:
         if type(ctx.mixture).__name__ != "PerfectMixture":
             return "dry_air_axi"
@@ -250,7 +312,7 @@ def mixture_phys(ctx):
     double (a product of two per-molecule masses is below float's range).
     On Euler (no transport) the transport's fields are argon_minimal's
     defaults, which the kernel does not read."""
-    mix, tr = ctx.mixture, ctx.fluxes.transport
+    mix, tr = ctx.mixture, molecular(ctx.fluxes.transport)
     if type(tr).__name__ != "ArgonMinimalTransport":
         tr = gt.ArgonMinimalTransport(mixture=mix)
     R = UNIVERSAL_GAS_CONSTANT
@@ -285,7 +347,7 @@ def gas_mixture_phys(ctx):
     (ConstantPlasmaTransport or GasMixtureTransport), in its order; every
     mass combination formed here in double.  The fields of the other
     transport are 0."""
-    mix, tr = ctx.mixture, ctx.fluxes.transport
+    mix, tr = ctx.mixture, molecular(ctx.fluxes.transport)
     ns = mix.num_species
     R = UNIVERSAL_GAS_CONSTANT
     m = np.asarray(mix.mw) / AVOGADRO_NUMBER
@@ -322,15 +384,34 @@ def gas_mixture_phys(ctx):
     return [float(v) for v in vals]
 
 
+def closure_phys(ctx, tab):
+    """The closures' constants (csrc/dg_pointwise.cuh::Closure): the SGS
+    model (0 none, 1 Smagorinsky, 2 Sigma), its constant and floor, the
+    mixing length's switch (on where the transport has one and the tables
+    the slot points' wall distances), its largest length, Pr_t factor and
+    bulk multiplier."""
+    fl = ctx.fluxes
+    model = fl.sgs_model
+    sgs = {None: 0.0, "Smagorinsky": 1.0, "Sigma": 2.0}[
+        None if model is None else type(model).__name__]
+    ml = fl.transport if type(fl.transport).__name__ == \
+        "MixingLengthTransport" and tab.dist_slot is not None else None
+    return [sgs, float(getattr(model, "const", 0.0)),
+            float(getattr(model, "floor", 0.0)), float(ml is not None),
+            float(ml.max_mixing_length) if ml else 0.0,
+            float(ml.Prt) if ml else 0.0, float(ml.bulk_mult) if ml else 0.0]
+
+
 def face_physics(ctx, dim, dtype, device):
     """(physics, packed constants) of the kernel for ctx in dtype on
-    device: "dry_air" (cuda_fused.kernel_phys), "argon" (`mixture_phys`),
-    "argon_const" or "gas_mixture" (`gas_mixture_phys`), "lte"
-    (`lte_phys`)."""
+    device: "dry_air" or, with the Roe flux, "dry_air_roe"
+    (cuda_fused.kernel_phys), "argon" (`mixture_phys`), "argon_const" or
+    "gas_mixture" (`gas_mixture_phys`), "lte" (`lte_phys`)."""
     if type(ctx.mixture).__name__ == "LteMixture":
         return "lte", lte_phys(ctx, dtype, device)
     if type(ctx.mixture).__name__ != "PerfectMixture":
-        return "dry_air", kernel_phys(ctx)
+        roe = type(ctx.riemann).__name__ == "Roe"
+        return "dry_air_roe" if roe else "dry_air", kernel_phys(ctx)
     physics = mixture_physics(ctx, dim)
     if physics == "argon":
         return physics, mixture_phys(ctx)
@@ -457,6 +538,15 @@ class CudaFaceSweep:
     # the slot points' radii [ne, nlf, nqf] on axisymmetric tables (the
     # C entry then runs the axisymmetric policies), else None
     rad: torch.Tensor | None = None
+    # the closures (None where the viscous flux has none): their constants
+    # (ctypes doubles, `closure_phys`), the element length scales [ne]
+    # and the neighbours' [ne, nlf] (with an SGS model), the sponge
+    # weights and the wall distances of the slot points [ne, nlf, nqf]
+    closure: object = None
+    delta: torch.Tensor | None = None
+    delta_nbr: torch.Tensor | None = None
+    wgt: torch.Tensor | None = None
+    dist: torch.Tensor | None = None
 
     @property
     def k(self):
@@ -478,17 +568,21 @@ class CudaFaceSweep:
         fn = getattr(_Library.lib, f"tps_face_sweep_{suffix}")
         Y = torch.empty((self.ne, self.ndof, self.neq), dtype=X.dtype,
                         device=X.device)
+        def ptr(t):
+            return None if t is None else t.data_ptr()
+
         with torch.cuda.device(X.device):
             stream = torch.cuda.current_stream().cuda_stream
             err = fn(X.data_ptr(), self.Btr_or.data_ptr(),
                      self.combo_face.data_ptr(), self.combo_perm.data_ptr(),
                      self.nbr_row.data_ptr(), self.nor.data_ptr(),
-                     None if self.mask is None else self.mask.data_ptr(),
-                     None if self.rad is None else self.rad.data_ptr(),
+                     ptr(self.mask), ptr(self.rad), ptr(self.delta),
+                     ptr(self.delta_nbr), ptr(self.wgt), ptr(self.dist),
                      Y.data_ptr(), self.ne, self.ndof, self.nqf, self.nlf,
                      self.n_combo, self.nor_lf, self.nor_e, self.sign,
                      self.dim, int(self.viscous), int(self.prototype),
-                     PHYSICS_ID[self.physics], self.phys, stream)
+                     PHYSICS_ID[self.physics], self.phys, self.closure,
+                     stream)
         if err:
             raise RuntimeError(f"face_sweep launch failed: CUDA error {err}")
         launches["face_sweep"] += 1
@@ -528,7 +622,7 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
             raise NotImplementedError(
                 "the face-sweep kernel's preconditions do not hold (see "
                 "dg/cuda_faces.py::face_sweep_supported); this configuration "
-                "runs with --device cpu")
+                "runs with --device cpu (ROADMAP A6.5)")
         _check_cuda(tab, viscous, dtype, device, neq)
     # outside the preconditions (the CPU only) the plain version runs and
     # the kernel's constants are not needed
@@ -537,6 +631,19 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
     nlf, ne, nqf, dim = tab.nlf, tab.ne, tab.nqf, tab.dim
     rad = (tab.xyz_slot[..., 0].contiguous() if ctx.fluxes.axisymmetric
            else None)
+    closure = {}
+    if supported and closures_on(ctx):
+        fl = ctx.fluxes
+        cl = closure_phys(ctx, tab)
+        closure = {"closure": (ctypes.c_double * len(cl))(*cl)}
+        if fl.sgs_model is not None:
+            closure["delta"] = tab.delta.contiguous()
+            closure["delta_nbr"] = tab.delta_nbr.contiguous()
+        if fl.visc_sponge is not None:
+            # fixed for the run: made once with the plain version
+            closure["wgt"] = fl.visc_sponge(tab.xyz_slot).contiguous()
+        if cl[3]:
+            closure["dist"] = tab.dist_slot.contiguous()
     cface, cperm = _combo_tensors(tab.Btr_or.cpu().numpy(), nlf, nqf, device)
     return CudaFaceSweep(
         plain=functools.partial(face_sweep_plain, ctx, tab),
@@ -549,7 +656,7 @@ def build_face_sweep(tab, ctx) -> CudaFaceSweep:
         nor_lf=ne * nqf * dim, nor_e=nqf * dim, sign=-1.0, physics=physics,
         phys=(ctypes.c_double * len(phys))(*phys),
         variant=variant(ctx, dim) if supported else "none", rad=rad,
-    )
+        **closure)
 
 
 def build_prototype_sweep(tab_np, dtype, device, gamma=1.4) -> CudaFaceSweep:

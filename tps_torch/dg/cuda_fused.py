@@ -181,8 +181,8 @@ def build_kernels():
         fn.argtypes = [ptr] * 8 + [i32, i32, i32, i32, ip, dbl, ptr]
         fn.restype = i32
         fn = getattr(lib, f"tps_face_sweep_{suffix}")
-        fn.argtypes = ([ptr] * 9 + [i32] * 5 + [i64, i64, ctypes.c_double]
-                       + [i32] * 4 + [dbl, ptr])
+        fn.argtypes = ([ptr] * 13 + [i32] * 5 + [i64, i64, ctypes.c_double]
+                       + [i32] * 4 + [dbl, dbl, ptr])
         fn.restype = i32
     lib.tps_k1_smem.argtypes = [i32] * 5 + [ip]
     lib.tps_k1_smem.restype = i64
@@ -306,7 +306,9 @@ def kernel_phys(ctx):
     gamma, rgas = float(mix.specific_heat_ratio), float(mix.gas_constant)
     if ctx.fluxes.eq_system == "euler":
         return [gamma, rgas, 0.0, 1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0]
-    tr = ctx.fluxes.transport
+    # the molecular transport (the face sweep applies a mixing length
+    # as a closure)
+    tr = getattr(ctx.fluxes.transport, "molecular", ctx.fluxes.transport)
     if type(tr).__name__ == "ConstantTransport":
         return [gamma, rgas, 0.0, 1.0, 0.0, 0.0, 1.0, float(tr.visc),
                 float(tr.bulk_visc), float(tr.kappa + tr.kappa_e)]

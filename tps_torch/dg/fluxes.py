@@ -7,8 +7,11 @@ convection, the electron-energy flux, the electron heat flux, species
 diffusion with its enthalpy fluxes), planar or axisymmetric (r, z) with
 swirl (nvel = 3: the azimuthal momentum is advected and carries no
 pressure; u_r/r in div u, the swirl stresses tau_tr, tau_tz and their
-work), no SGS model and no viscous sponge.  Every other branch raises NotImplementedError naming
-the ROADMAP item that ports it.  Everything here operates on tensors with
+work), with the closures that change a point's transport coefficients
+before the stress forms: the transport's own (the mixing length of
+physics/transport.py, which reads the wall distance), then an SGS model
+(dg/sgs.py), then the planar viscous sponge.  Passive scalars and the
+other equation systems raise NotImplementedError naming ROADMAP A5.4.  Everything here operates on tensors with
 an arbitrary batch prefix; the equation index is the second-to-last axis
 of flux tensors (F[..., eq, d]).
 """
@@ -27,6 +30,34 @@ def _over_r(v, radius):
 
 
 @dataclass(frozen=True)
+class PlanarViscousSponge:
+    """Planar viscosity-multiplier ramp (reference: src/fluxes.cpp:669-687
+    viscSpongePlanar, ini section viscosityMultiplierFunction):
+    wgt(x) = 1 + (ratio-1) * 0.5 (tanh(dist/width - 2) + 1) with dist the
+    signed distance past the plane (point, normal)."""
+
+    point: tuple
+    normal: tuple
+    width: float
+    ratio: float
+
+    def __call__(self, xyz):
+        # the plane as device constants, made on the first call (a captured
+        # step graph copies nothing from the host)
+        dim = xyz.shape[-1]
+        key = (xyz.dtype, xyz.device, dim)
+        consts = self.__dict__.setdefault("_consts", {})
+        if key not in consts:
+            kw = {"dtype": xyz.dtype, "device": xyz.device}
+            consts[key] = (torch.as_tensor(self.point[:dim], **kw),
+                           torch.as_tensor(self.normal[:dim], **kw))
+        p, n = consts[key]
+        dist = torch.einsum("...d,d->...", xyz - p, n)
+        w = 0.5 * (torch.tanh(dist / self.width - 2.0) + 1.0)
+        return 1.0 + (max(self.ratio, 1.0) - 1.0) * w
+
+
+@dataclass(frozen=True)
 class Fluxes:
     mixture: object
     transport: object | None = None
@@ -36,12 +67,6 @@ class Fluxes:
     visc_sponge: object | None = None
 
     def __post_init__(self):
-        if self.sgs_model is not None:
-            raise NotImplementedError(
-                "SGS models are not ported yet (ROADMAP A5.3, dg/sgs.py)")
-        if self.visc_sponge is not None:
-            raise NotImplementedError(
-                "the viscous sponge is not ported yet (ROADMAP A5.3)")
         if self.eq_system not in ("euler", "navier-stokes"):
             raise NotImplementedError(
                 f"equation system '{self.eq_system}' is not ported yet "
@@ -107,11 +132,29 @@ class Fluxes:
         axi = self.axisymmetric
         radius = xyz[..., 0] if axi else None
         props = self.transport.flux_properties(mix, U, Up, grad_up,
+                                               distance=distance,
                                                radius=radius)
         visc = props["visc"]
         bulk = props["bulk_visc"] - (2.0 / 3.0) * visc
         kappa = props["kappa"]
         kappa_e = props["kappa_e"]
+        dv = props.get("diff_vel")
+
+        if self.sgs_model is not None and delta is not None:
+            mu_sgs = self.sgs_model(U, grad_up, delta)
+            pr_cp = visc / kappa
+            bulk = bulk * (1.0 + mu_sgs / visc)
+            visc = visc + mu_sgs
+            kappa = kappa + mu_sgs / pr_cp
+
+        if self.visc_sponge is not None and xyz is not None:
+            # the viscous sponge multiplies every transport coefficient
+            # (reference: src/fluxes.cpp:233-246)
+            wgt = self.visc_sponge(xyz)
+            visc, bulk = visc * wgt, bulk * wgt
+            kappa, kappa_e = kappa * wgt, kappa_e * wgt
+            if dv is not None:
+                dv = dv * wgt[..., None, None]
 
         grad_vel = grad_up[..., 1 : 1 + dim, :dim]  # du_i/dx_j
         div_v = torch.diagonal(grad_vel, dim1=-2, dim2=-1).sum(-1)
@@ -139,7 +182,6 @@ class Fluxes:
             parts.append(tau_t[..., None, :])
             tau_u = tau_u + ut[..., None] * tau_t
         nact = mix.num_active_species
-        dv = props.get("diff_vel")
         if mix.two_temperature:
             qe = kappa_e[..., None] * grad_up[..., neq - 1, :]
             Fe = tau_u + kappa[..., None] * gradT + qe

@@ -34,7 +34,7 @@ from .solvers.em.qms import QuasiMagnetostaticSolverAxiSym  # noqa: F401
 from .solvers.lomach.solver import LoMachSolver  # noqa: F401 (registry)
 
 # solver types of the JAX package that the port does not run yet
-NOT_PORTED = {"em": "the 3-D EM solver (qms3d), ROADMAP A10"}
+NOT_PORTED = {"em": "the 3-D EM solver (qms3d), ROADMAP A10.2"}
 
 # exit status of a completed run (reference: src/tps.hpp Tps::getStatus)
 NORMAL = 0

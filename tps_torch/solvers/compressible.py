@@ -13,11 +13,16 @@ walls, inlets and outlets; the species undershoot clip inside the step),
 axisymmetric (r, z) flow with swirl on DryAir and on the argon ternary
 with argon_minimal transport (`[flow] axisymmetric`: nvel = 3, the
 radius-weighted tables, dg/forcing.py's AxisymmetricSource),
+the closures that change the viscous flux's transport coefficients (the
+wall distance with the mixing length, `[flow] computeDistance` and
+`useMixingLength`; the Smagorinsky and Sigma SGS models, `sgsModel`; the
+planar viscous sponge, `[viscosityMultiplierFunction]`),
 the LTE-table fluid (`fluid = lte_table`: physics/lte.py's table
 thermodynamics and transport with 1-D HDF5 or 2-D (T, rho) tables, net
 emission and the Joule heating through its sigma table), the LTE restart
 (io/restartFromLTE: a bulk checkpoint converted into the mixture's
-Saha/Boltzmann equilibrium and written at once), Rusanov, explicit RK,
+Saha/Boltzmann equilibrium and written at once), Rusanov or Roe
+(`useRoe`, planar), explicit RK,
 and two right-hand sides:
 
 - the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
@@ -56,6 +61,7 @@ enableParaview writes a legacy VTK file at the end (io/visualization.py).
 
 from __future__ import annotations
 
+import dataclasses
 import time as _time
 
 import numpy as np
@@ -68,13 +74,14 @@ from ..dg import bc as bcs
 from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
-from ..dg.fluxes import Fluxes
+from ..dg.fluxes import Fluxes, PlanarViscousSponge
 from ..dg.forcing import AxisymmetricSource, JouleHeating
 from ..dg.fused import maybe_build_fused
 from ..dg.operators import _clip_species
 from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
                       init_bc_states)
-from ..dg.riemann import Rusanov
+from ..dg.riemann import Roe, Rusanov
+from ..dg.sgs import Sigma, Smagorinsky
 from ..dg.source_term import SourceTerm
 from ..io.restart import RestartIO, _solver_field_names
 from ..mesh import generators
@@ -83,9 +90,11 @@ from ..physics.lte import load_lte_setup
 from ..physics.perfect_mixture import state_from_lte
 from ..physics.plasma_config import build_plasma, read_table_input
 from ..physics.radiation import NetEmission
-from ..physics.transport import ConstantTransport, DryAirTransport
+from ..physics.transport import (ConstantTransport, DryAirTransport,
+                                 MixingLengthTransport)
 from ..time.integrators import get_integrator
 from ..utils.cases import isentropic_vortex, taylor_green_2d, uniform_state
+from ..utils.wall_distance import distance_to_points, wall_face_points
 from .base import SOLVER_REGISTRY, PlasmaSolver
 from .step_graph import RING, StepLoop
 
@@ -186,9 +195,6 @@ _UNPORTED_KEYS = (
     ("mesh/partitions", "domain decomposition", "A8"),
     ("io/enableHistory", "the history file", "A12"),
     ("planeDump/isEnabled", "plane dumps", "A12"),
-    ("flow/computeDistance", "wall distance", "A5.3"),
-    ("flow/useMixingLength", "the mixing-length closure", "A5.3"),
-    ("viscosityMultiplierFunction/isEnabled", "the viscous sponge", "A5.3"),
     ("flow/enablePressureForcing", "pressure forcing", "A5.4"),
     ("heatSource/numHeatSources", "heat sources", "A5.4"),
     ("spongezone/numSpongeZones", "sponge zones", "A5.4"),
@@ -235,12 +241,8 @@ def check_slice(rc: RunConfiguration):
         # does the JAX package
         raise ValueError("Roe flux not supported for axisymmetric "
                          "simulations. Please use flow/useRoe = 0.")
-    if rc.use_roe:
-        raise _not_ported("the Roe flux", "A5.3")
     if rc.axisymmetric:
         _check_axisymmetric_fluid(rc)
-    if rc.sgs_model != "none":
-        raise _not_ported(f"the '{rc.sgs_model}' SGS model", "A5.3")
     for spec in rc.bcs:
         if spec.kind == "interpolate":
             raise _not_ported("the interpolated inlet (its BC, "
@@ -325,6 +327,8 @@ class CompressibleSolver(PlasmaSolver):
                 quad_kw["vol_quad_order"] = vqo
         self.tables_np = build_tables(self.mesh, order=rc.order, basis=basis,
                                       axisymmetric=rc.axisymmetric, **quad_kw)
+        if rc.raw is not None and rc.raw.get("flow/computeDistance", 0):
+            self._wall_distance_tables()
         self.tables = self.tables_np.to_torch(self.dtype, self.device)
         # the coupling's fields on the solution nodes [ne, ndof]: the Joule
         # heating the forcing adds and the E-field amplitude (the
@@ -368,6 +372,22 @@ class CompressibleSolver(PlasmaSolver):
         self._enable_paraview = bool(
             rc.raw.get("io/enableParaview", 0) if rc.raw is not None else 0)
 
+    def _wall_distance_tables(self):
+        """The wall distance ([flow] computeDistance; tps_tpu solvers/
+        compressible.py:204-221, reference: src/M2ulPhyS.cpp:371-437) to
+        every wall patch that is not inviscid, at the solution nodes
+        (`distance`), the face points (`f_dist`) and the slot points
+        (`dist_slot` [ne, nlf, nqf]), set on the numpy tables."""
+        wall_kinds = ("slip", "viscous_adiabatic", "viscous_isothermal",
+                      "viscous_general")
+        t = self.tables_np
+        attrs = [b.patch for b in self.config.bcs if b.kind in wall_kinds]
+        wall_pts = wall_face_points(t, attrs)
+        t.distance = distance_to_points(t.xyz_dof, wall_pts)
+        t.f_dist = distance_to_points(t.f_xyz, wall_pts)
+        if t.xyz_slot is not None:
+            t.dist_slot = distance_to_points(t.xyz_slot, wall_pts)
+
     # ------------------------------------------------------------------
     def _build_physics(self, dim, nvel):
         """Mixture, transport, fluxes and Riemann solver; returns the
@@ -408,10 +428,7 @@ class CompressibleSolver(PlasmaSolver):
             # package's do (its Fluxes always carry the transport)
             transport = (None if rc.equation_system == "euler"
                          and rc.fluid == "user_defined" else self.transport)
-            self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
-                                 eq_system=rc.equation_system,
-                                 axisymmetric=rc.axisymmetric)
-            self.riemann = Rusanov(self.fluxes)
+            self._build_fluxes(transport)
             return forcings + self._axisymmetric_source()
         self.mixture = DryAir(dim=dim, nvel=nvel)
         if rc.equation_system == "euler":
@@ -431,11 +448,48 @@ class CompressibleSolver(PlasmaSolver):
                 bulk_visc_mult=rc.bulk_visc_mult,
             )
         self.transport = transport
+        self._build_fluxes(transport)
+        return forcings + self._axisymmetric_source()
+
+    def _build_fluxes(self, transport):
+        """Fluxes and the Riemann solver, with the closures of the viscous
+        flux (tps_tpu solvers/compressible.py:321-389): the transport
+        wrapped in the mixing length (the source term's too), the SGS
+        model and the planar viscous sponge; Roe for useRoe."""
+        rc, raw = self.config, self.config.raw
+        if (transport is not None and raw is not None
+                and raw.get("flow/useMixingLength", 0)):
+            # reference: src/M2ulPhyS.cpp:2701-2707
+            transport = MixingLengthTransport(
+                molecular=transport,
+                max_mixing_length=raw.get(
+                    "flow/mixing-length/max-mixing-length", 0.0),
+                Prt=raw.get("flow/mixing-length/Pr_ratio", 1.0),
+                bulk_mult=raw.get("flow/mixing-length/bulk-multiplier", 0.0))
+            if self._source_term is not None:
+                self._source_term = dataclasses.replace(
+                    self._source_term, transport=transport)
+            self.transport = transport
+        sgs = None
+        if rc.sgs_model == "smagorinsky":
+            sgs = Smagorinsky(mixture=self.mixture, const=rc.sgs_const or 0.12)
+        elif rc.sgs_model == "sigma":
+            sgs = Sigma(mixture=self.mixture, const=rc.sgs_const or 0.135)
+        sponge = None
+        if raw is not None and raw.get("viscosityMultiplierFunction/isEnabled",
+                                       0):
+            # reference: src/M2ulPhyS.cpp:2789-2807
+            base = "viscosityMultiplierFunction"
+            sponge = PlanarViscousSponge(
+                point=tuple(raw.get_vec(f"{base}/point")),
+                normal=tuple(raw.get_vec(f"{base}/normal")),
+                width=raw.get_required(f"{base}/width", float),
+                ratio=raw.get_required(f"{base}/viscosityRatio", float))
         self.fluxes = Fluxes(mixture=self.mixture, transport=transport,
                              eq_system=rc.equation_system,
-                             axisymmetric=rc.axisymmetric)
-        self.riemann = Rusanov(self.fluxes)
-        return forcings + self._axisymmetric_source()
+                             axisymmetric=rc.axisymmetric, sgs_model=sgs,
+                             visc_sponge=sponge)
+        self.riemann = (Roe if rc.use_roe else Rusanov)(self.fluxes)
 
     def _axisymmetric_source(self):
         """[AxisymmetricSource] on axisymmetric flow, after the other
