@@ -68,7 +68,23 @@ compressible argon torch on the axis under the Joule coupling) through the
 CLI in f32 and f64 (its argon_axi sweep 4 times a step), graph against
 eager steps and the card against the CPU in f64, ms/step, and on Euler;
 tps_torch/tools/axisym_pipe.ini at 32x128 p=2 against a plain RK3 loop
-(its dry_air_axi sweep 3 times a step).
+(its dry_air_axi sweep 3 times a step).  Roe and the closures (phases
+44-46): every closure and Roe variant against its plain version, each
+variant's path, argon_torch_axisym_ml.ini and les_channel3d.ini through
+the CLI.  The forcings and the manufactured solutions (phases 47-50; no
+kernel of their own: plain PyTorch inside the captured step, the decks on
+the face sweep): the MMS decks tests/inputs/mms.{euler,cns}.2d.quad.ini at
+full width through tps_torch/tools/compute_rhs.py in f64 against the
+reference's brackets; the 3-D transient MASA rates; each forcing alone
+and all together (pressure gradient, heat source, planar and annulus
+sponges with userDef and mixedOut targets, the MMS sources, the argon
+deck's two-temperature sponge), graph against eager against the CPU;
+tps_torch/tools/forced_channel3d.ini through the CLI in f32 and f64 (its
+dry_air sweep 4 times a step), graph against eager and the card against
+the CPU in f64, its sweep against plain, ms/step.  The port's longest
+CPU runs, those of phases 22, 26, 30, 35, 42, 45 and 50 that the card is
+held against, run in one worker process (CpuRefs) from the end of the
+build, beside the phases before them; it is stopped on every exit.
 
 Needs one CUDA GPU (sm_90a: the kernels are built for Hopper) and nvcc.
 Fails (non-zero exit, no result line) without CUDA, when a kernel does not
@@ -81,10 +97,12 @@ record.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 import json
 from concurrent.futures import ThreadPoolExecutor
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -154,6 +172,93 @@ PRIM_OPS = 12
 
 def log(*a):
     print(*a, flush=True)
+
+
+def _numpy(x):
+    """x's tensors as numpy arrays (a worker's result crosses by value)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if isinstance(x, dict):
+        return {k: _numpy(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_numpy(v) for v in x)
+    return x
+
+
+def _tensors(x):
+    if isinstance(x, np.ndarray):
+        return torch.from_numpy(x)
+    if isinstance(x, dict):
+        return {k: _tensors(v) for k, v in x.items()}
+    if isinstance(x, tuple):
+        return tuple(_tensors(v) for v in x)
+    return x
+
+
+def _cpu_worker_init(log_path, threads):
+    torch.set_num_threads(threads)
+    sys.stdout = sys.stderr = open(log_path, "a", buffering=1)
+
+
+def _cpu_run(fn, args):
+    return _numpy(fn(*args, device="cpu"))
+
+
+class CpuRefs:
+    """The port's CPU runs that phases 22, 26, 30, 35, 42, 45, 49 and 50
+    hold their card runs against (in f64 at the decks' size; the coupled
+    channel's takes ~3 s a step on 8 cores): one worker process runs them
+    while the card works through the phases before them, so the same runs
+    and checks leave the main line.  Started once the kernels are built;
+    its output goes to build/cpu_references.log; leaving its `with` block
+    stops it."""
+
+    THREADS = 2  # of the host's 8 cores: the rest drive the card
+
+    def __init__(self):
+        self.pool, self.jobs = None, {}
+
+    def start(self):
+        self.pool = multiprocessing.get_context("spawn").Pool(
+            1, initializer=_cpu_worker_init,
+            initargs=(os.path.join(REPO, "build", "cpu_references.log"),
+                      self.THREADS))
+        for key, fn, args in (("lomach tgv", lomach_f64_run, ("tgv",)),
+                              ("lomach channel", lomach_f64_run,
+                               ("channel",)),
+                              ("coupled", coupled_f64_run, ()),
+                              ("reacting", reacting_f64_run, ()),
+                              ("channel", channel_f64_run, ("cpu",)),
+                              ("torch_axi", axi_f64_run,
+                               (TORCH_AXI_DECK, "torch_axi")),
+                              ("torch_ml", axi_f64_run,
+                               (ML_DECK, "torch_ml")),
+                              ("forced cut", forced_cut_run, ()),
+                              *((f"forcing {i}", forcing_case_run, (i,))
+                                for i in range(len(forcing_cases())))):
+            self.jobs[key] = self.pool.apply_async(_cpu_run, (fn, args))
+
+    def get(self, key):
+        """The run's result; waits for it (an error in the worker raises
+        here)."""
+        t0 = time.perf_counter()
+        res = _tensors(self.jobs.pop(key).get(timeout=600))
+        log(f"  the CPU run '{key}' from the worker (waited "
+            f"{time.perf_counter() - t0:.1f} s)")
+        return res
+
+    def close(self):
+        if self.pool is not None:
+            self.pool.terminate()
+            self.pool.join()
+            self.pool = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
 
 
 def nvidia_smi_line():
@@ -2041,7 +2146,20 @@ def sheared_zeta(dev, steps=60):
     return zeta_checks(zm, tab_np.xyz[:, 1])
 
 
-def phase_lomach_decks(dev):
+def lomach_f64_run(name, device):
+    """Phase 22's f64 run of the TGV ("tgv") or channel_rans ("channel")
+    deck as shipped on device: its final fields on the CPU."""
+    tps = lomach_tps(TGV_DECK if name == "tgv" else CHANNEL_DECK,
+                     torch.float64, f"lomach_{name}_{device}", device=device)
+    tps.solve()
+    s = tps.solver
+    st = {"u": s.flow.u, "p": s.flow.p, "nu_t": s.turb.eddy_viscosity()}
+    if name == "channel":
+        st.update(k=s.turb.k, eps=s.turb.eps, v2=s.turb.v2)
+    return {k: v.double().cpu() for k, v in st.items()}
+
+
+def phase_lomach_decks(dev, refs):
     """Phase 22: tests/inputs/lomach_tgv2d.ini (40 steps) and
     examples/cases/channel_rans.ini (200 steps) as shipped through the
     CLI on the card (f32), each constant-order step a graph replay: the
@@ -2049,7 +2167,8 @@ def phase_lomach_decks(dev):
     channel's zeta-f fields stay positive and realizable with f = 0 at
     the walls, its checkpoint (every outputFreq 50) reads back through
     h5lite; then both decks through the API in f64, on the card and on
-    the CPU: the final states within LOMACH_CPU_TOL."""
+    the CPU (the CPU runs in refs' worker): the final states within
+    LOMACH_CPU_TOL."""
     from tps_torch.io import h5lite
 
     out = {}
@@ -2099,19 +2218,9 @@ def phase_lomach_decks(dev):
         raise SystemExit("zeta-f under shear: wall damping failed")
     out["channel f32"] = {"wall_s": wall, "damping": ratio}
 
-    for name, deck in (("tgv", TGV_DECK), ("channel", CHANNEL_DECK)):
-        states = []
-        for device in ("cuda", "cpu"):
-            tps = lomach_tps(deck, torch.float64, f"lomach_{name}_{device}",
-                             device=device)
-            tps.solve()
-            s = tps.solver
-            st = {"u": s.flow.u, "p": s.flow.p,
-                  "nu_t": s.turb.eddy_viscosity()}
-            if name == "channel":
-                st.update(k=s.turb.k, eps=s.turb.eps, v2=s.turb.v2)
-            states.append({k: v.double().cpu() for k, v in st.items()})
-        card, cpu = states
+    for name in ("tgv", "channel"):
+        card = lomach_f64_run(name, "cuda")
+        cpu = refs.get(f"lomach {name}")
         umax = float(cpu["u"].abs().max())
         dists = {"u": float((card["u"] - cpu["u"]).abs().max())
                  / max(umax, 1e-300)}
@@ -2629,7 +2738,19 @@ def coupled_state(c):
             "efield": c.flow.efield}
 
 
-def phase_coupled_deck(dev):
+def coupled_f64_run(device):
+    """Phase 26's f64 run: the coupled deck's first 20 steps on device, its
+    fields and the total Joule heating of each EM solve on the CPU."""
+    tps = coupled_tps(COUPLED_DECK, torch.float64, f"coupled_{device}",
+                      device=device, iters=20)
+    tps.solve()
+    st = {k: v.double().cpu() for k, v in coupled_state(tps.solver).items()}
+    st["total joule"] = torch.tensor(
+        [e["joule"] for e in tps.solver.em_log], dtype=torch.float64)
+    return st
+
+
+def phase_coupled_deck(dev, refs):
     """Phase 26: examples/cases/torch_axisym_coupled.ini through the CLI on
     the card (f32).  As shipped (maxIters 1000) the deck diverges, in the
     JAX package as here (the velocity grows ~1.2x a step from the first
@@ -2641,8 +2762,8 @@ def phase_coupled_deck(dev):
     on 400 W to POWER_TOL after control at each EM solve, the column's
     peak T above the 300 K background, the EM solves and their iterations
     printed; then its first 20 steps (two EM solves) in f64 on the card
-    and on the CPU: T, u, u_theta, p, A_re, A_im, the Joule heating and its
-    total within COUPLED_CPU_TOL of max."""
+    and on the CPU (in refs' worker): T, u, u_theta, p, A_re, A_im,
+    the Joule heating and its total within COUPLED_CPU_TOL of max."""
     tps = coupled_tps(COUPLED_DECK, torch.float32, "coupled")
     c = tps.solver
     t0 = time.perf_counter()
@@ -2697,16 +2818,7 @@ def phase_coupled_deck(dev):
         raise SystemExit("the coupled deck failed its checks")
     out["f32 30 steps"] = {"wall_s": wall, "em_solves": len(c.em_log),
                            "power_err": max(power), "T_max": Tmax}
-    states = []
-    for device in ("cuda", "cpu"):
-        tps = coupled_tps(COUPLED_DECK, torch.float64,
-                          f"coupled_{device}", device=device, iters=20)
-        tps.solve()
-        st = {k: v.double().cpu() for k, v in coupled_state(tps.solver)
-              .items()}
-        st["total joule"] = torch.tensor(
-            [e["joule"] for e in tps.solver.em_log], dtype=torch.float64)
-        states.append(st)
+    states = [coupled_f64_run("cuda"), refs.get("coupled")]
     dists = {k: lrel(states[0][k], states[1][k]) for k in states[0]
              if k != "u_theta"}
     ut_zero = all(float(s["u_theta"].abs().max()) == 0.0 for s in states)
@@ -3024,15 +3136,25 @@ def phase_reacting_modules(dev):
     return {"worst": worst, "ulp_response": moved, "one_step_info": info}
 
 
-def phase_reacting_deck(dev):
+def reacting_f64_run(device):
+    """Phase 30's f64 run: the reacting deck's first 10 steps on device,
+    its fields on the CPU."""
+    tps = lomach_tps(REACTING_DECK, torch.float64, f"reacting_{device}",
+                     device=device, iters=10)
+    tps.solve()
+    return {k: v.double().cpu()
+            for k, v in reacting_fields(tps.solver).items()}
+
+
+def phase_reacting_deck(dev, refs):
     """Phase 30: lomach_reacting.ini through the CLI's path on the card
     (f32, as `python -m tps_torch --runFile` runs it), REACT_STEPS steps:
     every field finite, the solve-info guard read every step without
     tripping (it raises), the step graph captured once and replayed from
     the first constant-order step on, Y a partition of unity, p_thermo
     near the closed system's 39.7 kPa, the species in the checkpoint;
-    then 10 steps in f64 on the card and on the CPU: T, Y, Y(Ar+), u and
-    p_thermo within REACT_CPU_TOL of max."""
+    then 10 steps in f64 on the card and on the CPU (in refs'
+    worker): T, Y, Y(Ar+), u and p_thermo within REACT_CPU_TOL of max."""
     from tps_torch.io import h5lite
 
     tps = lomach_tps(REACTING_DECK, torch.float32, "reacting",
@@ -3067,13 +3189,7 @@ def phase_reacting_deck(dev):
         raise SystemExit("the reacting deck failed its checks")
     out = {"f32": {"steps": s.iter, "wall_s": wall, "replays": replays,
                    "T_max": float(st["T"].max()), "p_thermo": p_th}}
-    states = []
-    for device in ("cuda", "cpu"):
-        tps = lomach_tps(REACTING_DECK, torch.float64, f"reacting_{device}",
-                         device=device, iters=10)
-        tps.solve()
-        states.append({k: v.double().cpu()
-                       for k, v in reacting_fields(tps.solver).items()})
+    states = [reacting_f64_run("cuda"), refs.get("reacting")]
     dists = {k: lrel(states[0][k], states[1][k]) for k in states[0]}
     ok = all(dists[k] <= REACT_CPU_TOL
              for k in ("T", "Y", "Y(Ar+)", "u", "p_thermo"))
@@ -3568,15 +3684,33 @@ def channel_power(c):
     return max(abs(e["joule"] / e["target"] - 1.0) for e in c.em_log)
 
 
-def phase_channel_deck(dev):
+def channel_f64_run(name, device, graphs=True):
+    """Phase 35's f64 run: the coupled channel's first 12 steps on device
+    (the step graph or eager steps): its state, the Joule heating, the
+    E-field and the EM potential on the CPU, the power's distance from the
+    target, the EM solves, and whether the hand-off tensors were kept."""
+    tps = channel_tps(torch.float64, f"channel_{name}", device=device,
+                      iters=12)
+    c = tps.solver
+    c.flow.cuda_graphs = graphs
+    ptrs = (c.flow.joule_heating.data_ptr(), c.flow.efield.data_ptr())
+    tps.solve()
+    return ({k: v.double().cpu().clone() for k, v in channel_state(c).items()},
+            channel_power(c), len(c.em_log),
+            ptrs == (c.flow.joule_heating.data_ptr(),
+                     c.flow.efield.data_ptr()))
+
+
+def phase_channel_deck(dev, refs):
     """Phase 35: tps_torch/tools/argon_channel_coupled.ini (the compressible
     argon channel under the Joule coupling, 64x64 p=2 GL, EM every 10
     steps) through the CLI (f32, 100 of its 200 steps) with the launch
     counts set to 0 before it: the 2-D argon face sweep 4 times a step,
     no other variant; finite; the steps replayed the step graph; the
     power after control on target at each EM solve.  Then 12 steps (EM
-    updates at 0 and 10) in f64 on the card and on the CPU: the state, the
-    Joule heating, the E-field and the EM potential within
+    updates at 0 and 10) in f64 on the card and on the CPU (in refs'
+    worker): the state, the Joule heating, the E-field and the EM potential
+    within
     CHANNEL_CPU_TOL; the power within POWER_TOL of the target; the step
     graph against eager steps over the same 12 steps within GRAPH_TOL."""
     tps = channel_tps(torch.float32, "channel", iters=100)
@@ -3608,21 +3742,9 @@ def phase_channel_deck(dev):
                          f"(launches off: {bad})")
     out = {"as shipped f32": {"steps": steps, "wall_s": wall,
                               "launches": counts, "power_err_f32": power32}}
-    runs = {}
-    for name, device, graphs in (("card", "cuda", True), ("cpu", "cpu", True),
-                                 ("eager", "cuda", False)):
-        tps = channel_tps(torch.float64, f"channel_{name}", device=device,
-                          iters=12)
-        c = tps.solver
-        c.flow.cuda_graphs = graphs
-        ptrs = (c.flow.joule_heating.data_ptr(), c.flow.efield.data_ptr())
-        tps.solve()
-        runs[name] = ({k: v.double().cpu().clone()
-                       for k, v in channel_state(c).items()},
-                      channel_power(c), len(c.em_log),
-                      ptrs == (c.flow.joule_heating.data_ptr(),
-                               c.flow.efield.data_ptr()))
-    card, cpu, eager = runs["card"], runs["cpu"], runs["eager"]
+    card = channel_f64_run("card", "cuda")
+    eager = channel_f64_run("eager", "cuda", graphs=False)
+    cpu = refs.get("channel")
     cpu_d = {k: (state_rel(card[0][k], cpu[0][k]) if k == "U"
                  else lrel(card[0][k], cpu[0][k])) for k in card[0]}
     graph_d = {k: (state_rel(card[0][k], eager[0][k]) if k == "U"
@@ -4427,7 +4549,23 @@ def phase_axi_faces(dev):
     return out, worst
 
 
-def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
+def axi_f64_run(path, tag, device):
+    """Phases 42 and 45's CPU run: the deck's first 3 f64 steps on device:
+    its state on the CPU, and its steps, EM solves, power error, status
+    and kernel launches."""
+    tps = channel_tps(torch.float64, f"{tag}_cpu3", device=device, iters=3,
+                      path=path)
+    c = tps.solver
+    reset_all_launches()
+    tps.solve()
+    return ({k: v.double().cpu().clone() for k, v in channel_state(c).items()},
+            {"steps": c.flow.iter, "em_solves": len(c.em_log),
+             "power": channel_power(c), "status": tps.get_status(),
+             "launches": {k: v for k, v in launches_by_variant().items()
+                          if v}})
+
+
+def phase_torch_axi(dev, refs, path=TORCH_AXI_DECK, var="argon_axi",
                     tag="torch_axi", euler=True):
     """Phase 42: tps_torch/tools/argon_torch_axisym.ini (the compressible
     argon torch in (r, z) with swirl under the Joule coupling, 64x64 p=2
@@ -4438,8 +4576,9 @@ def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
     on another deck, `path`, whose sweep is variant `var`, without the
     Euler run.)  The f64 run at its step
     12 against 12 eager steps (EM updates at 0 and 10) within GRAPH_TOL,
-    and at its step 3 against the port's CPU run of 3 steps within
-    CHANNEL_CPU_TOL (U, Joule heating, E-field, EM potential).  Then
+    and at its step 3 against the port's CPU run of 3 steps (in refs'
+    worker) within CHANNEL_CPU_TOL (U, Joule heating, E-field, EM
+    potential).  Then
     ms/step graph and eager through the coupled solve() on the f32 run's
     solver (phase 37's turns, from step 20); then the deck on Euler, 2
     steps in f32, the argon_axi_euler sweep 4 times a step."""
@@ -4448,8 +4587,7 @@ def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
     for name, dtype, device, graphs, iters in (
             ("f32", torch.float32, "cuda", True, 20),
             ("f64", torch.float64, "cuda", True, 20),
-            ("eager", torch.float64, "cuda", False, 12),
-            ("cpu3", torch.float64, "cpu", True, 3)):
+            ("eager", torch.float64, "cuda", False, 12)):
         tps = channel_tps(dtype, f"{tag}_{name}", device=device,
                           iters=iters, path=path)
         c = tps.solver
@@ -4464,13 +4602,11 @@ def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
                                        for k, v in channel_state(c).items()}
             c.flow.config.max_iters = iters
         tps.solve()
-        if device == "cuda":
-            torch.cuda.synchronize()
+        torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = launches_by_variant()
         steps = c.flow.iter
-        want = ({"face_sweep": 4 * steps, f"face_sweep/{var}": 4 * steps}
-                if device == "cuda" else {})
+        want = {"face_sweep": 4 * steps, f"face_sweep/{var}": 4 * steps}
         bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
         state = {k: v.double().cpu().clone()
                  for k, v in channel_state(c).items()}
@@ -4487,8 +4623,7 @@ def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
         if (bad or not finite or tps.get_status() != 0 or steps != iters
                 or len(c.em_log) != (iters + 9) // 10
                 or (dtype == torch.float64 and power > POWER_TOL)
-                or (graphs and device == "cuda"
-                    and c.flow._loop.graph is None)):
+                or (graphs and c.flow._loop.graph is None)):
             raise SystemExit(f"{os.path.basename(path)}'s {name} run "
                              f"failed its checks (launches off: {bad})")
         if name in ("f32", "f64"):
@@ -4497,6 +4632,16 @@ def phase_torch_axi(dev, path=TORCH_AXI_DECK, var="argon_axi",
         if name == "f32":
             shipped = c
         del tps, c
+    runs["cpu3"], cpu3 = refs.get(tag)
+    finite = all(bool(torch.isfinite(v).all()) for v in runs["cpu3"].values())
+    log(f"  cpu3: {cpu3['steps']} steps, {cpu3['em_solves']} EM solves; "
+        f"launches {cpu3['launches']}; finite {finite}; |Joule after "
+        f"control / target - 1| <= {cpu3['power']:.2e}")
+    if (cpu3["launches"] or not finite or cpu3["status"] != 0
+            or cpu3["steps"] != 3 or cpu3["em_solves"] != 1
+            or cpu3["power"] > POWER_TOL):
+        raise SystemExit(f"{os.path.basename(path)}'s cpu3 run failed its "
+                         "checks")
     graph_d = {k: (state_rel(runs["card12"][k], runs["eager"][k], nvel=3)
                    if k == "U" else lrel(runs["card12"][k], runs["eager"][k]))
                for k in runs["card12"]}
@@ -4880,6 +5025,27 @@ def les_perturbed(s, seed=6):
     return U0
 
 
+@contextlib.contextmanager
+def shared_tables():
+    """Solvers made inside share one build of each mesh's numpy tables
+    (~6 s of host time each at 221,184 nodes), each a shallow copy."""
+    from tps_torch.solvers import compressible
+
+    built, build_tables = {}, compressible.build_tables
+
+    def once(mesh, **kw):
+        key = (mesh.vertices.tobytes(), tuple(sorted(kw.items())))
+        if key not in built:
+            built[key] = build_tables(mesh, **kw)
+        return copy.copy(built[key])
+
+    compressible.build_tables = once
+    try:
+        yield
+    finally:
+        compressible.build_tables = build_tables
+
+
 def phase_les(dev):
     """Phase 46: tps_torch/tools/les_channel3d.ini (Roe and Sigma on a 3-D
     channel of air, 32x16x16 p=2 GL, 221,184 nodes) through the CLI, 20
@@ -4890,26 +5056,8 @@ def phase_les(dev):
     16x8x8 (27,648 nodes; the CPU takes ~10 s a step at full size), 3 f64
     steps on the card against the port's CPU run within CHANNEL_CPU_TOL
     (U).  Then ms/step through solve() (phase 11's turns, f32)."""
-    from tps_torch.solvers import compressible
-
-    var = "dry_air_roe_3d_closure"
-    out, runs, shipped = {}, {}, None
-    # the four runs' solvers share one build of the deck's numpy tables
-    # (~6 s of host time each at 221,184 nodes)
-    built = {}
-    build_tables = compressible.build_tables
-
-    def once(mesh, **kw):
-        key = (mesh.vertices.tobytes(), tuple(sorted(kw.items())))
-        if key not in built:
-            built[key] = build_tables(mesh, **kw)
-        return copy.copy(built[key])
-
-    compressible.build_tables = once
-    try:
-        return _les_runs(dev, var, out, runs)
-    finally:
-        compressible.build_tables = build_tables
+    with shared_tables():
+        return _les_runs(dev, "dry_air_roe_3d_closure", {}, {})
 
 
 def _les_runs(dev, var, out, runs):
@@ -4977,9 +5125,503 @@ def _les_runs(dev, var, out, runs):
     return out
 
 
-def run(dev):
-    """Every phase on device dev; returns the kernels' record and the
-    card's nvidia-smi line."""
+# ---------------------------------------------------------------- forcings
+
+# the MMS decks at full width through tps_torch/tools/compute_rhs.py (f64),
+# each against the reference's brackets (tests/test_masa_parity.py:75-84,
+# 97-111: the euler deck's three, the cns deck's three and its goldens)
+MMS_BRACKETS = {
+    "euler_2d quad 160x160": ("mms.euler.2d.quad.ini", 25600,
+                              ((5.74e-5, 5.75e-5), (5.745e-5, 5.755e-5),
+                               (5.745e-5, 5.755e-5)), None),
+    "cns_2d quad 80x80": ("mms.cns.2d.quad.ini", 6400,
+                          ((2.25e-4, 2.35e-4), (2.32e-4, 2.33e-4),
+                           (2.355e-4, 2.365e-4)),
+                          (2.30524e-4, 2.32575e-4, 2.36350e-4))}
+MMS_GOLDEN_TOL = 2e-7
+# the 3-D transient MASA decks of tests/test_masa_3d.py (the reference's
+# periodic cube [0, 2]^3, p=1 GL): the rates between 6^3 and 12^3 at the
+# same physical time 6e-3 s, each in 1.9-2.8 and the pressure's in the
+# reference's 2.10-2.25 (tests/test_masa_3d.py:138-142); the consistency
+# bounds of its :145-168
+MASA3D_DECK = """
+[solver]
+type = flow
+[flow]
+order = 1
+basisType = 0
+integrationRule = 0
+maxIters = {iters}
+outputFreq = 100000
+timingFreq = 100000
+useRoe = 0
+equation_system = {eqsys}
+fluid = dry_air
+[mesh]
+generator = box3d
+nx = {n}
+ny = {n}
+nz = {n}
+x1 = 2.0
+y1 = 2.0
+z1 = 2.0
+periodic_x = 1
+periodic_y = 1
+periodic_z = 1
+[time]
+integrator = rk4
+dt_fixed = {dt}
+enableConstantTimestep = True
+[boundaryConditions]
+numWalls = 0
+numInlets = 0
+numOutlets = 0
+[mms]
+isEnabled = True
+compare_rhs = False
+name = {name}
+[io]
+outdirBase = {out}
+"""
+MASA3D_RATES = (1.9, 2.8)
+MASA3D_PRESSURE_RATE = (2.10, 2.25)
+MASA3D_CONSISTENT = (0.05, 5.0, 500.0)  # rho, velocity, pressure L2 errors
+FORCED_DECK = os.path.join(REPO, "tps_torch", "tools", "forced_channel3d.ini")
+# the JAX package's 200 f64 steps of the forced channel on the CPU
+# (tests/test_torch_deck_growth.py --deck forced_channel --steps 200
+# --jax-only): max|u| and the peak T at step 200
+FORCED_JAX_200 = (34.69989, 316.9746)
+# relative: the printed digits hold them to ~1.6e-7; f64 rounding over 200
+# steps on two devices is far below that
+FORCED_JAX_TOL = 1e-6
+ANNULUS_ZONES = """[spongezone]
+numSpongeZones = 2
+
+[spongezone1]
+isEnabled = True
+type = annulus
+targetSolType = userDef
+density = 1.2
+uvw = '0.0 5.0 -30.0'
+pressure = 103341.0
+normal = '-1 0 0'
+p0 = '6.283185307179586 1.0 1.5707963267948966'
+pInit = '5.5 1.0 1.5707963267948966'
+r1 = 0.2
+r2 = 0.9
+multiplier = 0.5
+
+[spongezone2]
+isEnabled = True
+type = annulus
+targetSolType = mixedOut
+tolerance = 0.3
+normal = '-1 0 0'
+p0 = '6.283185307179586 1.0 1.5707963267948966'
+pInit = '5.5 1.0 1.5707963267948966'
+r1 = 0.5
+r2 = 0.9
+multiplier = 0.5
+
+[io]
+"""
+ARGON_SPONGE = """
+[spongezone]
+numSpongeZones = 1
+[spongezone1]
+type = planar
+targetSolType = userDef
+density = 1.6
+uvw = '10.0 0.0 0.0'
+pressure = 101300.0
+mass_fraction/species1 = 1.0e-8
+mass_fraction/species2 = 0.9999999
+mass_fraction/species3 = 1.0e-7
+electron_temperature = 400.0
+normal = '-1 0 0'
+p0 = '0.01 0.0 0.0'
+pInit = '0.0075 0.0 0.0'
+multiplier = 0.5
+"""
+
+
+def deck_file(name, text):
+    path = os.path.join(REPO, "build", name)
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def forced_text(kind, n=(8, 4, 4), iters=4):
+    """forced_channel3d.ini at n elements with one forcing alone (kind
+    "pressure", "heat", "sponge userDef", "sponge mixedOut", "annulus": an
+    annulus with a userDef (a swirl) and one with a mixedOut target about
+    the channel's centre line along x, over the fringe's x range) or all
+    of them ("all")."""
+    with open(FORCED_DECK) as f:
+        text = f.read()
+    for old, new in (("nx = 32", f"nx = {n[0]}"), ("ny = 16", f"ny = {n[1]}"),
+                     ("nz = 16", f"nz = {n[2]}"),
+                     ("maxIters = 200", f"maxIters = {iters}"),
+                     ("outdirBase = output/forced_channel3d",
+                      f"outdirBase = build/forced_{kind.replace(' ', '_')}")):
+        text = text.replace(old, new)
+    if kind not in ("all", "pressure"):
+        text = text.replace("enablePressureForcing = True",
+                            "enablePressureForcing = False")
+    if kind not in ("all", "heat"):
+        text = text.replace("numHeatSources = 1", "numHeatSources = 0")
+    if kind in ("pressure", "heat"):
+        text = text.replace("numSpongeZones = 1", "numSpongeZones = 0")
+    if kind == "sponge mixedOut":
+        text = text.replace("targetSolType = userDef",
+                            "targetSolType = mixedOut\ntolerance = 0.3")
+    if kind == "annulus":
+        text = text[:text.index("\n[spongezone]\n") + 1] + ANNULUS_ZONES + \
+            text[text.index("\n[io]\n") + 5:]
+    return text
+
+
+def forcing_cases():
+    """(name, deck path, face-sweep variant) of phase 49."""
+    cases = [(f"channel 8x4x4 {k}",
+              deck_file(f"forced_{k.replace(' ', '_')}.ini", forced_text(k)),
+              "dry_air")
+             for k in ("pressure", "heat", "sponge userDef", "sponge mixedOut",
+                       "annulus", "all")]
+    with open(os.path.join(REPO, "tests", "inputs",
+                           "mms.euler.2d.quad.ini")) as f:
+        mms = (f.read().replace("nx = 160", "nx = 16")
+               .replace("ny = 160", "ny = 16")
+               .replace("maxIters = 300", "maxIters = 4")
+               .replace("outdirBase = output", "outdirBase = build/mms16"))
+    cases.append(("mms euler_2d 16x16", deck_file("mms16.ini", mms),
+                  "dry_air"))
+    cases.append(("mms euler_transient_3d 3^3", deck_file(
+        "masa3d_3.ini", MASA3D_DECK.format(
+            n=3, iters=4, dt=2e-5, out="build/masa3d_3",
+            name="euler_transient_3d", eqsys="euler")), "dry_air"))
+    with open(os.path.join(REPO, "tests", "inputs", "argon_minimal.ini")) as f:
+        argon = f.read().replace("outdirBase = /tmp/tps_tpu_argon_output",
+                                 "outdirBase = build/argon_sponge")
+    cases.append(("argon_minimal + 2-T sponge", deck_file(
+        "argon_sponge.ini", argon + ARGON_SPONGE), "argon_2d"))
+    return cases
+
+
+def phase_mms_brackets(dev):
+    """Phase 47: the MMS decks at full width on the card in f64 through
+    tps_torch/tools/compute_rhs.py (the solver's exact state, its slot RHS
+    with the face sweep and the MASA source made at set-up): the relative
+    RHS errors per group in the reference's brackets, the cns deck's
+    within MMS_GOLDEN_TOL of the goldens; one face-sweep launch each."""
+    from tps_torch.tools import compute_rhs as tool
+
+    torch.set_default_dtype(torch.float64)
+    out = {}
+    for key, (ini, ne_want, brackets, golden) in MMS_BRACKETS.items():
+        with open(os.path.join(REPO, "tests", "inputs", ini)) as f:
+            text = f.read().replace("outdirBase = output",
+                                    "outdirBase = build/mms_out")
+        report = os.path.join(REPO, "build", ini + ".rhs_error.txt")
+        text = "\n".join(f"filename = {report}" if ln.startswith("filename =")
+                         else ln for ln in text.splitlines())
+        path = deck_file("full_" + ini, text)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        errs, ne = tool.run_file_mode(path, "cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launches_by_variant()
+        with open(report) as f:
+            line = f.read().strip().splitlines()[-1]
+        ok = (ne == ne_want and len(errs) == 3
+              and all(lo < e < hi for e, (lo, hi) in zip(errs, brackets))
+              and (golden is None or all(abs(e - g) < MMS_GOLDEN_TOL
+                                         for e, g in zip(errs, golden)))
+              and counts["face_sweep"] == 1
+              and counts["face_sweep/dry_air"] == 1)
+        log(f"  {key}: {ne} elements, errors {[f'{e:.6e}' for e in errs]} "
+            f"(brackets {brackets}" + (f", goldens {golden}" if golden else "")
+            + f"); report line '{line}'; launches {counts}; {wall:.1f} s "
+            "with set-up" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{key}: the MMS errors miss the reference's "
+                             "brackets")
+        out[key] = {"errors": errs, "elements": ne, "wall_s": wall,
+                    "launches": counts["face_sweep"]}
+    return out
+
+
+def masa3d_run(n, iters, dt, name, eqsys, graphs=True):
+    """One 3-D transient MASA deck through the harness on the card in f64:
+    (solver, primitive errors, wall s of solve(), launches)."""
+    from tps_torch.utils.mms import primitive_errors
+
+    path = deck_file(f"masa3d_{name}_{n}.ini", MASA3D_DECK.format(
+        n=n, iters=iters, dt=dt, out=f"build/masa3d_{n}", name=name,
+        eqsys=eqsys))
+    tps = channel_tps(torch.float64, f"masa3d_{name}_{n}", path=path)
+    s = tps.solver
+    s.cuda_graphs = graphs
+    s.write_restart = lambda: None
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tps.solve()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    errs = primitive_errors(s.tables, s.mixture, s.U, s.masa.up_fn, s.time)
+    return s, errs, wall, launches_by_variant()
+
+
+def phase_masa_rates(dev):
+    """Phase 48: the 3-D transient MASA decks on the card in f64 (step
+    graph): euler_transient_3d at 6^3 (300 x 2e-5 s) and 12^3 (600 x 1e-5
+    s), the L2 errors of density, velocity and pressure at t = 6e-3 s and
+    their rates in MASA3D_RATES, the pressure's in MASA3D_PRESSURE_RATE;
+    navierstokes_3d_transient_sutherland at 6^3 (150 steps) within
+    MASA3D_CONSISTENT; each 4 face-sweep launches a step."""
+    out, errs = {}, {}
+    for key, (n, iters, dt, name, eqsys) in {
+            "euler 6^3": (6, 300, 2e-5, "euler_transient_3d", "euler"),
+            "euler 12^3": (12, 600, 1e-5, "euler_transient_3d", "euler"),
+            "ns 6^3": (6, 150, 2e-5, "navierstokes_3d_transient_sutherland",
+                       "navier-stokes")}.items():
+        s, e, wall, counts = masa3d_run(n, iters, dt, name, eqsys)
+        ok = (counts["face_sweep"] == 4 * iters == counts["face_sweep/dry_air"]
+              and s._loop.graph is not None
+              and abs(float(s.time) - iters * dt) < 1e-12)
+        if key == "ns 6^3":
+            ok = ok and all(v < b for v, b in zip(e, MASA3D_CONSISTENT))
+        errs[key] = e
+        out[key] = {"errors": e, "steps": iters, "wall_s": wall,
+                    "ms_per_step": wall * 1e3 / iters,
+                    "launches": counts["face_sweep"],
+                    "solution_error": s.mms_solution_error()}
+        log(f"  {key}: {iters} steps in {wall:.2f} s; L2 errors rho, u, p "
+            f"{e}; launches {counts['face_sweep']}" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"the 3-D MASA deck {key} failed its checks")
+        del s
+    rates = [float(np.log2(a / b)) for a, b in zip(errs["euler 6^3"],
+                                                     errs["euler 12^3"])]
+    ok = (all(MASA3D_RATES[0] < r < MASA3D_RATES[1] for r in rates)
+          and MASA3D_PRESSURE_RATE[0] < rates[2] < MASA3D_PRESSURE_RATE[1])
+    log(f"  rates rho, u, p: {rates} (each in {MASA3D_RATES}, p in "
+        f"{MASA3D_PRESSURE_RATE})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the 3-D MASA rates miss the reference's brackets")
+    out["rates"] = rates
+    return out
+
+
+def forcing_case_run(i, device, graphs=True):
+    """Phase 49's case i (forcing_cases' order), its 4 f64 steps on device
+    (the step graph or eager steps on the card): U on the CPU, and the
+    forcings' kinds, the steps, the kernel launches and whether a step
+    graph ran."""
+    name, path, var = forcing_cases()[i]
+    tps = channel_tps(torch.float64, f"forcings_{device}", device=device,
+                      path=path)
+    s = tps.solver
+    s.cuda_graphs = graphs
+    s.write_restart = lambda: None
+    reset_all_launches()
+    tps.solve()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return s.U.double().cpu().clone(), {
+        "kinds": [type(f).__name__ for f in s.ctx.forcings],
+        "steps": s.iter, "graph": s._loop.graph is not None,
+        "launches": {k: v for k, v in launches_by_variant().items() if v}}
+
+
+def phase_forcings(dev, refs):
+    """Phase 49: each forcing alone and all together on the forced channel
+    cut to 8x4x4 p=2 (3,456 nodes), the MMS sources (euler_2d at 16x16 p=2
+    GLL, euler_transient_3d at 3^3) and the argon deck with a
+    two-temperature sponge: 4 RK4 steps through solve() in f64 on the card
+    with the step graph, eagerly, and on the CPU (in refs' worker); graph
+    vs eager within GRAPH_TOL, card vs CPU within CHANNEL_CPU_TOL (U), the case's
+    face-sweep variant 4 times a step and no other kernel."""
+    out = {}
+    for i, (name, path, var) in enumerate(forcing_cases()):
+        runs = {}
+        for run, graphs in (("graph", True), ("eager", False)):
+            runs[run], info = forcing_case_run(i, "cuda", graphs)
+            counts = info["launches"]
+            want = {"face_sweep": 4 * info["steps"],
+                    f"face_sweep/{var}": 4 * info["steps"]}
+            if counts != want or (graphs and not info["graph"]):
+                raise SystemExit(f"{name}: launches {counts}, not {want}")
+        runs["cpu"], cpu = refs.get(f"forcing {i}")
+        kinds = info["kinds"]
+        if (cpu["kinds"] != kinds or cpu["launches"]
+                or cpu["steps"] != info["steps"]):
+            raise SystemExit(f"{name}: the CPU run {cpu}")
+        nvel = 2 if "2d" in name or "argon" in name else 3
+        graph_d = state_rel(runs["graph"], runs["eager"], nvel=nvel)
+        cpu_d = state_rel(runs["graph"], runs["cpu"], nvel=nvel)
+        ok = (graph_d <= GRAPH_TOL and cpu_d <= CHANNEL_CPU_TOL
+              and bool(torch.isfinite(runs["graph"]).all()))
+        log(f"  {name} ({kinds}): graph vs eager {graph_d:.3e}, card vs CPU "
+            f"{cpu_d:.3e}; launches {counts}" + ("" if ok else "  FAIL"))
+        if not ok:
+            raise SystemExit(f"{name}: card, CPU and eager differ")
+        out[name] = {"graph vs eager": graph_d, "card vs cpu": cpu_d,
+                     "launches": counts[f"face_sweep/{var}"],
+                     "forcings": kinds}
+    return out
+
+
+def forced_cut_run(device):
+    """Phase 50's cut copy: forced_channel3d.ini at 16x8x8 with every
+    forcing, 3 f64 steps on device (the step graph on the card): U on the
+    CPU, and its steps, status and kernel launches."""
+    cut = deck_file(f"forced_cut_{device}.ini",
+                    forced_text("all", (16, 8, 8), 3))
+    tps = channel_tps(torch.float64, f"forced_cut_{device}", device=device,
+                      iters=3, path=cut)
+    s = tps.solver
+    reset_all_launches()
+    tps.solve()
+    if device == "cuda":
+        if s._loop.graph is None:
+            raise SystemExit("the forced channel's card3 run: no step graph")
+        torch.cuda.synchronize()
+    return s.U.double().cpu().clone(), {
+        "steps": s.iter, "status": tps.get_status(),
+        "launches": {k: v for k, v in launches_by_variant().items() if v}}
+
+
+def phase_forced_channel(dev, refs):
+    """Phase 50: tps_torch/tools/forced_channel3d.ini (32x16x16 p=2 GL,
+    221,184 nodes: the pressure forcing, a heat source, a planar sponge)
+    through the CLI, 200 steps in f32 and in f64 (the JAX package keeps it
+    finite for 200 f64 steps on the CPU, FORCED_JAX_200), the dry_air
+    sweep 4 times a step; the f64 run's max|u| and peak T at step 200
+    within FORCED_JAX_TOL of the JAX package's; the f64 run at its step 12
+    against 12 eager steps within GRAPH_TOL; cut to 16x8x8 (27,648 nodes),
+    3 f64 steps on the card against the port's CPU run (in refs'
+    worker) within CHANNEL_CPU_TOL; ms/step through solve() (phase 11's
+    turns, f32)."""
+    out, runs, shipped = {}, {}, None
+    for name, dtype, graphs, iters in (
+            ("f32", torch.float32, True, 200),
+            ("f64", torch.float64, True, 200),
+            ("eager", torch.float64, False, 12)):
+        tps = channel_tps(dtype, f"forced_{name}", iters=iters,
+                          path=FORCED_DECK)
+        s = tps.solver
+        s.cuda_graphs = graphs
+        reset_all_launches()
+        t0 = time.perf_counter()
+        if name == "f64":
+            s.config.max_iters = 12
+            tps.solve()
+            runs["card12"] = s.U.double().cpu().clone()
+            s.config.max_iters = iters
+        tps.solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = {k: v for k, v in launches_by_variant().items() if v}
+        want = {"face_sweep": 4 * s.iter, "face_sweep/dry_air": 4 * s.iter}
+        U = s.U.double().cpu().clone()
+        runs[name] = U
+        finite = bool(torch.isfinite(U).all())
+        Up = s.mixture.primitives(U)
+        umax = float(Up[..., 1:4].abs().max())
+        tmax = float(Up[..., 4].max())
+        log(f"  {name}: {s.iter} steps in {wall:.1f} s; launches {counts}; "
+            f"finite {finite}; max|u| {umax:.6e} m/s, peak T {tmax:.6e} K; "
+            f"step graph {s._loop.graph is not None}")
+        if (counts != want or not finite or tps.get_status() != 0
+                or s.iter != iters or (graphs and s._loop.graph is None)):
+            raise SystemExit(f"the forced channel's {name} run failed its "
+                             f"checks (launches {counts})")
+        if name in ("f32", "f64"):
+            out[name] = {"steps": s.iter, "wall_s": wall,
+                         "launches": counts["face_sweep/dry_air"],
+                         "max_u": umax, "peak_T": tmax}
+        if name == "f32":
+            shipped = s
+        else:
+            del tps, s
+    runs["card3"], card3 = forced_cut_run("cuda")
+    runs["cpu3"], cpu3 = refs.get("forced cut")
+    graph_d = state_rel(runs["card12"], runs["eager"], nvel=3)
+    cpu_d = state_rel(runs["card3"], runs["cpu3"], nvel=3)
+    jax_d = [abs(out["f64"][k] / ref - 1.0)
+             for k, ref in zip(("max_u", "peak_T"), FORCED_JAX_200)]
+    ok = (graph_d <= GRAPH_TOL and cpu_d <= CHANNEL_CPU_TOL
+          and max(jax_d) <= FORCED_JAX_TOL and cpu3["launches"] == {}
+          and card3["launches"] == {"face_sweep": 12, "face_sweep/dry_air": 12}
+          and cpu3["status"] == card3["status"] == 0
+          and cpu3["steps"] == card3["steps"] == 3)
+    log(f"  f64: graph vs eager, 12 steps {graph_d:.3e} (bar {GRAPH_TOL}); "
+        f"card vs the port's CPU run, 16x8x8, 3 steps {cpu_d:.3e} (bar "
+        f"{CHANNEL_CPU_TOL}; the card's run {card3}, the CPU's {cpu3}); "
+        f"step 200 f64 max|u| "
+        f"{out['f64']['max_u']:.6e}, peak T {out['f64']['peak_T']:.6e} "
+        f"against the JAX package's CPU run {FORCED_JAX_200}: "
+        f"{jax_d[0]:.2e}, {jax_d[1]:.2e} (bar {FORCED_JAX_TOL})"
+        + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the forced channel: card, CPU and eager differ")
+    out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu": cpu_d})
+    out["face_sweep"] = forced_sweep_timing(shipped)
+    out["solve() ms/step"] = phase_step_timing(
+        {"forced_channel3d f32": shipped}, steps=4)
+    return out
+
+
+def forced_sweep_timing(s):
+    """The dry_air sweep of the forced channel's f32 solver on its state
+    after 200 steps: kernel against its plain version (f32 by TOL's rule,
+    the f64 plain version on f64 tables the reference), CUDA events
+    (kernel, plain, kernel), the device ms, f64 and the bound."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+
+    sw32, tab_np = s._rhs.sweep, s.tables_np
+    X32 = face_input(s.ctx, s.tables, s.U)
+    tab64 = tab_np.to_torch(torch.float64, s.U.device)
+    sw64 = build_face_sweep(tab64, s.ctx)
+    X64 = face_input(s.ctx, tab64, s.U.double())
+    k32, p32 = sw32(X32), sw32.plain(X32)
+    y64, p64 = sw64(X64), sw64.plain(X64)
+    ref = sw64.plain(X32.double())
+    r64, r32 = rel(y64, p64), rel(k32, p32)
+    dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+    ok = r64 <= TOL[torch.float64] and (r32 <= TOL[torch.float32]
+                                        or dk <= 2 * dp)
+    ms = [cuda_ms(lambda: sw32(X32), 30), cuda_ms(lambda: sw32.plain(X32), 2),
+          cuda_ms(lambda: sw32(X32), 30)]
+    b = face_bound(tab_np, "navier-stokes", "gl")
+    rec = {"grid": "forced channel 32x16x16 p=2 gl", "variant": sw32.variant,
+           "f64_rel_err": r64, "f32_rel": r32, "f32_f64_dist": dk,
+           "plain_f32_f64_dist": dp,
+           "max_abs_err": float(torch.max(torch.abs(k32 - p32))),
+           "ms": (ms[0] + ms[2]) / 2, "plain_ms": ms[1], "turns": ms,
+           "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep", 20),
+           "f64_ms": cuda_ms(lambda: sw64(X64), 20),
+           "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2], "bytes_ms": b[3]}
+    log(f"  the dry_air sweep at the deck's width: f64 {r64:.3e} (bar "
+        f"{TOL[torch.float64]}); f32 {r32:.3e} (or f64 dist: kernel {dk:.3e} "
+        f"<= 2 x plain {dp:.3e}); ms {rec['ms']:.4f}, device "
+        f"{ms_text(rec['device_ms'])}, f64 {rec['f64_ms']:.4f}, plain "
+        f"{rec['plain_ms']:.2f}, bound {rec['bound_ms']:.6f} "
+        f"({rec['bound_by']})" + ("" if ok else "  FAIL"))
+    if not ok:
+        raise SystemExit("the forced channel's sweep differs from its plain "
+                         "version")
+    return rec
+
+
+def run(dev, refs):
+    """Every phase on device dev, the CPU references in refs (a CpuRefs,
+    started here once the kernels are built); returns the kernels'
+    record and the card's nvidia-smi line."""
     from tps_torch.dg import cuda_fused
 
     t_start = time.perf_counter()
@@ -5005,6 +5647,7 @@ def run(dev):
             setup.tables(n, order, basis, walls)
         path, build_s = built.result()
     log(f"  built {os.path.relpath(path, REPO)} in {build_s:.1f} s")
+    refs.start()
     for line in cuda_fused._Library.build_log.splitlines():
         if ("registers" in line or "spill" in line or "Compiling" in line
                 or "compiled in" in line):
@@ -5117,7 +5760,7 @@ def run(dev):
     log_phase("phase 22: the low-Mach decks through the CLI (lomach_tgv2d.ini "
               "40 steps, channel_rans.ini 200 steps, f32), then f64 card vs "
               "CPU")
-    lomach_decks = phase_lomach_decks(dev)
+    lomach_decks = phase_lomach_decks(dev, refs)
     log_phase("phase 23: low-Mach step graphs vs eager steps through solve() "
               "(f64, 20 constant-order steps)")
     lomach_graphs = phase_lomach_graphs()
@@ -5134,7 +5777,7 @@ def run(dev):
     coupled_modules = phase_coupled_modules(dev)
     log_phase("phase 26: torch_axisym_coupled.ini as shipped through the CLI "
               "(f32, 1000 steps, EM every 10), then f64 card vs CPU")
-    coupled_deck = phase_coupled_deck(dev)
+    coupled_deck = phase_coupled_deck(dev, refs)
     log_phase("phase 27: the coupled deck's step graphs vs eager steps "
               "across an EM update (f64, 20 steps)")
     coupled_graphs = phase_coupled_graphs()
@@ -5152,7 +5795,7 @@ def run(dev):
     reacting_mods = phase_reacting_modules(dev)
     log_phase(f"phase 30: lomach_reacting.ini through the CLI (f32, "
               f"{REACT_STEPS} steps), then f64 card vs CPU (10 steps)")
-    reacting_deck = phase_reacting_deck(dev)
+    reacting_deck = phase_reacting_deck(dev, refs)
     log_phase("phase 31: step graphs vs eager steps through solve() (f64): "
               "the reacting deck across a dense refresh, a channel with a "
               "plane sponge and an interpolated inlet inside its ramp")
@@ -5181,7 +5824,7 @@ def run(dev):
     log_phase("phase 35: argon_channel_coupled.ini through the CLI (f32, 100 "
               "steps, EM every 10), then f64 card vs CPU and graph vs eager "
               "across an EM update")
-    channel = phase_channel_deck(dev)
+    channel = phase_channel_deck(dev, refs)
     log_phase("phase 36: the variants' decks, argon_full.ini and "
               "argon_inflow_outflow.ini through the CLI (f32), then the last "
               "two at 64x64 p=2 vs a plain loop (f64)")
@@ -5209,7 +5852,7 @@ def run(dev):
     log_phase("phase 42: argon_torch_axisym.ini through the CLI (f32 and "
               "f64, 20 steps, EM every 10), f64 graph vs eager and card vs "
               "CPU (3 steps), ms/step (f32); the deck on Euler (2 steps)")
-    torch_axi = phase_torch_axi(dev)
+    torch_axi = phase_torch_axi(dev, refs)
     log_phase("phase 43: axisym_pipe.ini at 32x128 p=2 (DryAir NS, f64, 20 "
               "RK3 steps) vs a plain RK3 loop; the pipe on Euler (2 steps)")
     pipe = phase_pipe(dev)
@@ -5223,12 +5866,31 @@ def run(dev):
     log_phase("phase 45: argon_torch_axisym_ml.ini through the CLI (f32 and "
               "f64, 20 steps, EM every 10), f64 graph vs eager and card vs "
               "CPU (3 steps), ms/step (f32)")
-    torch_ml = phase_torch_axi(dev, ML_DECK, "argon_axi_closure", "torch_ml",
+    torch_ml = phase_torch_axi(dev, refs, ML_DECK, "argon_axi_closure",
+                               "torch_ml",
                                euler=False)
     log_phase("phase 46: les_channel3d.ini (Roe + Sigma, 32x16x16 p=2 GL) "
               "through the CLI (f32 and f64, 20 steps), f64 graph vs eager; "
               "card vs CPU at 16x8x8 (3 steps); ms/step (f32)")
     les = phase_les(dev)
+    log_phase("phase 47: the MMS decks' reference brackets on the card "
+              "through tps_torch/tools/compute_rhs.py (euler_2d quad "
+              "160x160, cns_2d quad 80x80, p=2 GLL, f64)")
+    mms_brackets = phase_mms_brackets(dev)
+    log_phase("phase 48: the 3-D transient MASA rates (euler_transient_3d "
+              "at 6^3 and 12^3 p=1 GL to t = 6e-3 s, the Navier-Stokes form "
+              "at 6^3; f64, step graph)")
+    masa_rates = phase_masa_rates(dev)
+    log_phase("phase 49: each forcing alone and all together (the forced "
+              "channel at 8x4x4, the MMS sources, the argon deck's "
+              "two-temperature sponge): graph vs eager vs the CPU (f64)")
+    forcings = phase_forcings(dev, refs)
+    log_phase("phase 50: forced_channel3d.ini (32x16x16 p=2 GL, pressure "
+              "forcing, heat source, sponge) through the CLI (f32 and f64, "
+              "200 steps), f64 graph vs eager; card vs CPU at 16x8x8 (3 "
+              "steps); ms/step (f32)")
+    with shared_tables():  # its three full-size runs
+        forced = phase_forced_channel(dev, refs)
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -5378,6 +6040,25 @@ def run(dev):
             "library_ms": None, "grid": rec["grid"],
             "f64_ms": rec["f64_ms"], "f64_device_ms": rec["f64_device_ms"],
             "f64_max_rel_err": rec["f64_rel_err"]})
+    # the forcings' and MMS decks' launches (phases 47-50): all on the
+    # DryAir sweep, the argon sponge deck on argon_2d
+    kernels[2]["launches_by_path"].update({
+        **{f"{k} (compute_rhs)": v["launches"]
+           for k, v in mms_brackets.items()},
+        **{f"3-D MASA {k}": v["launches"]
+           for k, v in masa_rates.items() if k != "rates"},
+        **{k: v["launches"] for k, v in forcings.items()},
+        "forced_channel3d.ini": forced["f32"]["launches"]})
+    # the DryAir sweep at the forced channel's width (phase 50)
+    fs = forced["face_sweep"]
+    kernels.append({
+        "name": "face_sweep/dry_air forced_channel3d", "route": "cuda",
+        "source": "tps_torch/csrc/face_sweep.cu",
+        "replaces": "tools/pallas_face_prototype.py:102",
+        "launches": forced["f32"]["launches"],
+        **{k: fs[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms",
+                              "bound_ms", "bound_by", "grid", "f64_ms")},
+        "library_ms": None, "f64_max_rel_err": fs["f64_rel_err"]})
     pb = face_bound(setup.tables((16, 16, 16), 2), "euler", "gl")
     summary = {f"fused {n[0]}^3": {"ms_per_rhs": v["ms_per_rhs"],
                                    "plain_ms_per_rhs": v["plain_ms_per_rhs"],
@@ -5431,6 +6112,9 @@ def run(dev):
         "variants f64 max rel err": closure_err,
         "paths' launches": closure_launches, "ml torch deck": torch_ml,
         "les channel": les}
+    summary["forcings and MMS"] = {
+        "MMS brackets (f64)": mms_brackets, "3-D MASA rates (f64)": masa_rates,
+        "forcings graph/eager/cpu (f64)": forcings, "forced channel": forced}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}
@@ -5479,7 +6163,8 @@ def main():
     torch.set_float32_matmul_precision("highest")
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
-    kernels, smi = run(torch.device("cuda", 0))
+    with CpuRefs() as refs:
+        kernels, smi = run(torch.device("cuda", 0), refs)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -19,7 +19,10 @@ LTE-table fluid's eight variants == their plain versions (f64 2.2e-13);
 the LTE channel's step graph == eager steps across an EM update.  The
 axisymmetric (r, z) + swirl variants (DryAir, the argon ternary on
 Navier-Stokes and Euler) == their plain versions, on a strip off the axis
-and on boxes touching it.
+and on boxes touching it.  The forcings (pressure gradient, heat source,
+sponge zones, the MASA sources) on the card == on the CPU; the forced
+channel and the transient MMS deck: step graph == eager steps == the CPU;
+the compute_rhs tool's errors on the card == the CPU's.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -1386,3 +1389,207 @@ def test_reacting_step_on_card_matches_cpu(device, f64):
     for k in out[0]:
         d = float((out[0][k] - out[1][k]).abs().max())
         assert d <= 1e-10 * float(out[1][k].abs().max()), k
+
+
+# ------------------------------------------- the forcings and the MMS decks
+
+FORCED_CHANNEL = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tps_torch", "tools", "forced_channel3d.ini")
+MASA3D_DECK = """
+[solver]
+type = flow
+[flow]
+order = 1
+basisType = 0
+integrationRule = 0
+maxIters = {iters}
+outputFreq = {iters}
+timingFreq = 100000
+equation_system = euler
+fluid = dry_air
+[mesh]
+generator = box3d
+nx = 3
+ny = 3
+nz = 3
+x1 = 2.0
+y1 = 2.0
+z1 = 2.0
+periodic_x = 1
+periodic_y = 1
+periodic_z = 1
+[time]
+integrator = rk4
+dt_fixed = 2e-5
+enableConstantTimestep = True
+[mms]
+isEnabled = True
+name = euler_transient_3d
+[io]
+outdirBase = {out}
+"""
+
+
+def _deck_tps(path, device, graphs=True):
+    from tps_torch import harness
+
+    tps = harness.Tps()
+    tps.parse_command_line_args(["tps", "--runFile", str(path), "--device",
+                                 device])
+    tps.parse_input()
+    tps.choose_devices()
+    tps.choose_solver()
+    tps.initialize()
+    tps.solver.cuda_graphs = graphs
+    return tps
+
+
+def _forced_channel_text(out, target="userDef", iters=4):
+    text = open(FORCED_CHANNEL).read()
+    for old, new in (("nx = 32", "nx = 8"), ("ny = 16", "ny = 4"),
+                     ("nz = 16", "nz = 4"), ("maxIters = 200",
+                                             f"maxIters = {iters}"),
+                     ("outdirBase = output/forced_channel3d",
+                      f"outdirBase = {out}")):
+        text = text.replace(old, new)
+    if target == "mixedOut":
+        text = text.replace("targetSolType = userDef",
+                            "targetSolType = mixedOut\ntolerance = 0.3")
+    return text
+
+
+@pytest.mark.parametrize("target", ["userDef", "mixedOut"])
+def test_forced_channel_graph_eager_and_cpu(device, f64, tmp_path, target):
+    """tps_torch/tools/forced_channel3d.ini cut to 8x4x4 (pressure forcing,
+    a heat source, a planar sponge with a userDef or mixedOut target), 4
+    RK4 steps through solve(): graph replays == eager steps (1e-12 of
+    max|U|), card == the CPU (1e-9), the dry_air_3d sweep 4 times a step
+    on the card and no other kernel."""
+    path = tmp_path / "forced.ini"
+    path.write_text(_forced_channel_text(tmp_path / "o", target))
+    out = {}
+    for name, dev, graphs in (("graph", "cuda", True), ("eager", "cuda", False),
+                              ("cpu", "cpu", True)):
+        tps = _deck_tps(path, dev, graphs)
+        cuda_fused.reset_launches()
+        cuda_faces.reset_launches()
+        tps.solve()
+        s = tps.solver
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert _counts() == {"face_sweep": 16, "k1_gradient": 0,
+                                 "k2_faces_volume": 0}
+            assert cuda_faces.variant_launches["dry_air"] == 16
+            assert (s._loop.graph is not None) == graphs
+        out[name] = s.state_global()
+    scale = np.max(np.abs(out["eager"]))
+    np.testing.assert_allclose(out["graph"], out["eager"], rtol=0,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(out["graph"], out["cpu"], rtol=0,
+                               atol=1e-9 * scale)
+
+
+def test_transient_mms_graph_eager_and_cpu(device, f64, tmp_path):
+    """The transient 3-D MASA source (nested torch.func.jacfwd at the step
+    loop's device time) under the step graph: 4 RK4 steps at 3^3 p=1,
+    graph == eager (1e-12 of max|U|), card == CPU (1e-9), the L2 solution
+    error the same."""
+    path = tmp_path / "m3d.ini"
+    path.write_text(MASA3D_DECK.format(iters=4, out=tmp_path / "o"))
+    out = {}
+    for name, dev, graphs in (("graph", "cuda", True), ("eager", "cuda", False),
+                              ("cpu", "cpu", True)):
+        tps = _deck_tps(path, dev, graphs)
+        cuda_faces.reset_launches()
+        tps.solve()
+        s = tps.solver
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert cuda_faces.launches["face_sweep"] == 16
+            assert (s._loop.graph is not None) == graphs
+        out[name] = (s.state_global(), s.mms_solution_error(), float(s.time))
+    scale = np.max(np.abs(out["eager"][0]))
+    np.testing.assert_allclose(out["graph"][0], out["eager"][0], rtol=0,
+                               atol=1e-12 * scale)
+    np.testing.assert_allclose(out["graph"][0], out["cpu"][0], rtol=0,
+                               atol=1e-9 * scale)
+    np.testing.assert_allclose(out["graph"][1:], out["cpu"][1:], rtol=1e-9)
+
+
+def test_forcings_on_card_match_cpu(device, f64):
+    """Each forcing and the MASA sources at the nodes of a 4x4x2 box, on
+    the card against the CPU (f64, 1e-12 of max).  The state streams
+    through the sponges' sampling planes (w ~ 30 m/s along their normal):
+    the mixed-out target divides by the mean mass flux there, so a state
+    with none would make it 0/0."""
+    from tps_torch.dg import forcing as tf
+    from tps_torch.utils.masa import MasaHandler
+
+    mix = DryAir(dim=3, nvel=3)
+    tab_np = build_tables(box_3d(4, 4, 2, bounds=((-1.0, 1.0), (-1.0, 1.0),
+                                                   (0.0, 1.0)),
+                                 periodic=(False, False, True)), 1)
+    rng = np.random.default_rng(12)
+    Up = np.empty(tab_np.xyz_dof.shape[:-1] + (5,))
+    Up[..., 0] = rng.uniform(1.0, 1.4, Up.shape[:-1])
+    Up[..., 1:4] = rng.uniform(-15.0, 15.0, Up.shape[:-1] + (3,))
+    Up[..., 3] += 30.0
+    Up[..., 4] = rng.uniform(280.0, 320.0, Up.shape[:-1])
+    grad = torch.as_tensor(rng.standard_normal(Up.shape + (3,)) * 30.0)
+    target = tf.sponge_target_conserved(mix, 1.0, (0.0, 2.0, 1.0), 86117.4)
+    fl = Fluxes(mixture=mix)
+    sponge = dict(normal=(0.0, 0.0, -1.0), p0=(0.0, 0.0, 1.0),
+                  p_init=(0.0, 0.0, 0.0), mult=0.7)
+    annulus = dict(sponge, sz_type="annulus", r1=0.2, r2=1.0)
+    forcings = [
+        tf.ConstantPressureGradient(mixture=mix, press_grad=(-0.9, 0.2, 0.0)),
+        tf.HeatSource(mixture=mix, value=1e7, point1=(0.0, 0.0, -1.0),
+                      point2=(0.0, 0.0, 2.0), radius=0.5),
+        tf.SpongeZone(mixture=mix, target_u=target, **sponge),
+        tf.SpongeZone(mixture=mix, target_u=target, **annulus),
+        tf.SpongeZone(mixture=mix, target_u=None, sol_type="mixedOut",
+                      tol=0.3, fluxes=fl, **sponge),
+        tf.SpongeZone(mixture=mix, target_u=None, sol_type="mixedOut",
+                      tol=0.3, fluxes=fl, **annulus),
+        MasaHandler("euler_transient_3d", mix,
+                    Fluxes(mixture=mix, eq_system="euler")).make_forcing(),
+        MasaHandler("navierstokes_3d_transient_sutherland", mix,
+                    Fluxes(mixture=mix, transport=DryAirTransport(
+                        mix.gas_constant, mix.specific_heat_ratio),
+                        eq_system="navier-stokes")).make_forcing()]
+    res = {}
+    for dev in ("cpu", device):
+        tab = tab_np.to_torch(torch.float64, dev)
+        U = mix.conservatives(torch.as_tensor(Up)).to(dev)
+        t = torch.tensor(1.1e-3, device=dev)
+        res[str(dev)] = [f(t, tab, U, mix.primitives(U), grad.to(dev))
+                         for f in forcings]
+    errs = [_rel(a.cpu(), b) for a, b in zip(res[str(device)], res["cpu"])]
+    assert max(errs) <= 1e-12, errs
+
+
+def test_compute_rhs_tool_on_card(device, tmp_path):
+    """tps_torch/tools/compute_rhs.py on the euler MMS deck cut to 16x16
+    (f64): the card's relative RHS errors == the CPU's (1e-10; quotients
+    of a residual ~1e-3 of the source), one face-sweep launch."""
+    from tps_torch.tools import compute_rhs as tool
+
+    src = open(os.path.join(INPUTS, "mms.euler.2d.quad.ini")).read()
+    src = (src.replace("nx = 160", "nx = 16").replace("ny = 160", "ny = 16")
+           .replace("outdirBase = output", f"outdirBase = {tmp_path}")
+           .replace("filename = euler_2d", f"filename = {tmp_path}/euler_2d"))
+    path = tmp_path / "mms.ini"
+    path.write_text(src)
+    old = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        got = {}
+        for dev in ("cpu", "cuda"):
+            s = tool.build_solver(str(path), dev)
+            cuda_faces.reset_launches()
+            got[dev] = tool.rhs_rel_errors(s)[0]
+            if dev == "cuda":
+                assert cuda_faces.launches["face_sweep"] == 1
+    finally:
+        torch.set_default_dtype(old)
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-10)

@@ -5,7 +5,10 @@ tps_torch/tools/argon_channel_coupled.ini, its peak T the electrons';
 with --deck axisym, of its axisymmetric form with swirl,
 tps_torch/tools/argon_torch_axisym.ini, max|u| over the three velocities;
 with --deck axisym_ml, of that deck with the mixing length and the
-viscous sponge, tps_torch/tools/argon_torch_axisym_ml.ini),
+viscous sponge, tps_torch/tools/argon_torch_axisym_ml.ini; with --deck
+forced_channel, of the 3-D channel of air with the pressure forcing, the
+heat source and the sponge zone, tps_torch/tools/forced_channel3d.ini,
+its peak T the gas temperature),
 step by step,
 in the JAX package and in tps_torch side by side: a diagnostic of the
 deck's growth, run as a script.  It holds no test function, so
@@ -38,6 +41,12 @@ the two packages is read.
 
     python tests/test_torch_deck_growth.py --deck reacting --f32 \
         --steps 30 --against-f64
+
+--jax-only runs the JAX package alone (a deck too large to run twice on
+the CPU):
+
+    python tests/test_torch_deck_growth.py --deck forced_channel \
+        --steps 200 --every 20 --jax-only
 """
 
 import argparse
@@ -60,7 +69,9 @@ DECKS = {"torch": os.path.join(REPO, "examples", "cases",
          "axisym": os.path.join(REPO, "tps_torch", "tools",
                                 "argon_torch_axisym.ini"),
          "axisym_ml": os.path.join(REPO, "tps_torch", "tools",
-                                   "argon_torch_axisym_ml.ini")}
+                                   "argon_torch_axisym_ml.ini"),
+         "forced_channel": os.path.join(REPO, "tps_torch", "tools",
+                                        "forced_channel3d.ini")}
 
 
 def deck_text(deck, steps, plain, outdir, dt=None, power=None):
@@ -71,7 +82,7 @@ def deck_text(deck, steps, plain, outdir, dt=None, power=None):
     if power is not None:
         txt = txt.replace("input-power = 0.5", f"input-power = {power}")
     for name in ("argon_channel_coupled", "argon_torch_axisym_ml",
-                 "argon_torch_axisym"):
+                 "argon_torch_axisym", "forced_channel3d"):
         txt = txt.replace(f"outdirBase = output/{name}",
                           f"outdirBase = {outdir}")
     txt = txt.replace("maxIters = 200", f"maxIters = {steps}")
@@ -105,6 +116,9 @@ def parts(s):
 
 
 def fields(s, np_of):
+    if hasattr(s, "mixture") and hasattr(s, "U"):  # a compressible flow
+        Up = np_of(s.mixture.primitives(s.U))
+        return Up[..., 1:1 + s.mixture.nvel], Up[..., s.mixture.i_th], 0.0
     if hasattr(getattr(s, "flow", None), "mixture"):  # compressible
         mix = s.flow.mixture
         Up = np_of(mix.primitives(s.flow.U))
@@ -127,6 +141,7 @@ def main():
     ap.add_argument("--plain-lomach", action="store_true")
     ap.add_argument("--deck", default="torch", choices=tuple(DECKS))
     ap.add_argument("--against-f64", action="store_true")
+    ap.add_argument("--jax-only", action="store_true")
     # the channel deck's dt_fixed and input-power
     ap.add_argument("--dt", type=float)
     ap.add_argument("--power", type=float)
@@ -160,7 +175,7 @@ def main():
 
     runs, saved = {}, {}
     packages = [("jax", jharness, [])]
-    if not a.dump:
+    if not (a.dump or a.jax_only):
         packages.append(("torch", harness, ["--device", a.device]))
     for name, mod, argv in packages:
         path = os.path.join(out, f"{name}.ini")

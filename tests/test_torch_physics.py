@@ -123,8 +123,11 @@ def test_unported_branches_raise():
            visc_sponge=PlanarViscousSponge(point=(0.0, 0.0, 0.0),
                                            normal=(1.0, 0.0, 0.0),
                                            width=0.1, ratio=10.0))
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
-        Fluxes(mixture=DryAir(dim=3, nvel=3, n_passive=1),
-               eq_system="ns-passive")
-    with pytest.raises(NotImplementedError, match="ROADMAP A5.4"):
-        Fluxes(mixture=DryAir(dim=3, nvel=3, n_passive=1))
+    # the passive-scalar rows are ported as a module (held to the JAX
+    # package's in tests/test_torch_forcing.py); the solver refuses a deck
+    # with them (ROADMAP C, tests/test_torch_forcing_decks.py)
+    passive = DryAir(dim=3, nvel=3, n_passive=1)
+    for eq in ("ns-passive", "navier-stokes"):
+        assert Fluxes(mixture=passive, eq_system=eq).neq == 6
+    with pytest.raises(ValueError, match="unknown equation system"):
+        Fluxes(mixture=mix, eq_system="ns-reacting")

@@ -10,7 +10,8 @@ the CPU.
    through tools/soln_differ.py with the flags of
    tests/test_statistics_restart.py::test_golden_argon_regression.
 3. Each plasma input outside the slice raises NotImplementedError naming
-   its ROADMAP item: passive scalars (A5.4), axisymmetric flow with
+   its ROADMAP item: passive scalars (ROADMAP C: the JAX package's fact
+   the port does not copy), axisymmetric flow with
    constant plasma transport (A5.3; the argon ternary's argon_minimal runs
    axisymmetric, tests/test_torch_axisym_dg.py) and the injected `bte`
    rates (A11.3).  The mixture decks with boundaries,
@@ -145,8 +146,9 @@ def _deck(tmp_path, edit):
 
 # the ids of the cases the LTE fluid and restart (edit0, edit1) left
 @pytest.mark.parametrize("edit,item", [
+    # passive scalars: refused naming the JAX package's fact (ROADMAP C)
     pytest.param(lambda t: t.replace(
-        "[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n"), "A5.4",
+        "[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n"), "C",
         id="edit2-A5.4"),
     pytest.param(lambda t: t.replace("axisymmetric = False",
                                      "axisymmetric = True").replace(
@@ -162,15 +164,15 @@ def test_unported_plasma_inputs_raise(tmp_path, edit, item):
 
 def test_mixture_boundaries_raise(tmp_path):
     """The inflow/outflow argon deck runs (tests/test_torch_mixture_bc.py
-    holds it against the JAX package); what still waits on it raises:
-    passive scalars (ROADMAP A5.4)."""
+    holds it against the JAX package); with passive scalars it raises,
+    naming the JAX package's fact the port does not copy (ROADMAP C)."""
     path = os.path.join(HERE, "inputs", "argon_inflow_outflow.ini")
     s = _solver(path, tmp_path).solver
     assert len(s.bc_slices) == 2
     with open(path) as f:
         text = f.read()
     for old, new, item in (
-            ("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n", "A5.4"),):
+            ("[io]\n", "[passiveScalars]\nnumScalars = 1\n[io]\n", "C"),):
         deck = tmp_path / "deck.ini"
         deck.write_text(text.replace(old, new))
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

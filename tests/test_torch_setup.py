@@ -117,6 +117,8 @@ def test_import_without_jax():
         "import tps_torch.solvers.lomach.sponge\n"
         "import tps_torch.dg.sgs, tps_torch.utils.wall_distance\n"
         "import tps_torch.tools.closure_cases\n"
+        "import tps_torch.utils.masa, tps_torch.utils.mms\n"
+        "import tps_torch.tools.compute_rhs\n"
         "import torch\n"
         "assert not any(m.startswith('tps_tpu') for m in sys.modules)\n"
         "assert not torch.cuda.is_initialized()\n"

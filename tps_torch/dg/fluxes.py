@@ -10,8 +10,11 @@ pressure; u_r/r in div u, the swirl stresses tau_tr, tau_tz and their
 work), with the closures that change a point's transport coefficients
 before the stress forms: the transport's own (the mixing length of
 physics/transport.py, which reads the wall distance), then an SGS model
-(dg/sgs.py), then the planar viscous sponge.  Passive scalars and the
-other equation systems raise NotImplementedError naming ROADMAP A5.4.  Everything here operates on tensors with
+(dg/sgs.py), then the planar viscous sponge.  The "ns-passive" equation
+system's passive scalars (DryAir(n_passive=k): rho Z convected, Fick
+diffusion mu/Sc grad Z) are carried as a module, as in the JAX package:
+no configuration builds them (solvers/compressible.py refuses such a
+deck, ROADMAP C).  Everything here operates on tensors with
 an arbitrary batch prefix; the equation index is the second-to-last axis
 of flux tensors (F[..., eq, d]).
 """
@@ -61,19 +64,14 @@ class PlanarViscousSponge:
 class Fluxes:
     mixture: object
     transport: object | None = None
-    eq_system: str = "navier-stokes"  # "euler" | "navier-stokes"
+    eq_system: str = "navier-stokes"  # "euler" | "navier-stokes" | "ns-passive"
     axisymmetric: bool = False
     sgs_model: object | None = None
     visc_sponge: object | None = None
 
     def __post_init__(self):
-        if self.eq_system not in ("euler", "navier-stokes"):
-            raise NotImplementedError(
-                f"equation system '{self.eq_system}' is not ported yet "
-                "(ROADMAP A5.4)")
-        if getattr(self.mixture, "n_passive", 0):
-            raise NotImplementedError(
-                "passive scalars are not ported yet (ROADMAP A5.4)")
+        if self.eq_system not in ("euler", "navier-stokes", "ns-passive"):
+            raise ValueError(f"unknown equation system '{self.eq_system}'")
 
     @property
     def dim(self):
@@ -103,7 +101,7 @@ class Fluxes:
         # energy: u_d * (rhoE + p)
         Fe = vel_d * (U[..., mix.i_th] + p)[..., None]
         parts = [mom[..., None, :dim], Fm, Fe[..., None, :]]
-        # active species: rhoY * u_d
+        # active species / passive scalars: rhoY * u_d
         nact = mix.num_active_species
         if nact > 0:
             rhoY = U[..., nvel + 2 : nvel + 2 + nact]
@@ -189,7 +187,12 @@ class Fluxes:
             Fe = tau_u + (kappa + kappa_e)[..., None] * gradT
         if dv is None:
             parts.append(Fe[..., None, :])
-            if nact:
+            if nact and self.eq_system == "ns-passive":
+                # passive scalars: Fick diffusion mu/Sc grad(Z)
+                Sc = getattr(self.transport, "Sc", 0.71)
+                parts.append((visc / Sc)[..., None, None]
+                             * grad_up[..., nvel + 2 : nvel + 2 + nact, :dim])
+            elif nact:
                 parts.append(torch.zeros(U.shape[:-1] + (nact, dim),
                                          dtype=U.dtype, device=U.device))
             if mix.two_temperature:

@@ -16,14 +16,14 @@ PyTorch, as the JAX package leaves them to XLA.
 The characteristic BCs' ghost states (init_bc_states, advance_bc_states)
 are the JAX package's; the solver holds them in its step loop's buffers.
 Pointwise forcings are added to dU/dt after the inverse mass, as the JAX
-package adds them; this port carries three, the plasma source term
-(dg/source_term.py), the Joule heating and the axisymmetric geometric
-source (dg/forcing.py).  On axisymmetric tables the volume term, the
+package adds them: the plasma source term (dg/source_term.py), the
+forcings of dg/forcing.py (pressure gradient, heat sources, sponge zones,
+the Joule heating, the axisymmetric geometric source) and the MMS source
+(utils/masa.py).  On axisymmetric tables the volume term, the
 inverse mass and the boundary-face weights carry the radius (dV = r dr
 dz), and the interior sweep's normals nor_wpf have r w folded in.  Not
-ported here: the other forcings (ROADMAP A5.4),
-the sharded RHS and the legacy point-permutation branch (A8) and boundary
-states in the gradient (useBCinGrad, A5.2).
+ported here: the sharded RHS and the legacy point-permutation branch (A8)
+and boundary states in the gradient (useBCinGrad, A5.2).
 """
 
 from __future__ import annotations
@@ -36,8 +36,6 @@ import torch
 from .cuda_faces import build_face_sweep
 from .operators import _clip_species, _not_ported, _scatter_kron, _trace_kron
 from .operators import apply_minv2, dg_gradient, volume_weak_div
-from .forcing import AxisymmetricSource, JouleHeating
-from .source_term import SourceTerm
 
 
 @dataclass(frozen=True)
@@ -184,11 +182,6 @@ def compute_rhs(ctx: RHSContext, tab, U, t=0.0, fields=None, bc_states=None,
     preconditions."""
     if ctx.axis_name is not None:
         raise _not_ported("the sharded right-hand side", "A8")
-    if any(not isinstance(f, (SourceTerm, JouleHeating, AxisymmetricSource))
-           for f in ctx.forcings):
-        raise _not_ported("forcings other than the plasma source term, "
-                          "the Joule heating and the axisymmetric source",
-                          "A5.4")
     if tab.nbr_row is None:
         raise _not_ported("the legacy (sharded-table) face sweep", "A8")
     mix = ctx.mixture

@@ -73,9 +73,10 @@ class DryAir:
         return self.gas_constant * (self.temperature(U) * dUp_dn[..., 0]
                                     + U[..., 0] * dUp_dn[..., self.i_th])
 
-    def modify_energy_for_pressure(self, U, p):
+    def modify_energy_for_pressure(self, U, p, modify_electron_energy=False):
         """U with rhoE set so that its pressure is p (reference:
-        DryAir::modifyEnergyForPressure, src/equation_of_state.cpp)."""
+        DryAir::modifyEnergyForPressure, src/equation_of_state.cpp); a
+        single-temperature gas ignores modify_electron_energy."""
         ke = 0.5 * torch.sum(U[..., 1 : 1 + self.nvel] ** 2, dim=-1) / U[..., 0]
         rhoE = p / (self.specific_heat_ratio - 1.0) + ke
         return torch.cat([U[..., : self.i_th], rhoE[..., None],
@@ -111,3 +112,35 @@ class DryAir:
         )
         rest = rho * Up[..., self.nvel + 2 :]
         return torch.cat([rho, mom, rhoE, rest], dim=-1)
+
+    def total_energy(self, rho, vel, T):
+        """rho*E from rho, velocity vector, temperature."""
+        v2 = torch.sum(vel * vel, dim=-1)
+        return rho * (self.gas_constant * T / (self.specific_heat_ratio - 1.0)
+                      + 0.5 * v2)
+
+    def conserved_from_convective_flux(self, mean_flux, normal):
+        """Mixed-out conserved state [neq] whose convective normal flux is
+        `mean_flux` [neq] along the unit `normal` (reference:
+        DryAir::computeConservedStateFromConvectiveFlux,
+        src/equation_of_state.cpp:414-443): the subsonic root of the
+        quadratic for p, then the flux relations inverted; the azimuthal
+        momentum (nvel > dim) carries no pressure, and a passive scalar's Y
+        is its flux over the mass flux."""
+        gamma = self.specific_heat_ratio
+        mdot = mean_flux[0]
+        mom_n = torch.sum(mean_flux[1 : 1 + self.dim] * normal[: self.dim])
+        A = 1.0 - 2.0 * gamma / (gamma - 1.0)
+        B = 2.0 * mom_n / (gamma - 1.0)
+        C = -2.0 * mdot * mean_flux[self.i_th] + torch.sum(
+            mean_flux[1 : 1 + self.nvel] ** 2)
+        p = (-B - torch.sqrt(B * B - 4.0 * A * C)) / (2.0 * A)
+        rho = mdot * mdot / (mom_n - p)
+        n_full = torch.cat([normal[: self.dim],
+                            torch.zeros(self.nvel - self.dim,
+                                        dtype=mean_flux.dtype,
+                                        device=mean_flux.device)])
+        vel = (mean_flux[1 : 1 + self.nvel] - p * n_full) / mdot
+        T = p / (self.gas_constant * rho)
+        rest = mean_flux[self.nvel + 2 :] / mdot
+        return self.conservatives(torch.cat([rho[None], vel, T[None], rest]))

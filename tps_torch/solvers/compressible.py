@@ -21,8 +21,11 @@ the LTE-table fluid (`fluid = lte_table`: physics/lte.py's table
 thermodynamics and transport with 1-D HDF5 or 2-D (T, rho) tables, net
 emission and the Joule heating through its sigma table), the LTE restart
 (io/restartFromLTE: a bulk checkpoint converted into the mixture's
-Saha/Boltzmann equilibrium and written at once), Rusanov or Roe
-(`useRoe`, planar), explicit RK,
+Saha/Boltzmann equilibrium and written at once), the forcings of
+dg/forcing.py (`[flow] enablePressureForcing`, `[heatSourceN]`,
+`[spongezoneN]`) and the manufactured solutions of utils/masa.py (`[mms]`:
+the exact initial state, the MASA source, the L2 solution error at the
+end), Rusanov or Roe (`useRoe`, planar), explicit RK,
 and two right-hand sides:
 
 - the fused path (periodic boxes, collocated Gauss-Legendre basis): on a
@@ -36,7 +39,8 @@ and two right-hand sides:
   the CPU.
 
 Every input key outside the slice raises NotImplementedError naming the
-ROADMAP item that ports it.  The coupling side (evaluate_plasma_
+ROADMAP item that ports it; passive scalars raise naming the JAX
+package's fact that the port does not copy (ROADMAP C).  The coupling side (evaluate_plasma_
 conductivity, set_joule_heating, set_efield) serves
 solvers/coupling.py::CycleAvgJouleCoupling: each setter copies into a
 device tensor the captured step reads.
@@ -75,7 +79,9 @@ from ..dg.cuda_faces import build_face_sweep
 from ..dg.cuda_fused import build_cuda_fused, cuda_fusable
 from ..dg.discretization import build_tables
 from ..dg.fluxes import Fluxes, PlanarViscousSponge
-from ..dg.forcing import AxisymmetricSource, JouleHeating
+from ..dg.forcing import (AxisymmetricSource, ConstantPressureGradient,
+                          HeatSource, JouleHeating, SpongeZone,
+                          sponge_target_conserved)
 from ..dg.fused import maybe_build_fused
 from ..dg.operators import _clip_species
 from ..dg.rhs import (RHSContext, SlotRHS, advance_bc_states, bc_slices,
@@ -94,6 +100,8 @@ from ..physics.transport import (ConstantTransport, DryAirTransport,
                                  MixingLengthTransport)
 from ..time.integrators import get_integrator
 from ..utils.cases import isentropic_vortex, taylor_green_2d, uniform_state
+from ..utils.masa import MasaHandler
+from ..utils.mms import solution_error
 from ..utils.wall_distance import distance_to_points, wall_face_points
 from .base import SOLVER_REGISTRY, PlasmaSolver
 from .step_graph import RING, StepLoop
@@ -195,12 +203,19 @@ _UNPORTED_KEYS = (
     ("mesh/partitions", "domain decomposition", "A8"),
     ("io/enableHistory", "the history file", "A12"),
     ("planeDump/isEnabled", "plane dumps", "A12"),
-    ("flow/enablePressureForcing", "pressure forcing", "A5.4"),
-    ("heatSource/numHeatSources", "heat sources", "A5.4"),
-    ("spongezone/numSpongeZones", "sponge zones", "A5.4"),
-    ("passiveScalars/numScalars", "passive scalars", "A5.4"),
-    ("mms/isEnabled", "manufactured solutions", "A5.4"),
 )
+
+# why a deck with passive scalars raises on both devices (ROADMAP C, facts
+# of the reference): the JAX package's solver builds its DryAir without
+# the scalars (tps_tpu solvers/compressible.py never passes n_passive), so
+# such a deck runs with no scalar equation, and its PassiveScalar forcing
+# relaxes U[..., -1], which is then rho E, toward rho Z
+PASSIVE_SCALAR_FACT = (
+    "passive scalars ({what}) raise: the JAX package runs such a deck with "
+    "no scalar equation (its DryAir keeps n_passive = 0) and its "
+    "PassiveScalar sink on rho E; the port does not copy that answer and "
+    "builds no equation the JAX solver never builds (ROADMAP C, facts of "
+    "the reference)")
 
 
 # boundary-condition types of this slice (dg/bc.py), as the JAX package's
@@ -233,9 +248,11 @@ def check_slice(rc: RunConfiguration):
         # neither package has another fluid (the JAX package raises too)
         raise ValueError(f"fluid '{rc.fluid}': the fluids are dry_air, "
                          f"user_defined and lte_table")
+    if rc.equation_system == "ns-passive":
+        raise NotImplementedError(PASSIVE_SCALAR_FACT.format(
+            what="equation_system = ns-passive"))
     if rc.equation_system not in ("euler", "navier-stokes"):
-        raise _not_ported(f"equation system '{rc.equation_system}' "
-                          "(passive scalars)", "A5.4")
+        raise ValueError(f"unknown equation system '{rc.equation_system}'")
     if rc.use_roe and rc.axisymmetric:
         # the reference refuses this combination (annulus.test), and so
         # does the JAX package
@@ -256,6 +273,10 @@ def check_slice(rc: RunConfiguration):
     raw = rc.raw
     if raw is None:
         return
+    if raw.has("passiveScalars/numScalars") and _enabled(
+            raw, "passiveScalars/numScalars"):
+        raise NotImplementedError(PASSIVE_SCALAR_FACT.format(
+            what="[passiveScalars] numScalars"))
     for key, what, item in _UNPORTED_KEYS:
         if raw.has(key) and _enabled(raw, key):
             section, name = key.split("/", 1)
@@ -299,6 +320,7 @@ class CompressibleSolver(PlasmaSolver):
     # on a CUDA device each step is a replay of a captured CUDA graph;
     # False steps eagerly there (the graphs' reference and yardstick)
     cuda_graphs = True
+    masa = None  # utils/masa.py::MasaHandler when [mms] isEnabled
 
     def __init__(self, config, tps=None, device=None):
         super().__init__(config, tps=tps)
@@ -429,7 +451,7 @@ class CompressibleSolver(PlasmaSolver):
             transport = (None if rc.equation_system == "euler"
                          and rc.fluid == "user_defined" else self.transport)
             self._build_fluxes(transport)
-            return forcings + self._axisymmetric_source()
+            return forcings + self._axisymmetric_source() + self._forcings()
         self.mixture = DryAir(dim=dim, nvel=nvel)
         if rc.equation_system == "euler":
             transport = None
@@ -449,7 +471,7 @@ class CompressibleSolver(PlasmaSolver):
             )
         self.transport = transport
         self._build_fluxes(transport)
-        return forcings + self._axisymmetric_source()
+        return forcings + self._axisymmetric_source() + self._forcings()
 
     def _build_fluxes(self, transport):
         """Fluxes and the Riemann solver, with the closures of the viscous
@@ -497,6 +519,127 @@ class CompressibleSolver(PlasmaSolver):
         if not self.config.axisymmetric:
             return []
         return [AxisymmetricSource(mixture=self.mixture, fluxes=self.fluxes)]
+
+    def _forcings(self):
+        """The deck's forcings, after the axisymmetric source, in the JAX
+        order (tps_tpu solvers/compressible.py:397-476): the imposed
+        pressure gradient ([flow] enablePressureForcing), the cylindrical
+        heat sources ([heatSourceN]), the sponge zones ([spongezoneN]) and
+        the manufactured-solution source ([mms], sets self.masa); sections
+        that are not enabled are skipped."""
+        rc, raw = self.config, self.config.raw
+        out = []
+        self.masa = None
+        if raw is None:
+            return out
+        if raw.get("flow/enablePressureForcing", 0):
+            # reference: src/M2ulPhyS.cpp:2681-2684
+            out.append(ConstantPressureGradient(
+                mixture=self.mixture,
+                press_grad=tuple(raw.get_vec("flow/pressureGrad"))))
+        # reference: src/M2ulPhyS.cpp:2751-2785
+        for k in range(1, raw.get("heatSource/numHeatSources", 0) + 1):
+            base = f"heatSource{k}"
+            if not raw.get(f"{base}/isEnabled", 0):
+                continue
+            dist = raw.get_required(f"{base}/distribution")
+            if dist != "cylinder":
+                raise ValueError(f"unknown heat source distribution '{dist}'")
+            out.append(HeatSource(
+                mixture=self.mixture,
+                value=raw.get_required(f"{base}/value", float),
+                point1=tuple(raw.get_vec(f"{base}/point1")),
+                point2=tuple(raw.get_vec(f"{base}/point2")),
+                radius=raw.get_required(f"{base}/radius", float)))
+        # reference: src/M2ulPhyS.cpp:3682-3760
+        for k in range(1, raw.get("spongezone/numSpongeZones", 0) + 1):
+            base = f"spongezone{k}"
+            if raw.has(f"{base}/isEnabled") and not raw.get(
+                    f"{base}/isEnabled", 1):
+                continue
+            out.append(self._build_sponge_zone(raw, base))
+        if rc.use_mms:
+            # reference: src/masa_handler.cpp + MASA_forcings,
+            # src/forcing_terms.cpp:956-1012
+            known = ("isEnabled", "name", "compare_rhs", "save_details")
+            overrides = {k.split("/", 1)[1]: raw.get(k, 0.0)
+                         for k in raw.keys_under("mms")
+                         if k.split("/", 1)[1] not in known}
+            self.masa = MasaHandler(rc.mms_name, self.mixture, self.fluxes,
+                                    rc=rc, overrides=overrides)
+            if not rc.mms_compare_rhs:
+                # with compare_rhs the source stays out of the RHS
+                # (reference: rhs_operator.cpp:454)
+                out.append(self.masa.make_forcing(self.tables))
+        return out
+
+    def _build_sponge_zone(self, raw, base):
+        """One [spongezoneN] section -> SpongeZone (tps_tpu solvers/
+        compressible.py:478-558; reference: src/M2ulPhyS.cpp:3682-3760)."""
+        sz_type = raw.get(f"{base}/type", "none")
+        if sz_type not in ("planar", "annulus"):
+            raise ValueError(f"unknown sponge zone type '{sz_type}'")
+        sol_type = raw.get_required(f"{base}/targetSolType")
+        if sol_type not in ("userDef", "mixedOut"):
+            raise ValueError(f"unknown sponge targetSolType '{sol_type}'")
+        mix = self.mixture
+        common = dict(
+            mixture=mix,
+            normal=tuple(raw.get_vec(f"{base}/normal", 3)),
+            p0=tuple(raw.get_vec(f"{base}/p0", 3)),
+            p_init=tuple(raw.get_vec(f"{base}/pInit", 3)),
+            mult=raw.get(f"{base}/multiplier", 1.0),
+            sz_type=sz_type,
+            r1=raw.get(f"{base}/r1", 0.0),
+            r2=raw.get(f"{base}/r2", 0.0),
+        )
+        if sol_type == "mixedOut":
+            tol = raw.get(f"{base}/tolerance", 1e-5)
+            self._check_sampling_plane(base, common, tol)
+            return SpongeZone(target_u=None, sol_type="mixedOut", tol=tol,
+                              fluxes=self.fluxes, **common)
+        rho = raw.get_required(f"{base}/density", float)
+        vel = tuple(raw.get_vec(f"{base}/uvw", 3))
+        pressure = raw.get_required(f"{base}/pressure", float)
+        mass_fracs = []
+        if mix.num_active_species > 0:
+            i2m = self.plasma.input_to_mixture
+            for sp in range(mix.num_active_species):
+                inp_idx = int(np.where(i2m == sp)[0][0])
+                mass_fracs.append(raw.get_required(
+                    f"{base}/mass_fraction/species{inp_idx + 1}", float))
+        single_t, te = False, None
+        if mix.two_temperature:
+            single_t = bool(raw.get(f"{base}/single_temperature", 0))
+            if not single_t:
+                te = raw.get_required(f"{base}/electron_temperature", float)
+        target = sponge_target_conserved(mix, rho, vel, pressure,
+                                         tuple(mass_fracs), te, single_t)
+        return SpongeZone(target_u=target, **common)
+
+    def _check_sampling_plane(self, base, common, tol):
+        """A mixedOut target averages over the nodes within tol of its
+        sampling plane (the pInit plane, or the r1 cylinder); the
+        reference finds them once at construction
+        (src/forcing_terms.cpp:565-603).  None found would give a 0/0
+        target, so it raises here."""
+        dim = self.mixture.dim
+        nrm = np.asarray(common["normal"][:dim], float)
+        nrm = nrm / np.linalg.norm(nrm)
+        xyz = np.asarray(self.tables_np.xyz_dof).reshape(-1, dim)
+        p_init = np.asarray(common["p_init"][:dim])
+        d_init = -np.einsum("nd,d->n", xyz - p_init, nrm)
+        if common["sz_type"] == "planar":
+            cnt = int(np.sum(np.abs(d_init) < tol))
+        else:
+            rad = xyz - p_init + d_init[:, None] * nrm
+            cnt = int(np.sum(np.abs(np.linalg.norm(rad, axis=-1)
+                                    - common["r1"]) < tol))
+        if cnt == 0:
+            raise ValueError(
+                f"[{base}] mixedOut: no dof nodes within tolerance {tol} of "
+                f"the sampling plane; raise {base}/tolerance (dof nodes are "
+                "interior Gauss points)")
 
     def _build_rhs(self):
         """K1+K2 where their preconditions hold; the plain fused RHS for
@@ -672,6 +815,10 @@ class CompressibleSolver(PlasmaSolver):
         rc = self.config
         mix = self.mixture
         xyz = self.tables.xyz_dof
+        if self.masa is not None:
+            # the exact manufactured state at the nodes (reference:
+            # M2ulPhyS::projectExactSolution, src/M2ulPhyS.cpp:1925-1943)
+            return self.masa.exact_U(xyz, 0.0).to(self.dtype)
         if rc.ic.case == "isentropic_vortex":
             return mix.conservatives(isentropic_vortex(xyz, 0.0, mix))
         if rc.ic.case == "taylor_green_2d":
@@ -823,6 +970,9 @@ class CompressibleSolver(PlasmaSolver):
 
     def solve_end(self):
         self._drain_mcs_queue(0)
+        if self.masa is not None:
+            print(f"[mms] t={float(self.time):.6e} L2 solution error = "
+                  f"{self.mms_solution_error():.8e}", flush=True)
         self.write_restart()
         if self._enable_paraview:
             self.visualization()
@@ -879,6 +1029,14 @@ class CompressibleSolver(PlasmaSolver):
                             f"solution_{self.iter:08d}.vtk")
         write_vtk_dg(path, self.tables_np, fields)
         return path
+
+    def mms_solution_error(self):
+        """L2 error of the state against the exact manufactured state at
+        the current time (the JAX solver's report, tps_tpu solvers/
+        compressible.py:1564-1572; reference: checkSolutionError,
+        src/M2ulPhyS.hpp:361-366)."""
+        return float(solution_error(self.tables, self.mixture, self.U,
+                                    self.masa.up_fn, self.time))
 
     # ------------------------------------------------------------------
     def check_nan(self, verbose=False) -> int:
