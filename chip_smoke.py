@@ -205,8 +205,8 @@ def _cpu_run(fn, args):
 
 
 class CpuRefs:
-    """The port's CPU runs that phases 22, 26, 30, 35, 42, 45, 49 and 50
-    hold their card runs against (in f64 at the decks' size; the coupled
+    """The port's CPU runs that phases 22, 26, 30, 35, 42, 45, 49, 50 and
+    52 hold their card runs against (in f64 at the decks' size; the coupled
     channel's takes ~3 s a step on 8 cores): one worker process runs them
     while the card works through the phases before them, so the same runs
     and checks leave the main line.  Started once the kernels are built;
@@ -233,6 +233,8 @@ class CpuRefs:
                                (TORCH_AXI_DECK, "torch_axi")),
                               ("torch_ml", axi_f64_run,
                                (ML_DECK, "torch_ml")),
+                              ("lte_axi", axi_f64_run,
+                               (lte_axi_deck("lte_axi"), "lte_axi")),
                               ("forced cut", forced_cut_run, ()),
                               *((f"forcing {i}", forcing_case_run, (i,))
                                 for i in range(len(forcing_cases())))):
@@ -4549,6 +4551,15 @@ def phase_axi_faces(dev):
     return out, worst
 
 
+def euler_text(text):
+    """A deck's text on Euler: its viscous adiabatic walls inviscid (a
+    viscous wall's flux reads the gradient, which Euler does not form, in
+    both packages)."""
+    return text.replace("equation_system = navier-stokes",
+                        "equation_system = euler").replace(
+        "type = viscous_adiabatic", "type = inviscid")
+
+
 def axi_f64_run(path, tag, device):
     """Phases 42 and 45's CPU run: the deck's first 3 f64 steps on device:
     its state on the CPU, and its steps, EM solves, power error, status
@@ -4566,7 +4577,8 @@ def axi_f64_run(path, tag, device):
 
 
 def phase_torch_axi(dev, refs, path=TORCH_AXI_DECK, var="argon_axi",
-                    tag="torch_axi", euler=True):
+                    tag="torch_axi", euler="argon_axi_euler",
+                    cpu_tol=CHANNEL_CPU_TOL):
     """Phase 42: tps_torch/tools/argon_torch_axisym.ini (the compressible
     argon torch in (r, z) with swirl under the Joule coupling, 64x64 p=2
     GL, EM every 10 steps) through the CLI, 20 steps in f32 and in f64,
@@ -4577,11 +4589,12 @@ def phase_torch_axi(dev, refs, path=TORCH_AXI_DECK, var="argon_axi",
     Euler run.)  The f64 run at its step
     12 against 12 eager steps (EM updates at 0 and 10) within GRAPH_TOL,
     and at its step 3 against the port's CPU run of 3 steps (in refs'
-    worker) within CHANNEL_CPU_TOL (U, Joule heating, E-field, EM
-    potential).  Then
+    worker): U within `cpu_tol`, the Joule heating, E-field and EM
+    potential within CHANNEL_CPU_TOL.  Then
     ms/step graph and eager through the coupled solve() on the f32 run's
     solver (phase 37's turns, from step 20); then the deck on Euler, 2
-    steps in f32, the argon_axi_euler sweep 4 times a step."""
+    steps in f32, its sweep, variant `euler` (none where None), 4 times a
+    step."""
     out, runs = {}, {}
     shipped = None
     for name, dtype, device, graphs, iters in (
@@ -4648,39 +4661,40 @@ def phase_torch_axi(dev, refs, path=TORCH_AXI_DECK, var="argon_axi",
     cpu_d = {k: (state_rel(runs["card3"][k], runs["cpu3"][k], nvel=3)
                  if k == "U" else lrel(runs["card3"][k], runs["cpu3"][k]))
              for k in runs["card3"]}
-    ok = (max(graph_d.values()) <= GRAPH_TOL
+    ok = (max(graph_d.values()) <= GRAPH_TOL and cpu_d["U"] <= cpu_tol
           and max(cpu_d.values()) <= CHANNEL_CPU_TOL)
     log(f"  f64: graph vs eager, 12 steps (EM updates at 0 and 10) "
         f"{graph_d} (bar {GRAPH_TOL}); card vs the port's CPU run, 3 steps "
-        f"{cpu_d} (bar {CHANNEL_CPU_TOL})" + ("" if ok else "  FAIL"))
+        f"{cpu_d} (bars U {cpu_tol}, fields {CHANNEL_CPU_TOL})"
+        + ("" if ok else "  FAIL"))
     if not ok:
         raise SystemExit(f"{os.path.basename(path)}: card, CPU and eager "
                          "differ")
     out.update({"f64 graph vs eager": graph_d, "f64 card vs cpu": cpu_d})
     out["solve() ms/step"] = phase_channel_timing(
         {f"{os.path.basename(path)} f32": shipped})
+    del shipped
     if not euler:
         return out
     # the Euler variant's path: the deck on Euler through the CLI, f32, 2
     # steps
-    with open(TORCH_AXI_DECK) as f:
-        text = f.read().replace("equation_system = navier-stokes",
-                                "equation_system = euler")
-    path = os.path.join(REPO, "build", "torch_axi_euler.ini")
+    with open(path) as f:
+        text = euler_text(f.read())
+    path = os.path.join(REPO, "build", f"{tag}_euler.ini")
     with open(path, "w") as f:
         f.write(text)
-    tps = channel_tps(torch.float32, "torch_axi_euler", iters=2, path=path)
+    tps = channel_tps(torch.float32, f"{tag}_euler", iters=2, path=path)
     reset_all_launches()
     tps.solve()
     torch.cuda.synchronize()
     counts = launches_by_variant()
-    want = {"face_sweep": 8, "face_sweep/argon_axi_euler": 8}
+    want = {"face_sweep": 8, f"face_sweep/{euler}": 8}
     bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
     finite = bool(torch.isfinite(tps.solver.flow.U).all())
     log(f"  Euler, f32, 2 steps: launches {counts}; finite {finite}")
     if bad or not finite or tps.get_status() != 0:
-        raise SystemExit(f"the axisymmetric torch deck on Euler failed its "
-                         f"checks (launches off: {bad})")
+        raise SystemExit(f"{os.path.basename(path)} failed its checks "
+                         f"(launches off: {bad})")
     out["euler f32"] = {"steps": 2, "launches": counts}
     return out
 
@@ -5618,6 +5632,255 @@ def forced_sweep_timing(s):
     return rec
 
 
+# ------------------------------------------------------- the LTE torch
+
+# the LTE-table torch in (r, z) with swirl (phases 51-52)
+LTE_AXI_DECK = os.path.join(REPO, "tps_torch", "tools",
+                            "lte_torch_axisym.ini")
+# (variant, table dim): each lte_axi variant at the width of its path: the
+# deck's box at 64x64 (1-D tables), the 2-D tables on a 32x32 box as
+# phase 38's lte_2d_t2 row
+LTE_AXI_FACE_CASES = (("lte_axi", 1, 64), ("lte_axi_euler", 1, 64),
+                      ("lte_axi_t2", 2, 32), ("lte_axi_t2_euler", 2, 32))
+
+
+def lte_axi_ops(table_dim, euler):
+    """The axisymmetric LTE face flux per point: the planar 2-D count
+    (`lte_ops`) with a fifth equation (the Rusanov combination and the
+    viscous mean over it) and, per side, the swirl's kinetic energy and
+    its convective flux (2), and on Navier-Stokes u_r / r in div u, the
+    swirl row and its work (13)."""
+    return (lte_ops(2, table_dim, euler) + 5 + (0 if euler else 3)
+            + 2 * (2 + (0 if euler else 13)))
+
+
+def lte_axi_deck(name):
+    """tps_torch/tools/lte_torch_axisym.ini with its tables named by
+    absolute path (it names them from the repository root), output in
+    build/<name>."""
+    with open(LTE_AXI_DECK) as f:
+        text = f.read()
+    for rel in ("tps_torch/tools/lte_argon_thermo.h5",
+                "tps_torch/tools/lte_argon_trans.h5",
+                "examples/cases/nec_table.h5"):
+        text = text.replace(rel, os.path.join(REPO, rel))
+    text = text.replace("outdirBase = output/lte_torch_axisym",
+                        f"outdirBase = {os.path.join(REPO, 'build', name)}")
+    os.makedirs(os.path.join(REPO, "build"), exist_ok=True)
+    path = os.path.join(REPO, "build", name + ".ini")
+    old = None
+    if os.path.exists(path):  # the CPU worker may be reading it
+        with open(path) as f:
+            old = f.read()
+    if old != text:
+        with open(path, "w") as f:
+            f.write(text)
+    return path
+
+
+def lte_axi_case(table_dim, euler, n):
+    """(RHS context, numpy tables, conserved state f64 on the CPU) of an
+    lte_axi variant on the deck's (r, z) box at n x n p=2 GL: the deck's
+    fluid with swirl (nvel = 3) on lte_argon_tables.py's tables (the 2-D
+    ones written into build/), the hot state of `lte_U` with a rigid
+    swirl u_t = 500 r (1 + 0.1 wave)."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.dg.discretization import build_tables
+    from tps_torch.dg.fluxes import Fluxes
+    from tps_torch.dg.rhs import RHSContext
+    from tps_torch.dg.riemann import Rusanov
+    from tps_torch.mesh.generators import box_2d
+    from tps_torch.physics.lte import load_lte_setup
+    from tps_torch.tools.lte_argon_tables import lte_keys
+
+    build = os.path.join(REPO, "build")
+    os.makedirs(build, exist_ok=True)
+    mix, tr = load_lte_setup(IniInput.parse(lte_keys(table_dim, build)),
+                             2, 3)
+    fl = Fluxes(mixture=mix, transport=tr,
+                eq_system="euler" if euler else "navier-stokes",
+                axisymmetric=True)
+    tab_np = build_tables(box_2d(n, n, x1=0.01, y1=0.01, periodic_y=True),
+                          2, axisymmetric=True)
+    xyz = tab_np.xyz_dof
+    k = 2 * np.pi / 0.01
+    wave = np.sin(k * xyz[..., 0]) * np.cos(k * xyz[..., 1])
+    Up = np.zeros(xyz.shape[:-1] + (5,))
+    Up[..., 0] = 0.05 * (1 + 0.1 * wave)
+    Up[..., 1], Up[..., 2] = 3.0 * wave, 10.0 - 2.0 * wave
+    Up[..., 3] = 500.0 * xyz[..., 0] * (1 + 0.1 * wave)
+    Up[..., 4] = 9500.0 * (1 + 0.2 * wave)
+    U = mix.conservatives(torch.as_tensor(Up, dtype=torch.float64))
+    return RHSContext(fluxes=fl, riemann=Rusanov(fl)), tab_np, U
+
+
+def phase_lte_axi_faces(dev):
+    """Phase 51: the face sweep's lte_axi variants against their plain
+    versions (the axisymmetric Fluxes through face_sweep_plain), f64
+    within LTE_F64_TOL and f32 by TOL's rule, each at the width of its
+    path, one launch each counted under its variant; timed in f32
+    (kernel, plain, kernel: CUDA events), on the device (profiler) and in
+    f64, with its bound.  Returns {variant: record} and the largest f64
+    error."""
+    from tps_torch.dg.cuda_faces import build_face_sweep
+
+    failures, out, worst = [], {}, 0.0
+    for var, td, n in LTE_AXI_FACE_CASES:
+        t0 = time.perf_counter()
+        euler = var.endswith("euler")
+        ctx, tab_np, U = lte_axi_case(td, euler, n)
+        tab64 = tab_np.to_torch(torch.float64, dev)
+        tab32 = tab_np.to_torch(torch.float32, dev)
+        sw64, sw32 = build_face_sweep(tab64, ctx), build_face_sweep(tab32, ctx)
+        X64 = face_input(ctx, tab64, U.to(dev))
+        X32 = X64.float()
+        reset_all_launches()
+        y64 = sw64(X64)
+        k32 = sw32(X32)
+        torch.cuda.synchronize()
+        counted = launches_by_variant().get(f"face_sweep/{var}", 0)
+        p64, p32 = sw64.plain(X64), sw32.plain(X32)
+        ref = sw64.plain(X32.double())
+        r64, r32 = rel(y64, p64), rel(k32, p32)
+        dk, dp = rel(k32.double(), ref), rel(p32.double(), ref)
+        swirl = float(p64[..., 3].abs().max()) > 0.0
+        name = f"{var} {n}x{n} p=2 gl"
+        ok = (r64 <= LTE_F64_TOL and sw64.variant == var and counted == 2
+              and swirl and (r32 <= TOL[torch.float32] or dk <= 2 * dp))
+        log(f"  {name} (NEQ {sw64.neq}, k {sw64.k}, {tab_np.ne} elements, "
+            f"set-up {time.perf_counter() - t0:.1f} s): f64 {r64:.3e} (bar "
+            f"{LTE_F64_TOL}); f32 {r32:.3e} (bar {TOL[torch.float32]}, or "
+            f"f64 dist: kernel {dk:.3e} <= 2 x plain {dp:.3e}); launches "
+            f"under {var}: {counted}" + ("" if ok else "  FAIL"))
+        worst = max(worst, r64)
+        if not ok:
+            failures.append(name)
+        ms = [cuda_ms(lambda: sw32(X32), 30), cuda_ms(lambda: sw32.plain(X32), 1),
+              cuda_ms(lambda: sw32(X32), 30)]
+        ops = lte_axi_ops(td, euler)
+        b = face_bound(tab_np, ctx.fluxes.eq_system, "gl", neq=sw64.neq,
+                       flux_ops=ops, axi=True)
+        out[var] = {
+            "grid": name, "neq": sw64.neq, "k": sw64.k,
+            "nodes": tab_np.ne * tab_np.ndof,
+            "ms": (ms[0] + ms[2]) / 2, "plain_ms": ms[1],
+            "device_ms": kernel_ms(lambda: sw32(X32), "face_sweep", 10),
+            "f64_ms": cuda_ms(lambda: sw64(X64), 20),
+            "f64_device_ms": kernel_ms(lambda: sw64(X64), "face_sweep", 10),
+            "bound_ms": b[0], "bound_by": b[1], "ops_ms": b[2],
+            "bytes_ms": b[3], "ops_per_point": ops, "f64_rel_err": r64,
+            "max_abs_err": float(torch.max(torch.abs(k32 - p32))),
+            "f32_rel": r32, "f32_f64_dist": dk, "plain_f32_f64_dist": dp,
+            "turns": ms}
+        log(f"  timing {name} f32: {out[var]}")
+        del tab64, tab32, sw64, sw32, X64, X32, y64, p64, k32, p32, ref
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    if failures:
+        raise SystemExit(f"face sweep parity on the lte_axi variants "
+                         f"failed: {failures}")
+    # the 2-D-table variants' path: the deck on the 2-D tables at their
+    # width through the CLI, f32, 2 steps (the 1-D-table ones are phase
+    # 52's)
+    from tps_torch.tools.lte_argon_tables import lte_keys
+
+    for var, td, n in LTE_AXI_FACE_CASES:
+        if td != 2:
+            continue
+        with open(lte_axi_deck("lte_axi")) as f:
+            text = f.read()
+        start, end = text.index("[flow/lte]"), text.index("[plasma_models]")
+        text = (text[:start] + lte_keys(2, os.path.join(REPO, "build"))
+                + "\n" + text[end:])
+        text = text.replace("nx = 64\nny = 64", f"nx = {n}\nny = {n}")
+        if var.endswith("euler"):
+            text = euler_text(text)
+        path = os.path.join(REPO, "build", f"deck_{var}.ini")
+        with open(path, "w") as f:
+            f.write(text)
+        tps = channel_tps(torch.float32, f"deck_{var}", iters=2, path=path)
+        s = tps.solver.flow
+        reset_all_launches()
+        tps.solve()
+        torch.cuda.synchronize()
+        counts = launches_by_variant()
+        want = {"face_sweep": 4 * s.iter, f"face_sweep/{var}": 4 * s.iter}
+        bad = {k: v for k, v in counts.items() if v != want.get(k, 0)}
+        finite = bool(torch.isfinite(s.U).all())
+        log(f"  {var}'s path ({s.tables_np.ne} elements p=2 GL, f32): "
+            f"{s.iter} steps, launches {counts}, finite {finite}")
+        if bad or not finite or tps.get_status() != 0 or s.iter != 2:
+            raise SystemExit(f"{var}: the CLI run failed its checks "
+                             f"(launches off: {bad})")
+        out[var]["launches"] = counts[f"face_sweep/{var}"]
+        del tps, s
+    return out, worst
+
+
+def launch_account(path, tag):
+    """Phase 52's account of the deck's launches, each profiled on the card
+    in f32 over several calls and divided: launches a graph step of the
+    deck as shipped and of the deck with its outer wall inviscid like its
+    axis (both walls of one kind, which `dg/rhs.py::_bc_runs` runs as one
+    flux call a stage); and, on the deck as shipped, the launches of one
+    call of the geometric source, of one plain temperature of its state
+    (a Newton solve) and of one mu and kappa lookup (the source's
+    transport).  Fails where a count is missing."""
+    from tps_torch.dg.forcing import AxisymmetricSource
+
+    with open(path) as f:
+        text = f.read()
+    one_kind = os.path.join(REPO, "build", f"{tag}_one_wall_kind.ini")
+    with open(one_kind, "w") as f:
+        f.write(text.replace("type = viscous_adiabatic", "type = inviscid"))
+    out = {}
+    for name, deck in (("step, as shipped", path),
+                       ("step, both walls inviscid", one_kind)):
+        tps = channel_tps(torch.float32, f"{tag}_count", iters=2, path=deck)
+        fl = tps.solver.flow
+        fl.write_restart = lambda: None
+        fl.cuda_graphs = True
+        tps.solve()  # the capture
+        out[name] = device_share(lambda: fl.solve_chunk(1), 2).get("launches")
+        if deck == path:
+            src = next(f for f in fl.ctx.forcings
+                       if isinstance(f, AxisymmetricSource))
+            U = fl.U.clone()
+            Up = fl.mixture.primitives(U)
+            grad = torch.zeros(U.shape + (fl.mixture.dim,), dtype=U.dtype,
+                               device=U.device)
+            tab = fl.tables
+            for key, fn in (
+                    ("source", lambda: src(0.0, tab, U, Up, grad)),
+                    ("temperature", lambda: fl.mixture.temperature(U)),
+                    ("mu lookup", lambda: fl.transport.flux_properties(
+                        fl.mixture, U, Up, grad))):
+                out[key] = device_share(fn, 8).get("launches")
+        del tps, fl
+    log(f"  launches on the card, f32, a profiled call's mean: {out}")
+    missing = [k for k, v in out.items() if not v]
+    if missing:
+        raise SystemExit(f"phase 52: no launches recorded for {missing}")
+    return out
+
+
+def phase_lte_torch(dev, refs):
+    """Phase 52: tps_torch/tools/lte_torch_axisym.ini (the LTE-table torch
+    in (r, z) with swirl under the Joule coupling, 64x64 p=2 GL, EM every
+    10 steps) through the CLI as phase 42 runs its deck (phase_torch_axi):
+    20 steps in f32 and f64, the lte_axi sweep 4 times a step and no other
+    variant, graph vs eager within GRAPH_TOL, card vs the port's CPU at
+    step 3 (U within LTE_CPU_TOL, phase 39's bar; the fields within
+    CHANNEL_CPU_TOL), the power on target at each EM solve, ms/step; the
+    deck on Euler, 2 steps, lte_axi_euler.  Then launch_account."""
+    path = lte_axi_deck("lte_axi")
+    out = phase_torch_axi(dev, refs, path, "lte_axi", "lte_axi",
+                          euler="lte_axi_euler", cpu_tol=LTE_CPU_TOL)
+    out["launches"] = launch_account(path, "lte_axi")
+    torch.cuda.empty_cache()
+    return out
+
+
 def run(dev, refs):
     """Every phase on device dev, the CPU references in refs (a CpuRefs,
     started here once the kernels are built); returns the kernels'
@@ -5867,8 +6130,7 @@ def run(dev, refs):
               "f64, 20 steps, EM every 10), f64 graph vs eager and card vs "
               "CPU (3 steps), ms/step (f32)")
     torch_ml = phase_torch_axi(dev, refs, ML_DECK, "argon_axi_closure",
-                               "torch_ml",
-                               euler=False)
+                               "torch_ml", euler=None)
     log_phase("phase 46: les_channel3d.ini (Roe + Sigma, 32x16x16 p=2 GL) "
               "through the CLI (f32 and f64, 20 steps), f64 graph vs eager; "
               "card vs CPU at 16x8x8 (3 steps); ms/step (f32)")
@@ -5891,6 +6153,16 @@ def run(dev, refs):
               "steps); ms/step (f32)")
     with shared_tables():  # its three full-size runs
         forced = phase_forced_channel(dev, refs)
+    log_phase("phase 51: the face sweep's lte_axi variants vs plain (the "
+              "LTE torch deck's box on the axis: 1-D tables 64x64, 2-D "
+              "tables 32x32 p=2 GL; NS and Euler; f64, f32), then the "
+              "2-D-table variants' path through the CLI (f32, 2 steps)")
+    lte_axi_faces, lte_axi_err = phase_lte_axi_faces(dev)
+    log_phase("phase 52: lte_torch_axisym.ini through the CLI (f32 and f64, "
+              "20 steps, EM every 10), f64 graph vs eager and card vs CPU "
+              "(3 steps), ms/step (f32); the deck on Euler (2 steps); the "
+              "launches of the geometric source")
+    lte_torch = phase_lte_torch(dev, refs)
     torch.set_default_dtype(torch.float32)
 
     t16 = timing[(16, 16, 16)]
@@ -6049,6 +6321,30 @@ def run(dev, refs):
            for k, v in masa_rates.items() if k != "rates"},
         **{k: v["launches"] for k, v in forcings.items()},
         "forced_channel3d.ini": forced["f32"]["launches"]})
+    # the LTE fluid's axisymmetric variants: launches on their paths' CLI
+    # runs (phase 52: the deck and its Euler form; phase 51: the deck on
+    # the 2-D tables), times and bounds at the width of those paths
+    # (phase 51)
+    lte_axi_launches = {
+        "lte_axi": lte_torch["f32"]["launches"]["face_sweep/lte_axi"],
+        "lte_axi_euler": lte_torch["euler f32"]["launches"][
+            "face_sweep/lte_axi_euler"],
+        **{v: lte_axi_faces[v]["launches"] for v in ("lte_axi_t2",
+                                                     "lte_axi_t2_euler")}}
+    kernels[2]["launches_by_path"]["lte_torch_axisym.ini"] = \
+        lte_axi_launches["lte_axi"]
+    for var, rec in lte_axi_faces.items():
+        kernels.append({
+            "name": f"face_sweep/{var}", "route": "cuda",
+            "source": "tps_torch/csrc/face_sweep_lte_axi.cu",
+            "replaces": "tools/pallas_face_prototype.py:102",
+            "launches": lte_axi_launches[var],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "device_ms": rec["device_ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None, "grid": rec["grid"],
+            "f64_ms": rec["f64_ms"], "f64_device_ms": rec["f64_device_ms"],
+            "f64_max_rel_err": rec["f64_rel_err"]})
     # the DryAir sweep at the forced channel's width (phase 50)
     fs = forced["face_sweep"]
     kernels.append({
@@ -6115,6 +6411,9 @@ def run(dev, refs):
     summary["forcings and MMS"] = {
         "MMS brackets (f64)": mms_brackets, "3-D MASA rates (f64)": masa_rates,
         "forcings graph/eager/cpu (f64)": forcings, "forced channel": forced}
+    summary["axisymmetric LTE torch"] = {
+        "face sweep variants": lte_axi_faces,
+        "variants f64 max rel err": lte_axi_err, "deck": lte_torch}
     summary["face_sweep prototype mode"] = {
         "ms": proto["ms"], "plain_ms": proto["plain_ms"],
         "bound_ms": pb[0], "bound_by": pb[1], "rel_err": proto["rel_err"]}

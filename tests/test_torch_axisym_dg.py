@@ -24,9 +24,10 @@ package's, on the CPU in f64, module by module.
    well-balance bar (rel < 1e-6) and its 5 RK4 swirl steps against the
    JAX package's, 1e-10.
 7. What stays out raises: Roe with axisymmetry (ValueError, the
-   reference's error), and under axisymmetry the LTE fluid, constant
-   plasma transport and the six-species mixture (NotImplementedError
-   naming ROADMAP A5.3).  The SGS models, the viscous sponge and the
+   reference's error), and under axisymmetry constant plasma transport,
+   the six-species mixture and a mixture that is not ambipolar
+   (NotImplementedError naming ROADMAP A5.3; the LTE fluid runs,
+   tests/test_torch_lte_axisym.py).  The SGS models, the viscous sponge and the
    mixing length run under axisymmetry: check_slice accepts them.
 
 The pipe deck, the small torch deck and the checkpoints are held in
@@ -38,9 +39,11 @@ import os
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -430,7 +433,8 @@ def test_roe_with_axisymmetry_is_the_references_error():
     pytest.param(("transport_model = argon_minimal",
                   "transport_model = constant"), id="constant-transport"),
     pytest.param(("numSpecies = 3", "numSpecies = 6"), id="six-species"),
-    pytest.param(("fluid = user_defined", "fluid = lte_table"), id="lte"),
+    pytest.param(("ambipolar = True", "ambipolar = False"),
+                 id="not-ambipolar"),
 ])
 def test_what_stays_out_names_a5_3(edit):
     rc = _rc(_argon_text(**{edit[0]: edit[1]}))

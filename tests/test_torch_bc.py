@@ -16,9 +16,11 @@ import pathlib
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 import jax.numpy as jnp  # noqa: E402
 

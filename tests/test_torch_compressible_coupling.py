@@ -23,10 +23,13 @@ import os
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from tps_torch.config.ini import IniInput  # noqa: E402
@@ -132,8 +135,11 @@ def test_coupling_api_matches_jax(tmp_path):
     from tps_tpu.dg import rhs as jrhs
 
     y, _ = compute_rhs(s.ctx, s.tables, torch.as_tensor(U))
-    jy, _ = jrhs.compute_rhs(js.ctx, js.tables, jnp.asarray(U), 0.0,
-                             fields=js.fields)
+    # one compiled RHS (op by op, JAX compiles and dispatches each of its
+    # primitives apart)
+    jy, _ = jax.jit(lambda tab, u, f: jrhs.compute_rhs(js.ctx, tab, u, 0.0,
+                                                      fields=f))(
+        js.tables, jnp.asarray(U), js.fields)
     jy = np.asarray(jy)
     for k in (3, 4, 5):
         assert _rel(y[..., k], jy[..., k]) <= 1e-11, k

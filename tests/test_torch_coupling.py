@@ -37,9 +37,11 @@ import os
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 import jax.numpy as jnp  # noqa: E402
 
@@ -440,12 +442,14 @@ def test_shipped_deck_runs_through_the_cli(tmp_path, capsys):
 
 # (ini keys, run-configuration fields, ROADMAP item); the compressible
 # plasma solver under the coupling runs (tests/test_torch_compressible_
-# coupling.py), with the LTE fluid too (tests/test_torch_lte_coupled.py);
-# with axisymmetric flow it raises
+# coupling.py), with the LTE fluid too (tests/test_torch_lte_coupled.py),
+# in (r, z) too (tests/test_torch_lte_axisym.py); with axisymmetric flow
+# on a six-species mixture it raises
 REFUSALS = {
     "compressible": ({"cycle-avg-joule-coupled/plasma-solver":
-                      "compressible"},
-                     {"fluid": "lte_table", "axisymmetric": True}, "A5.3"),
+                      "compressible", "species/numSpecies": "6"},
+                     {"fluid": "user_defined", "axisymmetric": True},
+                     "A5.3"),
     "qms3d": ({"cycle-avg-joule-coupled/axisymmetric": "0"}, {}, "A10"),
     "em3d": ({"solver/type": "em"}, {}, "A10"),
 }

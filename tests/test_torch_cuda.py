@@ -18,11 +18,12 @@ argon channel's step graph == eager steps across an EM update.  The
 LTE-table fluid's eight variants == their plain versions (f64 2.2e-13);
 the LTE channel's step graph == eager steps across an EM update.  The
 axisymmetric (r, z) + swirl variants (DryAir, the argon ternary on
-Navier-Stokes and Euler) == their plain versions, on a strip off the axis
-and on boxes touching it.  The forcings (pressure gradient, heat source,
-sponge zones, the MASA sources) on the card == on the CPU; the forced
-channel and the transient MMS deck: step graph == eager steps == the CPU;
-the compute_rhs tool's errors on the card == the CPU's.
+Navier-Stokes and Euler, the LTE fluid's four) == their plain versions, on
+a strip off the axis and on boxes touching it.  The forcings (pressure
+gradient, heat source, sponge zones, the MASA sources) on the card == on
+the CPU; the forced channel and the transient MMS deck: step graph ==
+eager steps == the CPU; the compute_rhs tool's errors on the card == the
+CPU's.
 
 Marked `cuda`; each test skips where torch.cuda.is_available() is false.
 This file imports no jax, so on a machine without it run it alone, past
@@ -1050,6 +1051,73 @@ def test_face_sweep_lte_variants_match_plain(device, tmp_path, var, n, dtype):
         assert _rel(z, plain) <= 2.2e-13
     else:
         sw64, _ = _lte_case(var, n, torch.float64, device, tmp_path)
+        ref = sw64.plain(X.double())
+        assert (_rel(z, plain) <= TOL[dtype]
+                or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))
+
+
+def _lte_axi_case(var, n, dtype, device, tmp):
+    """An lte_axi variant's sweep and input: the LTE fluid with swirl
+    (nvel = 3) on lte_argon_tables.py's tables (1-D, or 2-D written into
+    tmp, "_t2"), Navier-Stokes or Euler ("_euler"), on the LTE torch
+    deck's (r, z) box (x = r in [0, 0.01] on the axis, z periodic) at
+    n x n p=2 GL; a hot state (T 9,500 K with a 20% wave) with a rigid
+    swirl u_t = 500 r, and its DG gradient."""
+    from tps_torch.config.ini import IniInput
+    from tps_torch.physics.lte import load_lte_setup
+    from tps_torch.tools.lte_argon_tables import lte_keys
+
+    euler = var.endswith("euler")
+    mix, tr = load_lte_setup(IniInput.parse(lte_keys(
+        2 if "_t2" in var else 1, str(tmp))), 2, 3)
+    fl = Fluxes(mixture=mix, transport=tr,
+                eq_system="euler" if euler else "navier-stokes",
+                axisymmetric=True)
+    ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
+    tab_np = build_tables(box_2d(n, n, x1=0.01, y1=0.01, periodic_y=True),
+                          2, axisymmetric=True)
+    xyz = tab_np.xyz_dof
+    wave = (np.sin(2 * np.pi / 0.01 * xyz[..., 0])
+            * np.cos(2 * np.pi / 0.01 * xyz[..., 1]))
+    Up = np.zeros(xyz.shape[:-1] + (5,))
+    Up[..., 0] = 0.05 * (1 + 0.1 * wave)
+    Up[..., 1], Up[..., 2] = 3.0 * wave, 10.0 - 2.0 * wave
+    Up[..., 3] = 500.0 * xyz[..., 0] * (1 + 0.1 * wave)
+    Up[..., 4] = 9500.0 * (1 + 0.2 * wave)
+    tab = tab_np.to_torch(torch.float64, device)
+    U = mix.conservatives(torch.as_tensor(Up, device=device))
+    X = U
+    if not euler:
+        G = dg_gradient(tab, mix.primitives(U))
+        X = torch.cat([U, G.reshape(tab_np.ne, tab_np.ndof, -1)], -1)
+    return build_face_sweep(tab_np.to_torch(dtype, device), ctx), \
+        X.to(dtype).contiguous()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("var,n", [
+    ("lte_axi", 8), ("lte_axi", 64), ("lte_axi_euler", 64),
+    ("lte_axi_t2", 6), ("lte_axi_t2", 32), ("lte_axi_t2_euler", 32)])
+def test_face_sweep_lte_axi_variants_match_plain(device, tmp_path, var, n,
+                                                 dtype):
+    """Each axisymmetric LTE variant against its plain version (the
+    axisymmetric Fluxes through face_sweep_plain): f64 2.2e-13 of
+    max|plain| (the LTE variants' bar); f32 within 5e-5, or no farther
+    from the f64 plain result than twice the f32 plain version; one
+    launch, counted under its variant; the swirl row is not zero."""
+    sw, X = _lte_axi_case(var, n, dtype, device, tmp_path)
+    assert sw.variant == var and sw.physics == "lte" and sw.rad is not None
+    cuda_faces.reset_launches()
+    z = sw(X)
+    torch.cuda.synchronize()
+    assert cuda_faces.launches["face_sweep"] == 1
+    assert cuda_faces.variant_launches[var] == 1
+    plain = sw.plain(X)
+    assert float(plain[..., 3].abs().max()) > 0.0
+    if dtype == torch.float64:
+        assert _rel(z, plain) <= 2.2e-13
+    else:
+        sw64, _ = _lte_axi_case(var, n, torch.float64, device, tmp_path)
         ref = sw64.plain(X.double())
         assert (_rel(z, plain) <= TOL[dtype]
                 or _rel(z.double(), ref) <= 2 * _rel(plain.double(), ref))

@@ -6,7 +6,9 @@ with --deck axisym, of its axisymmetric form with swirl,
 tps_torch/tools/argon_torch_axisym.ini, max|u| over the three velocities;
 with --deck axisym_ml, of that deck with the mixing length and the
 viscous sponge, tps_torch/tools/argon_torch_axisym_ml.ini; with --deck
-forced_channel, of the 3-D channel of air with the pressure forcing, the
+lte_axisym, of the LTE-table torch in (r, z) with swirl,
+tps_torch/tools/lte_torch_axisym.ini, its peak T the equilibrium one;
+with --deck forced_channel, of the 3-D channel of air with the pressure forcing, the
 heat source and the sponge zone, tps_torch/tools/forced_channel3d.ini,
 its peak T the gas temperature),
 step by step,
@@ -51,6 +53,7 @@ the CPU):
 
 import argparse
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -70,6 +73,8 @@ DECKS = {"torch": os.path.join(REPO, "examples", "cases",
                                 "argon_torch_axisym.ini"),
          "axisym_ml": os.path.join(REPO, "tps_torch", "tools",
                                    "argon_torch_axisym_ml.ini"),
+         "lte_axisym": os.path.join(REPO, "tps_torch", "tools",
+                                    "lte_torch_axisym.ini"),
          "forced_channel": os.path.join(REPO, "tps_torch", "tools",
                                         "forced_channel3d.ini")}
 
@@ -78,11 +83,12 @@ def deck_text(deck, steps, plain, outdir, dt=None, power=None):
     with open(DECKS[deck]) as f:
         txt = f.read()
     if dt is not None:
-        txt = txt.replace("dt_fixed = 1e-9", f"dt_fixed = {dt}")
+        txt = re.sub(r"dt_fixed = \S+", f"dt_fixed = {dt}", txt)
     if power is not None:
         txt = txt.replace("input-power = 0.5", f"input-power = {power}")
     for name in ("argon_channel_coupled", "argon_torch_axisym_ml",
-                 "argon_torch_axisym", "forced_channel3d"):
+                 "argon_torch_axisym", "lte_torch_axisym",
+                 "forced_channel3d"):
         txt = txt.replace(f"outdirBase = output/{name}",
                           f"outdirBase = {outdir}")
     txt = txt.replace("maxIters = 200", f"maxIters = {steps}")
@@ -92,6 +98,8 @@ def deck_text(deck, steps, plain, outdir, dt=None, power=None):
                       f"outdirBase = {outdir}")
     txt = txt.replace("examples/cases/",
                       os.path.join(REPO, "examples", "cases", ""))
+    txt = txt.replace("tps_torch/tools/lte_argon",
+                      os.path.join(REPO, "tps_torch", "tools", "lte_argon"))
     txt = txt.replace("outdirBase = output/torch", f"outdirBase = {outdir}")
     if plain:
         txt = txt.replace("type = cycle-avg-joule-coupled", "type = loMach")
@@ -122,7 +130,9 @@ def fields(s, np_of):
     if hasattr(getattr(s, "flow", None), "mixture"):  # compressible
         mix = s.flow.mixture
         Up = np_of(mix.primitives(s.flow.U))
-        return (Up[..., 1:1 + mix.nvel], Up[..., mix.i_te],
+        # the electrons' T on a mixture, the LTE fluid's own
+        return (Up[..., 1:1 + mix.nvel],
+                Up[..., getattr(mix, "i_te", mix.i_th)],
                 s.em.total_joule_heating())
     th, fl = parts(s)
     if hasattr(s, "em"):

@@ -29,9 +29,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 from tps_torch.dg.discretization import build_tables  # noqa: E402
 from tps_torch.dg.fluxes import Fluxes  # noqa: E402
@@ -128,8 +130,10 @@ def test_source_at_matches_jax(name):
     x = np.random.default_rng(11).uniform(0.0, 3.0, (3, 4, dim))
     tx, jx = torch.as_tensor(x), jnp.asarray(x)
     t = 1.3e-3 if h.transient else 0.0
-    assert _rel(h.exact_U(tx, t), jh.exact_U(jx, t)) <= TOL
-    want = jh.source_at(jx, t)
+    # the JAX package's functions compiled once (jax.jit), not dispatched
+    # op by op
+    assert _rel(h.exact_U(tx, t), jax.jit(jh.exact_U)(jx, t)) <= TOL
+    want = jax.jit(jh.source_at)(jx, t)
     assert _rel(h.source_at(tx, t), want) <= TOL
     # the forcing: the steady source made once per table, the transient
     # one at the stage's device time
@@ -161,9 +165,9 @@ def test_rhs_error_and_norms_match_jax():
     fl, jfl = h.fluxes, jh.fluxes
     ctx = RHSContext(fluxes=fl, riemann=Rusanov(fl))
     err, per = mms.rhs_error(ctx, tab, h.up_fn)
-    jerr, jper = jmms.rhs_error(JRHSContext(fluxes=jfl,
-                                            riemann=JRusanov(jfl)),
-                                jtab, jh.up_fn)
+    jctx = JRHSContext(fluxes=jfl, riemann=JRusanov(jfl))
+    jerr, jper = jax.jit(lambda jtab: jmms.rhs_error(jctx, jtab, jh.up_fn))(
+        jtab)
     assert _rel(err, jerr) <= RATIO_TOL and _rel(per, jper) <= RATIO_TOL
     res, orders = mms.convergence_study(lambda n: (ctx, _box(n)[0]),
                                         h.up_fn, (2, 4))

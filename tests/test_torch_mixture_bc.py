@@ -28,9 +28,11 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 from test_argon_transport import MW_AR, MW_E, HF_ARP  # noqa: E402
 

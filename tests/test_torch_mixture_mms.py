@@ -20,9 +20,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 import test_mms_ternary_bc as mms  # noqa: E402
 
@@ -139,15 +141,45 @@ def test_exact_states_satisfy_bcs(tmp_path):
     _cols_close(y, jy, 1e-11)
 
 
+def _general_wall_slopes(js):
+    """mms._solve_general_wall_slopes with its residual F compiled once
+    (jax.jit) instead of dispatched op by op: the same three equations,
+    the same solve and the same guard on the residual."""
+    from tps_tpu.dg.bc import GeneralWallBC
+
+    mix = js.mixture
+    neq = mix.num_equations
+    i_ion = mix.nvel + 2
+    bc0 = GeneralWallBC(heavy="isothermal", electron="sheath",
+                        wall_temp=300.0)
+    bcL = GeneralWallBC(heavy="isothermal", electron="isothermal",
+                        wall_temp=300.0, wall_temp_e=300.0)
+
+    def F(params):
+        up = mms._general_up_factory(*params)
+        m0, _ = mms._wall_flux_mismatch(js, up, 1.234, 0.0, -1.0, bc0)
+        mL, _ = mms._wall_flux_mismatch(js, up, 1.234, mms.L, 1.0, bcL)
+        return jnp.asarray([m0[i_ion], m0[neq - 1], mL[i_ion]])
+
+    p0 = jnp.zeros(3)
+    J = jax.jit(jax.jacfwd(F))(p0)
+    Fj = jax.jit(F)
+    p = jnp.linalg.solve(J, -Fj(p0))
+    res = np.asarray(Fj(p))
+    assert np.abs(res).max() < 1e-8, res  # the linearity assumption
+    return [float(v) for v in np.asarray(p)], bc0, bcL
+
+
 def test_general_wall_sheath_exact_flux_match(tmp_path):
     """With tps_tpu's solved slopes, the port's sheath wall (y = 0) and
     isothermal general wall (y = L) prescribe the manufactured interior
     fluxes on every row (1e-10 of the interior flux, the JAX test's bar),
-    and its wall and interior fluxes equal tps_tpu's."""
+    and its wall and interior fluxes equal tps_tpu's (each JAX function
+    compiled once with jax.jit)."""
     from tps_torch.dg.bc import _interior_visc_dot_n
 
     js = mms._build_general(2, 4)
-    (a0, b0, aL), jbc0, jbcL = mms._solve_general_wall_slopes(js)
+    (a0, b0, aL), jbc0, jbcL = _general_wall_slopes(js)
     up = mms._general_up_factory(a0, b0, aL)
     text = mms.DECK
     for old, new in mms.GEN_SUBS:
@@ -171,6 +203,8 @@ def test_general_wall_sheath_exact_flux_match(tmp_path):
     i_ion = mix.nvel + 2
     for y0, ny, bc, jb in ((0.0, -1.0, bcs["sheath"], jbc0),
                            (mms.L, 1.0, bcs["isothermal"], jbcL)):
+        mismatch = jax.jit(lambda xv: mms._wall_flux_mismatch(
+            js, up, xv, y0, ny, jb))
         for xv in (0.4, 2.2, 4.1):
             x = jnp.asarray([xv, y0])
             Up = np.asarray(up(x))[None]
@@ -186,7 +220,7 @@ def test_general_wall_sheath_exact_flux_match(tmp_path):
                                        torch.full((1, 1), 0.1))[0]
             ref = float(torch.abs(fvi).max())
             assert float(torch.abs(fvw - fvi).max()) / ref < 1e-10, (xv, y0)
-            jm, jfvi = mms._wall_flux_mismatch(js, up, xv, y0, ny, jb)
+            jm, jfvi = mismatch(xv)
             _close(fvi, jfvi)
             _close(fvw - fvi, jm, 1e-10 * ref / float(np.abs(jm).max()))
             if bc.electron == "sheath":

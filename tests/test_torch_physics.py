@@ -8,9 +8,11 @@ f64, so the bar is rounding: rtol 1e-13.
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 from tps_torch.dg.fluxes import Fluxes, PlanarViscousSponge  # noqa: E402
 from tps_torch.dg.sgs import Smagorinsky  # noqa: E402

@@ -16,9 +16,11 @@ import shutil
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 from tps_torch import harness  # noqa: E402
 from tps_torch.dg.rhs import init_bc_states  # noqa: E402

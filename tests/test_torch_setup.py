@@ -15,9 +15,11 @@ import sys
 
 import numpy as np
 import pytest
+from threadpoolctl import threadpool_limits
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
+threadpool_limits(1)  # numpy's and scipy's BLAS too: one thread a worker
 
 from tps_torch.config.ini import IniInput  # noqa: E402
 from tps_torch.config.run_config import parse_run_configuration  # noqa: E402

@@ -7,7 +7,12 @@
 // and dg/fluxes.py with no bulk viscosity, no electron conduction and no
 // diffusion, as the JAX package computes them in XLA.
 //
-// State: U = (rho, rho u_1..u_DIM, rho E), NEQ = DIM + 2; gradients of the
+// State: U = (rho, rho u_1..u_NVEL, rho E), NEQ = NVEL + 2, NVEL = DIM
+// planar or 3 on the axisymmetric (r, z) state with swirl (AXI: u_theta
+// the third velocity, carried by the normal speed and carrying no
+// pressure; in the viscous flux u_r / r in div u and the swirl row
+// mu (du_t/dr - u_t/r, du_t/dz) with its work, each 1/r through
+// dg_pointwise.cuh::over_r, as dg/fluxes.py forms them); gradients of the
 // primitives (rho, u, T) are laid out g[eq * DIM + d].
 //
 // T at a point: the T(e, rho) table's guess, then `newton` Newton steps on
@@ -148,14 +153,17 @@ inline LtePhys<TD> make_lte_phys(const double* p) {
   return m;
 }
 
-template <int DIM_, int TD>
+template <int DIM_, int TD, bool AXI_ = false>
 struct LteFluid {
   static constexpr int DIM = DIM_;
-  static constexpr int NEQ = DIM + 2;
-  static constexpr int IE = DIM + 1;
+  static constexpr bool AXI = AXI_;
+  static constexpr int NVEL = DIM + (AXI ? 1 : 0);
+  static constexpr int NEQ = NVEL + 2;
+  static constexpr int IE = NVEL + 1;
   static constexpr int NW = 1;  // wave data per side: |u| + c
   static constexpr bool CLOSURES = false;  // no closure step
   using Params = LtePhys<TD>;
+  static_assert(!AXI || DIM == 2, "the axisymmetric state is 2-D");
 
   static Params make(const double* p) { return make_lte_phys<TD>(p); }
 
@@ -165,7 +173,7 @@ struct LteFluid {
                                                   const Params& m) {
     const T rho = u[0];
     T m2 = T(0);
-    for (int d = 0; d < DIM; ++d) m2 += u[1 + d] * u[1 + d];
+    for (int d = 0; d < NVEL; ++d) m2 += u[1 + d] * u[1 + d];
     const T e = (u[IE] - T(0.5) * m2 / rho) / rho;
     T th = m.Tg(e, rho);
 #pragma unroll 1
@@ -193,8 +201,10 @@ struct LteFluid {
       un += vel[d] * n[d];
       mn += u[1 + d] * n[d];
     }
+    for (int d = DIM; d < NVEL; ++d) m2 += u[1 + d] * u[1 + d];
     f[0] = mn;
     for (int i = 0; i < DIM; ++i) f[1 + i] = u[1 + i] * un + p * n[i];
+    for (int i = DIM; i < NVEL; ++i) f[1 + i] = u[1 + i] * un;
     f[IE] = un * (u[IE] + p);
     w[0] = sqrt(m2 / (rho * rho)) + m.c(th, rho);
   }
@@ -217,11 +227,12 @@ struct LteFluid {
   // The one-sided viscous normal flux of a traced state and its traced
   // gradient gt[eq * DIM + d] (fluxes.py::viscous with
   // LteTransport.flux_properties: mu(T, rho), kappa(T, rho), no bulk
-  // viscosity).  fv[0] is not written.
+  // viscosity), at radius pt.r on the axisymmetric state (read there
+  // only).  fv[0] is not written.
   template <typename T>
   static __device__ __forceinline__ void visc(const T* u, const T* gt,
                                               const T* n, const Params& m,
-                                              T* fv, const FacePoint<T>&,
+                                              T* fv, const FacePoint<T>& pt,
                                               const Closure&) {
     const T rho = u[0];
     const T th = temperature(u, m);
@@ -232,6 +243,7 @@ struct LteFluid {
       vel[d] = u[1 + d] / rho;
       div += gt[(1 + d) * DIM + d];
     }
+    if constexpr (AXI) div += over_r(vel[0], pt.r);
     T tau[DIM][DIM];
     for (int i = 0; i < DIM; ++i)
       for (int j = 0; j < DIM; ++j) {
@@ -247,6 +259,13 @@ struct LteFluid {
       }
       fv[1 + d] = sn;
       e += (tu + kap * gt[IE * DIM + d]) * n[d];
+    }
+    if constexpr (AXI) {  // the swirl row (tau_tr, tau_tz) and its work
+      const T ut = u[1 + DIM] / rho;
+      const T* gu = gt + (1 + DIM) * DIM;  // grad u_t
+      const T st = mu * (gu[0] - over_r(ut, pt.r)) * n[0] + mu * gu[1] * n[1];
+      fv[1 + DIM] = st;
+      e += ut * st;
     }
     fv[IE] = e;
   }

@@ -4,7 +4,8 @@
 // The mixtures' instantiations are in face_sweep_argon.cu,
 // face_sweep_argon_const.cu and face_sweep_gas_mixture.cu, the LTE
 // fluid's in face_sweep_lte.cu and face_sweep_lte3d.cu, the axisymmetric
-// policies' in face_sweep_axi.cu (DryAir) and face_sweep_argon_axi.cu,
+// policies' in face_sweep_axi.cu (DryAir), face_sweep_argon_axi.cu and
+// face_sweep_lte_axi.cu,
 // and DryAir's Roe form in face_sweep_roe.cu (each its own nvcc
 // process), reached through their dispatch functions.
 
@@ -49,9 +50,10 @@ TPS_DISPATCH_CL(dispatch_dry_air_roe)
 
 // slot mode, 2-D, the axisymmetric (r, z) policies with swirl (NVEL = 3),
 // R the slot points' radii [ne][nlf][nqf]: DryAirPhysics<2, true> (`p` as
-// dg_pointwise.cuh::make_phys) and ArgonMixture<2, true> (`p` as
-// dg_mixture.cuh::make_mix_phys), Navier-Stokes and Euler, with the
-// closures cl
+// dg_pointwise.cuh::make_phys), ArgonMixture<2, true> (`p` as
+// dg_mixture.cuh::make_mix_phys) and LteFluid<2, TD, true> (`p` as
+// dg_lte.cuh::make_lte_phys; no closures), Navier-Stokes and Euler, with
+// the closures cl
 #define TPS_DISPATCH_AXI(name)                                              \
   template <typename T>                                                     \
   int name(const T* X, const T* B, const int* cf, const int* cp,            \
@@ -61,6 +63,7 @@ TPS_DISPATCH_CL(dispatch_dry_air_roe)
            void* stream, const FaceClosure<T>& cl);
 TPS_DISPATCH_AXI(dispatch_dry_air_axi)
 TPS_DISPATCH_AXI(dispatch_argon_axi)
+TPS_DISPATCH_AXI(dispatch_lte_axi)
 #undef TPS_DISPATCH_AXI
 
 namespace {
@@ -76,6 +79,7 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
   if (R != nullptr) {
     auto fn = physics == PHYSICS_DRY_AIR ? dispatch_dry_air_axi<T>
               : physics == PHYSICS_ARGON ? dispatch_argon_axi<T>
+              : physics == PHYSICS_LTE   ? dispatch_lte_axi<T>
                                          : nullptr;
     if (fn == nullptr || dim != 2) return (int)cudaErrorInvalidValue;
     return fn(X, B, cf, cp, nbr, N, M, R, Y, ne, ndof, nqf, nlf, n_combo,
@@ -124,7 +128,7 @@ int dispatch(const T* X, const T* B, const int* cf, const int* cp,
 // N[lf * nor_lf + e * nor_e + s * dim + d]; `mask` may be null (all
 // slots interior); `R`, the slot points' radii [ne][nlf][nqf], is null
 // on planar tables and selects the axisymmetric policies (slot mode, 2-D,
-// PHYSICS_DRY_AIR or PHYSICS_ARGON) when given.  `closure` (7 doubles,
+// PHYSICS_DRY_AIR, PHYSICS_ARGON or PHYSICS_LTE) when given.  `closure` (7 doubles,
 // dg_pointwise.cuh::make_closure) is null where the viscous flux has no
 // closure; where given (slot mode, PHYSICS_DRY_AIR, PHYSICS_DRY_AIR_ROE
 // or PHYSICS_ARGON), D [ne] and Dn [ne][nlf] are the element length

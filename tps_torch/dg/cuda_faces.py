@@ -31,10 +31,11 @@ csrc/face_sweep.cu::face_plan).  Two modes:
   csrc/dg_gas_mixture.cuh; the LTE-table fluid, 2-D or 3-D, 1-D or 2-D
   tables, Navier-Stokes or Euler (`lte_phys`, csrc/dg_lte.cuh in
   csrc/face_sweep_lte.cu and csrc/face_sweep_lte3d.cu).  On axisymmetric
-  (r, z) tables with swirl (nvel = 3) two of them, DryAir and the argon
-  ternary (`argon` above, Navier-Stokes or Euler), run their axisymmetric
-  instantiations (csrc/face_sweep_axi.cu, csrc/face_sweep_argon_axi.cu),
-  which read each slot point's radius (xyz_slot[..., 0],
+  (r, z) tables with swirl (nvel = 3) three of them, DryAir, the argon
+  ternary (`argon` above, Navier-Stokes or Euler) and the LTE fluid in
+  2-D (1-D or 2-D tables, Navier-Stokes or Euler), run their axisymmetric
+  instantiations (csrc/face_sweep_axi.cu, csrc/face_sweep_argon_axi.cu,
+  csrc/face_sweep_lte_axi.cu), which read each slot point's radius (xyz_slot[..., 0],
   `CudaFaceSweep.rad`, passed to the same C entry; null on planar
   tables).  DryAir also runs with the Roe flux in 2-D and 3-D
   (csrc/face_sweep_roe.cu).  DryAir and the argon ternary (planar and
@@ -86,8 +87,10 @@ PHYSICS_ID = {"dry_air": 0, "argon": 1, "argon_const": 2, "gas_mixture": 3,
 LTE_VARIANTS = tuple(f"lte_{dim}d{td}{eq}" for dim in (2, 3)
                      for td in ("", "_t2") for eq in ("", "_euler"))
 # the axisymmetric (r, z) + swirl instantiations: DryAir (Navier-Stokes
-# and Euler) and the argon ternary's Navier-Stokes and Euler forms
-AXI_VARIANTS = ("dry_air_axi", "argon_axi", "argon_axi_euler")
+# and Euler), the argon ternary's Navier-Stokes and Euler forms and the
+# LTE fluid's (lte_axi, _t2 with 2-D tables, _euler on Euler)
+AXI_VARIANTS = ("dry_air_axi", "argon_axi", "argon_axi_euler") + tuple(
+    f"lte_axi{td}{eq}" for td in ("", "_t2") for eq in ("", "_euler"))
 # DryAir with the Roe flux, planar
 ROE_VARIANTS = ("dry_air_roe_2d", "dry_air_roe_3d")
 # the Navier-Stokes variants with the viscous flux's closures (the runtime
@@ -140,7 +143,7 @@ def face_sweep_supported(tab_np, ctx) -> bool:
     Navier-Stokes with Sutherland or constant transport; a mixture of
     `mixture_physics`; or the LTE fluid (`lte_table_dim`); one velocity
     per dimension, or, on axisymmetric (r, z) tables, the swirl state
-    (nvel = 3) on DryAir or the `argon` mixture.  Rusanov everywhere, Roe
+    (nvel = 3) on DryAir, the `argon` mixture or the LTE fluid.  Rusanov everywhere, Roe
     on planar DryAir.  The closures (`closures_on`: the Smagorinsky or
     Sigma model, the viscous sponge, the mixing length) on DryAir and the
     `argon` mixture only.  Outside these (Roe on a mixture or the LTE
@@ -189,7 +192,7 @@ def face_sweep_supported(tab_np, ctx) -> bool:
     if fl.axisymmetric:
         return (t.dim == 2 and mix.nvel == 3 and t.xyz_slot is not None
                 and riemann == "Rusanov"
-                and (kind == "DryAir"
+                and (kind in ("DryAir", "LteMixture")
                      or mixture_physics(ctx, t.dim) == "argon"))
     return mix.nvel == t.dim
 
@@ -289,6 +292,9 @@ def _base_variant(ctx, dim):
     if type(ctx.riemann).__name__ == "Roe":
         return f"dry_air_roe_{dim}d"
     if ctx.fluxes.axisymmetric:
+        if type(ctx.mixture).__name__ == "LteMixture":
+            return ("lte_axi" + ("_t2" if lte_table_dim(ctx) == 2 else "")
+                    + ("_euler" if ctx.fluxes.eq_system == "euler" else ""))
         if type(ctx.mixture).__name__ != "PerfectMixture":
             return "dry_air_axi"
         return ("argon_axi_euler" if ctx.fluxes.eq_system == "euler"

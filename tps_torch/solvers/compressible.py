@@ -10,9 +10,9 @@ transport; mass-action chemistry with Arrhenius, tabulated and
 radiative-decay rates, net emission; its source term dg/source_term.py
 and the Joule heating dg/forcing.py forcings of the RHS; the mixture's
 walls, inlets and outlets; the species undershoot clip inside the step),
-axisymmetric (r, z) flow with swirl on DryAir and on the argon ternary
-with argon_minimal transport (`[flow] axisymmetric`: nvel = 3, the
-radius-weighted tables, dg/forcing.py's AxisymmetricSource),
+axisymmetric (r, z) flow with swirl on DryAir, on the LTE-table fluid and
+on the argon ternary with argon_minimal transport (`[flow] axisymmetric`:
+nvel = 3, the radius-weighted tables, dg/forcing.py's AxisymmetricSource),
 the closures that change the viscous flux's transport coefficients (the
 wall distance with the mixing length, `[flow] computeDistance` and
 `useMixingLength`; the Smagorinsky and Sigma SGS models, `sgsModel`; the
@@ -285,11 +285,11 @@ def check_slice(rc: RunConfiguration):
 
 def _check_axisymmetric_fluid(rc):
     """Axisymmetric flow runs on the face sweep's axisymmetric policies
-    only (dg/cuda_faces.py::face_sweep_supported): DryAir, and the
-    two-temperature ambipolar argon ternary with argon_minimal transport
-    or on Euler.  The other fluids raise on both devices."""
-    if rc.fluid == "lte_table":
-        raise _not_ported("axisymmetric flow on the LTE-table fluid", "A5.3")
+    only (dg/cuda_faces.py::face_sweep_supported): DryAir, the LTE-table
+    fluid, and the two-temperature ambipolar argon ternary with
+    argon_minimal transport or on Euler.  The other mixtures (other
+    species counts, the constant plasma transport, mixtures that are not
+    ambipolar and two-temperature) raise on both devices."""
     if rc.fluid != "user_defined":
         return
     raw = rc.raw
